@@ -1,0 +1,112 @@
+"""Command line of the port (the offline subset of nodey_tpu.app.cli).
+
+Usage:
+    python -m nodey_tpu_torch validate project.json
+    python -m nodey_tpu_torch run project.json --export out.wav|out.mp3 \
+        [--preview preview.wav] [--kbps 320] [--device cuda|cpu]
+
+``run`` without ``--export`` renders the preview to ``preview.wav``. The
+default device is ``cuda``; with no card it fails rather than run on the
+CPU (pass ``--device cpu`` for that).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from nodey_tpu.core.errors import NodeyError, ProcessorRuntimeError
+
+from nodey_tpu_torch import __version__
+from nodey_tpu_torch.core.graph import Graph
+from nodey_tpu_torch.core.runner import RunResult, Runner
+from nodey_tpu_torch.host import decode as host_decode
+
+
+def _load_graph(path: str) -> Graph:
+    with open(path) as f:
+        return Graph.deserialize(json.load(f))
+
+
+def _report(what: str, result: RunResult) -> None:
+    m = result.metrics
+    print(
+        f"{what}: {m.audio_seconds:.2f} audio-s in {m.wall_seconds:.2f} s "
+        f"wall (decode {m.decode_seconds:.2f}s, ingest {m.ingest_seconds:.3f}s, "
+        f"render {m.render_seconds:.4f}s by {m.render_clock}, "
+        f"encode {m.encode_seconds:.2f}s)"
+    )
+    for key, spec in result.spectra.items():
+        print(f"  spectrum '{key}': shape {list(spec.shape)}")
+
+
+def cmd_validate(args) -> int:
+    graph = _load_graph(args.project)
+    graph.check_graph()
+    print(
+        f"OK: {len(graph.nodes)} nodes, {len(graph.links)} links, "
+        f"singletons: {sorted(graph.singleton_node_map)}"
+    )
+    return 0
+
+
+def cmd_run(args) -> int:
+    graph = _load_graph(args.project)
+    runner = Runner(graph, device=args.device)
+    if args.export:
+        _report(f"exported {args.export}",
+                runner.export(args.export, kbps=args.kbps))
+    if args.preview or not args.export:
+        result = runner.preview()
+        if result.master is None:
+            raise ProcessorRuntimeError(
+                "Preview produced no audio",
+                "The graph has no audio_output node receiving a stream.",
+                "preview output missing",
+            )
+        out = args.preview or "preview.wav"
+        host_decode.write_wav(out, result.master, result.rate)
+        _report(f"previewed -> {out}", result)
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="nodey_tpu_torch")
+    parser.add_argument(
+        "--version", action="version", version=f"nodey_tpu_torch {__version__}"
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_run = sub.add_parser("run", help="execute a project graph")
+    p_run.add_argument("project")
+    p_run.add_argument(
+        "--export", help="output path: .wav (lossless) or .mp3 (LAME CBR)"
+    )
+    p_run.add_argument("--preview", help="preview WAV output path")
+    p_run.add_argument("--kbps", type=int, default=320,
+                       help="MP3 bitrate (default 320)")
+    p_run.add_argument("--device", default="cuda",
+                       help="torch device to render on (default cuda)")
+    p_run.set_defaults(fn=cmd_run)
+
+    p_val = sub.add_parser("validate", help="validate a project file")
+    p_val.add_argument("project")
+    p_val.set_defaults(fn=cmd_validate)
+
+    args = parser.parse_args(argv)
+    try:
+        return args.fn(args)
+    except ProcessorRuntimeError as exc:
+        print(f"error: {exc.message}", file=sys.stderr)
+        print(f"  explanation: {exc.explanation}", file=sys.stderr)
+        if exc.detail:
+            print(f"  detail: {exc.detail}", file=sys.stderr)
+        return 1
+    except NodeyError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,195 @@
+"""The Runner: decode -> ingest -> render -> sink (port of
+nodey_tpu.core.runner, offline paths only).
+
+``Runner(graph, device=...)`` binds the graph to one device. A CUDA device
+without a card raises; nothing falls back to the CPU. On the card the
+render is timed with CUDA events; on the CPU with the host clock, and the
+metrics say which (``render_clock``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nodey_tpu import config as cfg
+from nodey_tpu.core.errors import ProcessorRuntimeError
+from nodey_tpu.core.graph import Graph
+
+from nodey_tpu_torch.core import compiler
+from nodey_tpu_torch.core.stream import FMT_S16
+from nodey_tpu_torch.host import decode as host_decode
+from nodey_tpu_torch.host import encode as host_encode
+
+
+@dataclasses.dataclass
+class RunMetrics:
+    audio_seconds: float = 0.0
+    wall_seconds: float = 0.0
+    decode_seconds: float = 0.0
+    ingest_seconds: float = 0.0
+    render_seconds: float = 0.0
+    # "cuda_events" on the card, "host" on the CPU.
+    render_clock: str = "host"
+    encode_seconds: float = 0.0
+
+    @property
+    def rtf(self) -> float:
+        return self.audio_seconds / self.wall_seconds if self.wall_seconds else 0.0
+
+
+@dataclasses.dataclass
+class RunResult:
+    master: Optional[np.ndarray]  # [channels, n] float32, valid length only
+    rate: int
+    fmt: str
+    spectra: Dict[str, np.ndarray]
+    metrics: RunMetrics
+
+
+def _bucket(n: int, quantum: int) -> int:
+    """Round a clip length up to the padding quantum (the JAX package's
+    recompile bucketing; kept so capacities, and the spectrum's frame
+    count, match it)."""
+    return max(quantum, -(-n // quantum) * quantum)
+
+
+class Runner:
+    """Runs a validated graph in export or preview mode on one device."""
+
+    def __init__(self, graph: Graph, device: torch.device | str = "cuda"):
+        self.graph = graph
+        self.device = compiler.resolve_device(device)
+
+    def decode(self):
+        """Decode every audio_input slot on the host, files in parallel.
+        s16 sources are kept as int16 (round(x*32768) inverts the decoder's
+        s/32768 exactly) and dequantized on the device; returns
+        ``(arrays, lengths, sources)`` padded to the bucketed capacity."""
+        arrays: Dict[str, np.ndarray] = {}
+        lengths: Dict[str, int] = {}
+        sources: Dict[Tuple[int, str], compiler.SourceSpec] = {}
+        slots = [
+            (nid, i, path)
+            for nid, node in self.graph.nodes.items()
+            if node.processor.info().identifier == cfg.AUDIO_INPUT_NODE_NAME
+            for i, path in enumerate(node.processor.file_paths)
+        ]
+        if not slots:
+            return arrays, lengths, sources
+        with ThreadPoolExecutor(max_workers=min(8, len(slots))) as pool:
+            decoded_all = list(
+                pool.map(lambda s: host_decode.decode_file(s[2]), slots)
+            )
+        for (nid, i, _), decoded in zip(slots, decoded_all):
+            n = decoded.num_samples
+            capacity = _bucket(n, cfg.DEFAULT_EXEC.pad_quantum)
+            if decoded.fmt == FMT_S16:
+                padded = np.zeros((decoded.channels, capacity), dtype=np.int16)
+                padded[:, :n] = np.clip(
+                    np.round(decoded.data * 32768.0), -32768, 32767
+                ).astype(np.int16)
+            else:
+                padded = np.zeros((decoded.channels, capacity), dtype=np.float32)
+                padded[:, :n] = decoded.data
+            key = compiler.external_key(nid, f"output_{i}")
+            arrays[key] = padded
+            lengths[key] = n
+            sources[(nid, f"output_{i}")] = compiler.SourceSpec(
+                rate=decoded.rate,
+                channels=decoded.channels,
+                fmt=decoded.fmt,
+                capacity=capacity,
+                t0_us=float(decoded.pts0_us),
+            )
+        return arrays, lengths, sources
+
+    def ingest(self, arrays: Dict[str, np.ndarray],
+               lengths: Dict[str, int]) -> Dict[str, Tuple[torch.Tensor, int]]:
+        """Copy the decoded inputs to the device."""
+        return {
+            key: (torch.from_numpy(arrays[key]).to(self.device), lengths[key])
+            for key in arrays
+        }
+
+    def compile(self, sources, mode: str) -> compiler.CompiledGraph:
+        return compiler.compile_graph(self.graph, sources, mode, self.device)
+
+    def render(self, mode: str = "export") -> RunResult:
+        """Run the graph once; returns the master (native rate for export,
+        clamped 48 kHz stereo for preview) and the spectra, on the host."""
+        metrics = RunMetrics()
+        wall0 = time.perf_counter()
+        t0 = wall0
+        arrays, lengths, sources = self.decode()
+        metrics.decode_seconds = time.perf_counter() - t0
+
+        compiled = self.compile(sources, mode)
+        t0 = time.perf_counter()
+        args = self.ingest(arrays, lengths)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        metrics.ingest_seconds = time.perf_counter() - t0
+
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outputs, meta = compiled(args)
+            end.record()
+            end.synchronize()
+            metrics.render_seconds = start.elapsed_time(end) / 1e3
+            metrics.render_clock = "cuda_events"
+        else:
+            t0 = time.perf_counter()
+            outputs, meta = compiled(args)
+            metrics.render_seconds = time.perf_counter() - t0
+
+        master_key = "master" if mode == "export" else "preview"
+        master = None
+        rate = cfg.SAMPLE_RATE
+        fmt = "flt"
+        if master_key in outputs:
+            data, length = outputs[master_key]
+            master = data[:, :length].cpu().numpy()
+            rate = meta[master_key]["rate"]
+            fmt = meta[master_key]["fmt"]
+            metrics.audio_seconds = length / rate
+        spectra = {
+            key: outputs[key].cpu().numpy()
+            for key, m in meta.items() if m["kind"] == "array"
+        }
+        metrics.wall_seconds = time.perf_counter() - wall0
+        return RunResult(master=master, rate=rate, fmt=fmt, spectra=spectra,
+                         metrics=metrics)
+
+    def export(self, path: str, kbps: int = 320) -> RunResult:
+        """Render and encode: ``.wav`` to the lossless WavWriter, else MP3
+        (reference: do_export, audio-io.cpp:640-844)."""
+        result = self.render(mode="export")
+        if result.master is None:
+            raise ProcessorRuntimeError(
+                "Export produced no audio",
+                "The graph has no audio_output node receiving a stream.",
+                "master output missing",
+            )
+        t0 = time.perf_counter()
+        master = result.master
+        block = 4 * result.rate  # samples per encoder call
+        with host_encode.open_sink(
+            path, result.rate, master.shape[0], kbps, result.fmt
+        ) as enc:
+            for start in range(0, master.shape[1], block):
+                enc.write(master[:, start : start + block])
+        result.metrics.encode_seconds = time.perf_counter() - t0
+        result.metrics.wall_seconds += result.metrics.encode_seconds
+        return result
+
+    def preview(self) -> RunResult:
+        """Offline preview render: clamped 48 kHz stereo master."""
+        return self.render(mode="preview")
