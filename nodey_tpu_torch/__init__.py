@@ -2,16 +2,17 @@
 
 A port of :mod:`nodey_tpu` (JAX/XLA/Pallas on a TPU) to PyTorch on an
 NVIDIA H100. The JAX package stays the reference; this package imports
-``torch`` and numpy and never ``jax``. From ``nodey_tpu`` it reuses only
-the modules that are free of jax: ``core.errors``, ``core.registry``'s
-``PinAttribute``/``ProcessorInfo``/``Processor`` base, ``core.graph.Graph``,
-``config`` and ``host.native_lib``.
+``torch`` and numpy, never ``jax``, and nothing of ``nodey_tpu``: it keeps
+its own copies of the jax-free modules it needs (``core.errors``,
+``core.registry``, ``core.graph``, ``config``, ``host.native_lib`` and the
+codec runtime's sources).
 
 Layout mirrors the JAX package (``core/``, ``ops/``, ``processors/``,
 ``host/``, ``app/``). Every op takes its tensors on an explicit device;
-there is no global default device. The one TPU kernel on the ported path
-(the grouped polyphase resampler) is a hand-written CUDA kernel under
-``csrc/``, built with ``nvcc`` at first use.
+there is no global default device. The TPU kernels on the ported paths
+(the grouped polyphase resampler, the WSOLA serial splice chain) are
+hand-written CUDA kernels under ``csrc/``, built with ``nvcc`` at first
+use.
 """
 
 import torch

@@ -16,9 +16,8 @@ import argparse
 import json
 import sys
 
-from nodey_tpu.core.errors import NodeyError, ProcessorRuntimeError
-
 from nodey_tpu_torch import __version__
+from nodey_tpu_torch.core.errors import NodeyError, ProcessorRuntimeError
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.core.runner import RunResult, Runner
 from nodey_tpu_torch.host import decode as host_decode

@@ -14,9 +14,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from nodey_tpu.core.errors import LogicError, ProcessorRuntimeError
-from nodey_tpu.core.graph import Graph
-
+from nodey_tpu_torch.core.errors import LogicError, ProcessorRuntimeError
+from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.core.stream import Stream
 
 

@@ -17,10 +17,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nodey_tpu import config as cfg
-from nodey_tpu.core.errors import ProcessorRuntimeError
-from nodey_tpu.core.graph import Graph
-
+from nodey_tpu_torch import config as cfg
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.core import compiler
 from nodey_tpu_torch.core.stream import FMT_S16
 from nodey_tpu_torch.host import decode as host_decode

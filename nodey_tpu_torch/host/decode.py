@@ -1,6 +1,6 @@
 """Host-side audio decode (port of nodey_tpu.host.decode, without jax).
 
-Primary path: the native FFmpeg runtime (``nodey_tpu.host.native_lib``,
+Primary path: the native FFmpeg runtime (``nodey_tpu_torch.host.native_lib``,
 which builds itself on first use). Where that library does not build or
 load, a pure-Python RIFF/WAV reader covers PCM16, PCM32 and float32 WAV;
 any other input then raises the same three-part error as the JAX package.
@@ -15,9 +15,8 @@ import struct
 
 import numpy as np
 
-from nodey_tpu.core.errors import ProcessorRuntimeError
-from nodey_tpu.host import native_lib
-
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+from nodey_tpu_torch.host import native_lib
 from nodey_tpu_torch.core.stream import FMT_FLT, FMT_S16, FMT_S32
 
 _FMT_FROM_TAG = {0: FMT_FLT, 1: FMT_S16, 2: FMT_S32}

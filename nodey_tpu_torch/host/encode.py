@@ -1,7 +1,7 @@
 """Host-side export sinks (port of nodey_tpu.host.encode, without jax).
 
 ``.wav`` paths take the incremental :class:`WavWriter`; anything else is
-MP3 through LAME in the native runtime (``nodey_tpu.host.native_lib``),
+MP3 through LAME in the native runtime (``nodey_tpu_torch.host.native_lib``),
 on the same terms as decode: where the library does not build or load, MP3 export
 raises the three-part error. The JAX package's segmented parallel MP3
 encoder is not ported yet; MP3 here is the serial reference-parity path.
@@ -14,9 +14,8 @@ import struct
 
 import numpy as np
 
-from nodey_tpu import config
-from nodey_tpu.core.errors import ProcessorRuntimeError
-
+from nodey_tpu_torch import config
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import FMT_S16
 from nodey_tpu_torch.host.decode import load_native
 

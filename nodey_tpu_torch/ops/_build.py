@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``nodey_tpu_torch/csrc/`` compile with ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, into ``build/nodey_tpu_torch/`` at the repository root,
-keyed on a hash of the sources and flags, so a fresh checkout builds it
-and an unchanged one reuses it. A missing ``nvcc`` or a failed build
-raises; nothing falls back.
+Each source ``nodey_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into
+its own shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use, into ``build/nodey_tpu_torch/`` at the
+repository root, keyed on a hash of the source, the headers and the
+flags, so a fresh checkout builds and an unchanged one reuses.
+``build_all()`` starts one ``nvcc`` per source, all together. A missing
+``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,11 +29,12 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
-def _sources():
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+def kernel_names() -> list:
+    """The kernel sources, by name (``csrc/<name>.cu``)."""
+    return sorted(src.stem for src in _CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -47,58 +49,79 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> pathlib.Path:
-    """Where the library for the current sources lives (built or not)."""
+def library_path(name: str) -> pathlib.Path:
+    """Where the library of ``csrc/<name>.cu`` lives (built or not)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return _BUILD_DIR / f"libnodey_kernels_{digest.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"libnodey_{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(so: pathlib.Path) -> None:
+def build_all(names=None) -> None:
+    """Build every library that is missing (or those of ``names``), one
+    ``nvcc`` process per source, started together."""
+    todo = [(name, library_path(name)) for name in (names or kernel_names())]
+    todo = [(name, so) for name, so in todo if not so.exists()]
+    if not todo:
+        return
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    # The -Xptxas -v report (registers, shared memory, spills per kernel).
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs.append((so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for so, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                            f"{' '.join(cmd)}\n{out}")
+            continue
+        # The -Xptxas -v report (registers, shared memory, spills).
+        so.with_suffix(".log").write_text(out)
+        os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.nodey_polyphase_resample.argtypes = [
-        vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
-    ]
-    lib.nodey_polyphase_resample.restype = i32
-    lib.nodey_polyphase_smem_bytes.argtypes = [i32, i32, i32]
-    lib.nodey_polyphase_smem_bytes.restype = ctypes.c_longlong
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "polyphase_resample":
+        lib.nodey_polyphase_resample.argtypes = [
+            vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
+        ]
+        lib.nodey_polyphase_resample.restype = i32
+        lib.nodey_polyphase_smem_bytes.argtypes = [i32, i32, i32]
+        lib.nodey_polyphase_smem_bytes.restype = i64
+    elif name == "wsola_chain":
+        lib.nodey_wsola_chain.argtypes = [
+            vp, vp, vp, vp, i32, i64, i32, i64, i64, i32, i32, i32, vp,
+        ]
+        lib.nodey_wsola_chain.restype = i32
+        lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32]
+        lib.nodey_wsola_smem_bytes.restype = i64
     lib.nodey_cuda_error_string.argtypes = [i32]
     lib.nodey_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, building it first if the sources changed."""
-    global _lib
+def load_library(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, building it first if its source
+    changed."""
     with _lock:
-        if _lib is None:
-            so = library_path()
+        if name not in _libs:
+            so = library_path(name)
             if not so.exists():
-                _compile(so)
-            _lib = _bind(ctypes.CDLL(str(so)))
-        return _lib
+                build_all([name])
+            _libs[name] = _bind(name, ctypes.CDLL(str(so)))
+        return _libs[name]
 
 
-def build_log() -> str:
+def build_log(name: str) -> str:
     """nvcc's report for the current library ("" before the first build)."""
-    log = library_path().with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""

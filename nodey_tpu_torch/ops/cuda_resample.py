@@ -72,7 +72,7 @@ def apply_filter_bank_cuda(x: torch.Tensor, G: int, M: int, W: int,
     y = torch.empty((C, G * L), dtype=torch.float32, device=x.device)
     if G == 0 or C == 0:
         return y
-    lib = _build.load_library()
+    lib = _build.load_library("polyphase_resample")
     tile_g = _tile_groups(lib, M, W)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -14,8 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu import config
-
+from nodey_tpu_torch import config
 from nodey_tpu_torch.core.stream import FMT_FLT, Stream
 from nodey_tpu_torch.ops import resample as resample_ops
 

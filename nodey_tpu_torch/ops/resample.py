@@ -29,8 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu.core.errors import ProcessorRuntimeError
-
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import FMT_FLT, Stream
 
 # libswresample default rematrix gain (-3 dB mono upmix).

@@ -1,0 +1,162 @@
+"""The WSOLA greedy splice chain: the plain PyTorch version and dispatch.
+
+For output frames k = 0 .. K-1, frame k reads the input window
+``x[:, pos(k) : pos(k) + seek + seq]`` with ``pos(k) = frame_pos(k, num,
+den)``. It scores its ONE realized previous tail [C, overlap] against the
+seek + 1 candidate offsets b of that window,
+
+    corr[b]   = sum_{c,v} tail[c, v] * w[c, b + v]
+    energy[b] = sum_{c,v} w[c, b + v]**2
+    score[b]  = corr[b] * rsqrt(energy[b] + 1e-9),
+
+takes the FIRST maximum (as ``np.argmax`` and ``jnp.argmax`` do), and
+emits one stride of audio from the chosen segment ``seg = w[:, b : b +
+seq]``: ``tail * fade_out + seg * fade_in`` over the first ``overlap``
+samples, then ``seg`` up to ``stride = seq - overlap``. The next tail is
+``seg[:, stride : stride + overlap]``; frame 0's tail is ``head``.
+
+This is the function of ``nodey_tpu/ops/pallas_wsola.py::
+wsola_chain_assemble_pallas`` (``_wsola_chain_pallas_impl`` with
+``emit_audio=True``). ``wsola_chain`` sends a CUDA tensor to the
+hand-written kernel (:mod:`nodey_tpu_torch.ops.cuda_wsola`) and a CPU
+tensor to ``wsola_chain_plain``; neither falls back to the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+
+
+def frame_pos(k: int, num: int, den: int = 65536) -> int:
+    """Input position of output frame k: floor((k*num + den//2) / den).
+
+    Host integers do not overflow; the JAX package's carry-decomposed
+    int32 form (``stretch.frame_pos``) gives the same value for every
+    k < 8.4M frames."""
+    return (k * num + den // 2) // den
+
+
+def fades(overlap: int, device) -> tuple:
+    """``(fade_in, fade_out)`` float32 [overlap]: fade_in = (v + 0.5) /
+    overlap by IEEE float32 division (computed in NumPy, because a CUDA
+    tensor divided by a Python scalar is multiplied by its reciprocal),
+    fade_out = 1 - fade_in. The kernel computes the same values."""
+    fade_in = ((np.arange(overlap, dtype=np.float32) + np.float32(0.5))
+               / np.float32(overlap))
+    fade_out = np.float32(1.0) - fade_in
+    return (torch.from_numpy(fade_in).to(device),
+            torch.from_numpy(fade_out).to(device))
+
+
+def check_window(x: torch.Tensor, K: int, num: int, den: int, seq: int,
+                  seek: int) -> None:
+    need = frame_pos(K - 1, num, den) + seek + seq if K > 0 else 0
+    if x.shape[1] < need:
+        raise ValueError(
+            f"WSOLA chain: x has {x.shape[1]} samples, frame {K - 1}'s "
+            f"window reads up to {need}"
+        )
+
+
+def best_offset(cand: torch.Tensor, tail: torch.Tensor,
+                ones: torch.Tensor) -> torch.Tensor:
+    """0-d int64 tensor: the first argmax over b of the normalized
+    cross-correlation of ``tail`` [C, overlap] with ``cand`` [C, seek +
+    overlap] (both float32; ``ones`` is [1, C, overlap])."""
+    corr = F.conv1d(cand[None], tail[None])[0, 0]
+    energy = F.conv1d((cand * cand)[None], ones)[0, 0]
+    return torch.argmax(corr * torch.rsqrt(energy + 1e-9))
+
+
+def _blend(tail, seg, fade_in, fade_out, overlap: int, stride: int):
+    head = tail * fade_out + seg[:, :overlap] * fade_in
+    return torch.cat([head, seg[:, overlap:]], dim=1)[:, :stride]
+
+
+def wsola_chain_plain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
+                      den: int, seq: int, seek: int, overlap: int):
+    """``(bs int32 [K], body float32 [C, K*stride])`` of the greedy chain,
+    one frame at a time in Python (see the module docstring). ``x`` [C, N]
+    must cover frame K-1's window."""
+    check_window(x, K, num, den, seq, seek)
+    C = x.shape[0]
+    stride = seq - overlap
+    fade_in, fade_out = fades(overlap, x.device)
+    ones = torch.ones((1, C, overlap), dtype=x.dtype, device=x.device)
+    bs = []
+    body = torch.empty((C, K * stride), dtype=x.dtype, device=x.device)
+    tail = head
+    for k in range(K):
+        pos = frame_pos(k, num, den)
+        window = x[:, pos : pos + seek + seq]
+        best = int(best_offset(window[:, : seek + overlap], tail, ones))
+        seg = window[:, best : best + seq]
+        body[:, k * stride : (k + 1) * stride] = _blend(
+            tail, seg, fade_in, fade_out, overlap, stride)
+        tail = seg[:, stride : stride + overlap]
+        bs.append(best)
+    return torch.tensor(bs, dtype=torch.int32, device=x.device), body
+
+
+def replay_decisions(x: torch.Tensor, head: torch.Tensor, bs, K: int,
+                     num: int, den: int, seq: int, seek: int,
+                     overlap: int) -> torch.Tensor:
+    """int64 [K]: the plain scoring of every frame k given the chain's own
+    choice bs[k-1] for its tail (frame 0 scores ``head``). Where a chain's
+    decisions are right, this equals ``bs``; a frame where it differs is a
+    decision the plain version would have made otherwise."""
+    check_window(x, K, num, den, seq, seek)
+    C = x.shape[0]
+    stride = seq - overlap
+    bs = [int(b) for b in bs]
+    ones = torch.ones((1, C, overlap), dtype=x.dtype, device=x.device)
+    picks = []
+    tail = head
+    for k in range(K):
+        pos = frame_pos(k, num, den)
+        picks.append(best_offset(x[:, pos : pos + seek + overlap], tail, ones))
+        start = pos + bs[k] + stride
+        tail = x[:, start : start + overlap]
+    return torch.stack(picks) if picks else torch.empty(0, dtype=torch.int64)
+
+
+def assemble_plain(x: torch.Tensor, head: torch.Tensor, bs, K: int, num: int,
+                   den: int, seq: int, seek: int, overlap: int) -> torch.Tensor:
+    """float32 [C, K*stride]: the audio a chain with splice choices ``bs``
+    emits, by the plain version's blend."""
+    check_window(x, K, num, den, seq, seek)
+    C = x.shape[0]
+    stride = seq - overlap
+    bs = [int(b) for b in bs]
+    fade_in, fade_out = fades(overlap, x.device)
+    body = torch.empty((C, K * stride), dtype=x.dtype, device=x.device)
+    tail = head
+    for k in range(K):
+        start = frame_pos(k, num, den) + bs[k]
+        seg = x[:, start : start + seq]
+        body[:, k * stride : (k + 1) * stride] = _blend(
+            tail, seg, fade_in, fade_out, overlap, stride)
+        tail = seg[:, stride : stride + overlap]
+    return body
+
+
+def wsola_chain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
+                den: int, seq: int, seek: int, overlap: int):
+    """``(bs, body)`` of the chain: a CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes the plain version."""
+    if x.is_cuda:
+        from nodey_tpu_torch.ops import cuda_wsola
+
+        return cuda_wsola.wsola_chain_cuda(x, head, K, num, den, seq, seek,
+                                           overlap)
+    if x.device.type != "cpu":
+        raise ProcessorRuntimeError(
+            "Unsupported device for time stretching",
+            "The WSOLA chain runs on a CUDA card (kernel) or on the CPU.",
+            f"device={x.device}",
+        )
+    return wsola_chain_plain(x, head, K, num, den, seq, seek, overlap)

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
-from nodey_tpu.core.errors import ProcessorRuntimeError
-
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
 

@@ -12,9 +12,8 @@ from typing import Any, Dict, List
 
 import torch
 
-from nodey_tpu import config
-from nodey_tpu.core.errors import ProcessorRuntimeError
-
+from nodey_tpu_torch import config
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import FMT_FLT, AudioStreamType
 from nodey_tpu_torch.ops import resample as resample_ops

@@ -1,9 +1,16 @@
-"""The port runs with ``import jax`` blocked: a fresh interpreter whose
-``sys.meta_path`` refuses jax renders a tiny WAV graph through
-``python -m nodey_tpu_torch run ... --device cpu``."""
+"""The port runs with ``import jax`` and ``import nodey_tpu`` blocked.
 
+A fresh interpreter whose ``sys.meta_path`` refuses jax and the JAX
+package imports every module of ``nodey_tpu_torch`` and renders a tiny
+WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``;
+afterwards ``sys.modules`` holds neither. ``chip_smoke.py`` is held to the
+same, and no source file of the port names either in an import.
+"""
+
+import ast
 import json
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -11,23 +18,57 @@ import numpy as np
 
 from nodey_tpu_torch.host.decode import write_wav_s16
 
-_DRIVER = r"""
-import runpy, sys
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-class _BlockJax:
+_BLOCKER = r"""
+import sys
+
+_BLOCKED = ("jax", "jaxlib", "nodey_tpu")
+
+def _blocked(name):
+    return name.split(".")[0] in _BLOCKED
+
+class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if _blocked(name):
             raise ImportError(f"import of {name} is blocked")
         return None
 
-sys.meta_path.insert(0, _BlockJax())
+sys.meta_path.insert(0, _Block())
+
+def report():
+    leaked = sorted(m for m in sys.modules if _blocked(m))
+    print("BLOCKED_MODULES", leaked, flush=True)
+"""
+
+_CLI_DRIVER = _BLOCKER + r"""
+import importlib, pkgutil, runpy
+import nodey_tpu_torch
+for mod in pkgutil.walk_packages(nodey_tpu_torch.__path__, "nodey_tpu_torch."):
+    if mod.name != "nodey_tpu_torch.__main__":
+        importlib.import_module(mod.name)
 sys.argv = ["nodey_tpu_torch"] + sys.argv[1:]
 try:
     runpy.run_module("nodey_tpu_torch", run_name="__main__")
 finally:
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
-    print("JAX_MODULES", leaked)
+    report()
 """
+
+_SMOKE_DRIVER = _BLOCKER + r"""
+import runpy
+try:
+    runpy.run_path(sys.argv[1], run_name="__main__")
+finally:
+    report()
+"""
+
+
+def _run(code, *args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], capture_output=True, text=True,
+        env=env, cwd=str(cwd), timeout=300,
+    )
 
 
 def test_cli_runs_with_jax_blocked(tmp_path):
@@ -38,22 +79,54 @@ def test_cli_runs_with_jax_blocked(tmp_path):
         write_wav_s16(path, (0.3 * rng.standard_normal((2, 4410))).astype(
             np.float32), 44_100)
         paths.append(path)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "examples/projects/two_track_mix.json")) as f:
-        project = json.load(f)
+    project = json.loads((ROOT / "examples/projects/two_track_mix.json").read_text())
     project["nodes"]["0"]["info"]["file_path"] = paths
     proj = tmp_path / "p.json"
     proj.write_text(json.dumps(project))
     out = tmp_path / "out.wav"
 
-    env = dict(os.environ, PYTHONPATH=root)
-    proc = subprocess.run(
-        [sys.executable, "-c", _DRIVER, "run", str(proj), "--export",
-         str(out), "--device", "cpu"],
-        capture_output=True, text=True, env=env, cwd=str(tmp_path),
-        timeout=300,
-    )
+    proc = _run(_CLI_DRIVER, "run", str(proj), "--export", str(out),
+                "--device", "cpu", cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout
     assert "spectrum 'spectrum_4'" in proc.stdout
     assert out.stat().st_size > 44 + 2 * 4 * 4410
+
+
+def test_chip_smoke_loads_nothing_of_jax_and_fails_without_a_card(tmp_path):
+    """Without a card chip_smoke.py exits non-zero and prints no result,
+    having imported the port but neither jax nor nodey_tpu."""
+    proc = _run(_SMOKE_DRIVER, str(ROOT / "chip_smoke.py"), cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout + proc.stderr
+    assert "nodey_tpu_torch" in proc.stderr or "cuda" in proc.stderr.lower()
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=str(tmp_path),
+                          capture_output=True, text=True, timeout=300,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_source_imports_jax_or_nodey_tpu():
+    files = sorted((ROOT / "nodey_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "nodey_tpu"}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -17,7 +17,7 @@ import torch
 
 import __graft_entry__ as graft
 from nodey_tpu.core import compiler as jcompiler
-from nodey_tpu.core.errors import ProcessorRuntimeError
+from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu.core.graph import Graph as JGraph
 from nodey_tpu.core.runner import Runner as JRunner
 from nodey_tpu_torch.convert import graph_from_jax
