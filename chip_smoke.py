@@ -35,9 +35,33 @@ Phases, in order; the first failure exits non-zero:
                shapes; the 635/504 resample (kernel, plain, conv1d); conv1d at
                44.1->48 kHz; the config-4 render as audio-seconds per
                device-second, and one render under torch.profiler (device
-               time by kernel, the device's idle share).
-The line before the last is one JSON object describing the kernels; the last
-is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+               time by kernel, the device's idle share);
+  9. pv-kernels — the phase-vocoder kernels against their plain versions on
+               the card, at config 4's two PV shapes (K 35,460 and 22,520, on
+               the main path's own data) and on the 7 golden signals: the
+               phase path's synthesis planes >= 100 dB, with and without
+               lock, and every bin with mag > 0 within a phasor error
+               |kernel - plain| / mag <= 1e-3; the lock kernel, fed the plain
+               path's unlocked planes, within 2e-6 of the plain lock;
+ 10. config4-pv — config 4 with both tempo nodes on algorithm "pv" through
+               the CLI on the 300 s track, exported to WAV: length
+               11,519,994, finite, >= 2 launches of the phase-path kernel, 0
+               of the lock kernel, >= 2 of the resampler; a 10 s excerpt on
+               the card through the kernels and through the plain versions:
+               master SNR >= 90 dB; on the card and on the CPU: equal shape,
+               SNR >= 40 dB (the PV's own conditioning: the CPU's change for
+               re moved by one ulp is printed beside it);
+ 11. config4-pv-options — the same graph with pv_transient on both nodes and
+               preserve_formants on the pitch node, 300 s through the CLI:
+               >= 2 launches of the lock kernel, 0 of the phase-path kernel,
+               the length, finite;
+ 12. times   — CUDA events: both PV kernels and their plain versions at both
+               shapes beside their bounds; the PV config-4 render as
+               audio-seconds per device-second (rtf_config4_pv), and one
+               render under torch.profiler.
+Each path's launch counts are set to 0 just before it runs and read just
+after. The line before the last is one JSON object describing the kernels;
+the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -67,6 +91,15 @@ VELOCITY = 1.25                  # config 4's velocity_modifier, keep_pitch
 # 14,399,993 (635/504) -> 11,519,994 (tempo 1.25).
 CONFIG4_LENGTH = 11_519_994
 CONFIG4_FRAMES = (11_820, 7_507)
+CONFIG4_PV_FRAMES = (35_460, 22_520)   # the phase vocoder's K, both stages
+PV_PLANE_DB = 100.0
+PV_PHASOR_TOL = 1e-3
+PV_EXCERPT_DB = 90.0
+# Card vs CPU on the PV excerpt. The two differ in the analysis GEMMs and in
+# atan2/cos/sin by ulps, and a steady tone's sidelobe bins sit where the
+# phase wrap is decided by such ulps, so the PV output itself moves by tens
+# of dB: phase 10 prints the CPU's own change for re moved by one ulp.
+PV_DEVICE_DB = 40.0
 TIE_REL = 1e-5                   # a differing choice must be this near a tie
 TIE_SHARE = 1e-3                 # ... on at most this share of the frames
 # (in_rate, out_rate, samples): the two main-path pairs first.
@@ -229,9 +262,12 @@ def flagship_graph(paths, volume=1.5, mix=(0.6, 0.4)):
     return g
 
 
-def config4_graph(path):
+def config4_graph(path, algorithm="wsola", transient=False, formants=False):
     """BASELINE config 4 as bench.py:172-192 builds it, with the port's
-    processors: resample 48 kHz -> pitch +4 -> velocity 1.25 keep_pitch."""
+    processors: resample 48 kHz -> pitch +4 -> velocity 1.25 keep_pitch.
+    ``algorithm`` sets both tempo stages (with "pv", ``transient`` sets
+    pv_transient on both nodes and ``formants`` preserve_formants on the
+    pitch node, as bench.py's rtf_config4_pv variants do)."""
     from nodey_tpu_torch.core.graph import Graph
     from nodey_tpu_torch.processors.audio_input import AudioInput
     from nodey_tpu_torch.processors.audio_output import AudioOutput
@@ -254,7 +290,116 @@ def config4_graph(path):
     g.add_link(_pin(g, rs, "output"), _pin(g, pitch, "input"))
     g.add_link(_pin(g, pitch, "output"), _pin(g, vel, "input"))
     g.add_link(_pin(g, vel, "output"), _pin(g, out, "input"))
+    for node in (pitch, vel):
+        processor = g.nodes[node].processor
+        processor.set_algorithm(algorithm)
+        processor.pv_transient = transient
+    g.nodes[pitch].processor.preserve_formants = formants
     return g
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola
+
+    cuda_resample.launches = 0
+    cuda_wsola.launches = 0
+    cuda_pv.phase_path_launches = 0
+    cuda_pv.lock_launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola
+
+    return {"polyphase_resample": cuda_resample.launches,
+            "wsola_chain": cuda_wsola.launches,
+            "pv_phase_path": cuda_pv.phase_path_launches,
+            "pv_lock": cuda_pv.lock_launches}
+
+
+def cli_export(cli, project: str, out_wav: str, tag: str, card: str):
+    """Render ``project`` through the port's CLI on the card into
+    ``out_wav``, launch counts set to 0 just before; returns (master,
+    launches by kernel)."""
+    import numpy as np
+
+    from nodey_tpu_torch.host.decode import decode_file
+
+    stdout = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["run", project, "--export", out_wav, "--device", CARD])
+    counts = read_counts()
+    print("\n".join(f"[{tag}] cli: {line}"
+                    for line in stdout.getvalue().splitlines()))
+    check(rc == 0, f"{tag}: cli run exited {rc}")
+    master = decode_file(out_wav).data
+    print(f"[{tag}] {SECONDS} s export: master {list(master.shape)}, finite "
+          f"{bool(np.isfinite(master).all())}; launches {counts} ({card})")
+    check(master.shape == (2, CONFIG4_LENGTH),
+          f"{tag}: master {master.shape}, want (2, {CONFIG4_LENGTH})")
+    check(bool(np.isfinite(master).all()), f"{tag}: master not finite")
+    return master, counts
+
+
+def pv_operands(data, tempo: float, rate: int):
+    """``(re, im, dpos, hop, n_fft)``: the analysis planes and geometry that
+    ``pv._pv_impl`` hands the phase path for ``data`` [C, N]."""
+    from nodey_tpu_torch.ops import pv
+
+    n_fft, hop, pos, dpos, pad_to = pv._pv_geometry(data.shape[1], tempo, rate)
+    re, im = pv._analysis(data, pos, pad_to, n_fft)
+    return re, im, dpos, hop, n_fft
+
+
+def plane_snr_db(reference, test) -> float:
+    """SNR of a plane on the card, summed in float64 on the card."""
+    reference = reference.double()
+    noise = float(((reference - test.double()) ** 2).sum())
+    if noise == 0.0:
+        return math.inf
+    return 10.0 * math.log10(float((reference ** 2).sum()) / noise)
+
+
+def check_pv(tag: str, operands, card: str):
+    """Both PV kernels against their plain versions on ``operands`` (from
+    pv_operands). Returns ({"abs": worst max|diff| of the phase path,
+    "lock": the lock's}, the lock's inputs: the plain path's unlocked
+    phasors, phases and magnitudes)."""
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_pv, pv
+
+    re, im, dpos, hop, n_fft = operands
+    mag, ph = pv._magnitude_phase(re, im)
+    live = mag > 0
+    worst = 0.0
+    for lock in (True, False):
+        ry, iy = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
+        pry, piy = pv.phase_path_plain(re, im, dpos, hop, n_fft, lock)
+        torch.cuda.synchronize()
+        snr = min(plane_snr_db(pry, ry), plane_snr_db(piy, iy))
+        phasor = (torch.hypot(ry - pry, iy - piy)[live] / mag[live]).max().item()
+        err = max((ry - pry).abs().max().item(), (iy - piy).abs().max().item())
+        print(f"[9 pv-kernels] {tag}: phase path, lock {lock}: planes SNR "
+              f"{snr:.1f} dB (min {PV_PLANE_DB:.0f}), max phasor error "
+              f"{phasor:.3e} (max {PV_PHASOR_TOL:g}), max|kernel - plain| "
+              f"{err:.3e} ({card})")
+        check(snr >= PV_PLANE_DB, f"{tag}: phase-path planes below the bar")
+        check(phasor <= PV_PHASOR_TOL, f"{tag}: a bin's phasor disagrees")
+        worst = max(worst, err)
+        del ry, iy, pry, piy
+    cos_phi, sin_phi = pv._synthesis_phasors(ph, dpos, hop, n_fft)
+    lock_in = (cos_phi, sin_phi, ph, mag)
+    oc, os_ = cuda_pv.lock_to_peaks_cuda(*lock_in)
+    poc, pos_ = pv._lock_to_peaks(*lock_in)
+    torch.cuda.synchronize()
+    lock_err = max((oc - poc).abs().max().item(), (os_ - pos_).abs().max().item())
+    print(f"[9 pv-kernels] {tag}: lock, {list(mag.shape)}: max|kernel - plain| "
+          f"= {lock_err:.3e} (tol {TOL:.0e}) ({card})")
+    check(lock_err <= TOL, f"{tag}: the lock kernel disagrees with the plain lock")
+    return {"abs": worst, "lock": lock_err}, lock_in
 
 
 def wsola_operands(data, tempo: float, rate: int):
@@ -328,7 +473,8 @@ def check_chain(tag: str, x, head, geo, card: str):
     return bs, body, err
 
 
-def profile_render(render, card: str, top: int = 6) -> None:
+def profile_render(render, card: str, tag: str = "8 times",
+                   what: str = "config-4", top: int = 6) -> None:
     """One render under torch.profiler: device time by kernel and the
     share of the render's CUDA-event span that no kernel occupied."""
     import torch
@@ -354,13 +500,13 @@ def profile_render(render, card: str, top: int = 6) -> None:
     rows.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
     if busy_ms == 0.0:
-        print(f"[8 times] config-4 profile: the profiler saw no device time "
+        print(f"[{tag}] {what} profile: the profiler saw no device time "
               f"(breakdown not measured) ({card})")
         return
     for ms, count, key in rows[:top]:
-        print(f"[8 times] config-4 profile: {ms:.4f} ms in {count} launches "
+        print(f"[{tag}] {what} profile: {ms:.4f} ms in {count} launches "
               f"({ms / span_ms:.1%}) {key[:70]} ({card})")
-    print(f"[8 times] config-4 profile: kernels {busy_ms:.4f} ms of a "
+    print(f"[{tag}] {what} profile: kernels {busy_ms:.4f} ms of a "
           f"{span_ms:.4f} ms render; device idle share "
           f"{max(0.0, 1.0 - busy_ms / span_ms):.2%} ({card})")
 
@@ -373,9 +519,9 @@ def main() -> int:
         from nodey_tpu_torch.core.runner import Runner
         from nodey_tpu_torch.core.stream import Stream
         from nodey_tpu_torch.host.decode import decode_file
-        from nodey_tpu_torch.ops import _build, cuda_resample, cuda_wsola
+        from nodey_tpu_torch.ops import _build, cuda_pv, cuda_resample, cuda_wsola
+        from nodey_tpu_torch.ops import pv, stretch, wsola
         from nodey_tpu_torch.ops import resample as tr
-        from nodey_tpu_torch.ops import stretch, wsola
     except ImportError as exc:
         fail(f"the nodey_tpu_torch package is not beside this script ({exc})")
     import numpy as np
@@ -449,13 +595,12 @@ def main() -> int:
             json.dump(project, f)
         out_wav = os.path.join(tmp, "master.wav")
 
-        cuda_resample.launches = 0
-        cuda_wsola.launches = 0
+        zero_counts()
         stdout = io.StringIO()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(["run", proj, "--export", out_wav, "--device", CARD])
-        launches_5node = cuda_resample.launches
-        wsola_5node = cuda_wsola.launches
+        counts_5node = read_counts()
+        launches_5node = counts_5node["polyphase_resample"]
         print("\n".join(f"[4 slice] cli: {line}"
                         for line in stdout.getvalue().splitlines()))
         check(rc == 0, f"cli run exited {rc}")
@@ -573,13 +718,13 @@ def main() -> int:
         with open(proj, "w") as f:
             json.dump(config4_graph(track_path).serialize(), f)
         out_wav = os.path.join(tmp, "config4.wav")
-        cuda_resample.launches = 0
-        cuda_wsola.launches = 0
+        zero_counts()
         stdout = io.StringIO()
         with contextlib.redirect_stdout(stdout):
             rc = cli.main(["run", proj, "--export", out_wav, "--device", CARD])
-        config4_resample = cuda_resample.launches
-        config4_wsola = cuda_wsola.launches
+        counts_config4 = read_counts()
+        config4_resample = counts_config4["polyphase_resample"]
+        config4_wsola = counts_config4["wsola_chain"]
         print("\n".join(f"[7 config4] cli: {line}"
                         for line in stdout.getvalue().splitlines()))
         check(rc == 0, f"cli run exited {rc}")
@@ -712,8 +857,171 @@ def main() -> int:
               f"RTF {audio_s / (med / 1e3):.1f} audio-s per device-s "
               f"({card})")
         profile_render(lambda: compiled(args), card)
+        del runner, arrays, compiled, args, outputs
+
+        # -- 9. pv-kernels -----------------------------------------------------
+        pv_worst = {"abs": 0.0, "lock": 0.0}
+        for rate, tempo in GOLDEN_CASES:
+            sig = torch.from_numpy(golden_signal(rate)).to(dev)
+            worst, _ = check_pv(f"golden signal {rate} Hz, tempo {tempo}",
+                                pv_operands(sig, tempo, rate), card)
+            pv_worst = {k: max(pv_worst[k], worst[k]) for k in pv_worst}
+        # Config 4's two PV stages at full width, on the main path's own
+        # data: the 300 s track at 48 kHz, then the pitch stage's
+        # transposed output.
+        decoded = decode_file(track_path)
+        track = torch.zeros((2, MAIN_CAPACITY), device=dev)
+        track[:, : decoded.num_samples] = torch.from_numpy(decoded.data).to(dev)
+        s48 = tr.resample_stream(Stream(data=track, length=decoded.num_samples,
+                                        rate=RATE, channels=2), 48_000)
+        del track, decoded
+        pitch = 2.0 ** (PITCH / 12.0)
+        pv_ops = {"pitch": pv_operands(s48.data, 1.0 / pitch, 48_000)}
+        out1, len1 = pv.pv_stretch_at_rate(s48.data, s48.length, 1.0 / pitch,
+                                           48_000)
+        s2, _ = stretch.transpose_rate(out1, len1, pitch)
+        del s48, out1
+        pv_ops["velocity"] = pv_operands(s2, VELOCITY, 48_000)
+        del s2
+        frames = tuple(pv_ops[t][0].shape[1] for t in ("pitch", "velocity"))
+        check(frames == CONFIG4_PV_FRAMES,
+              f"PV frames {frames}, want {CONFIG4_PV_FRAMES}")
+        lock_inputs = {}
+        for tag, ops in pv_ops.items():
+            worst, lock_inputs[tag] = check_pv(
+                f"config-4 {tag} stage, K={ops[0].shape[1]}, planes "
+                f"{list(ops[0].shape)}", ops, card)
+            pv_worst = {k: max(pv_worst[k], worst[k]) for k in pv_worst}
+
+        # -- 10. config4-pv ----------------------------------------------------
+        proj = os.path.join(tmp, "config4_pv.json")
+        with open(proj, "w") as f:
+            json.dump(config4_graph(track_path, algorithm="pv").serialize(), f)
+        _, counts_pv = cli_export(cli, proj, os.path.join(tmp, "config4_pv.wav"),
+                                  "10 config4-pv", card)
+        check(counts_pv["pv_phase_path"] >= 2,
+              f"phase-path kernel launched {counts_pv['pv_phase_path']} times")
+        check(counts_pv["pv_lock"] == 0,
+              f"lock kernel launched {counts_pv['pv_lock']} times, want 0")
+        check(counts_pv["polyphase_resample"] >= 2,
+              f"resample kernel launched {counts_pv['polyphase_resample']} times")
+        def render_excerpt(device, phase_path=None, analysis=None):
+            """The PV config-4 excerpt's master; optionally with the phase
+            path or the analysis replaced for this render only."""
+            saved = pv.phase_path, pv._analysis
+            pv.phase_path = phase_path or saved[0]
+            pv._analysis = analysis or saved[1]
+            try:
+                return Runner(config4_graph(excerpt4, algorithm="pv"),
+                              device=device).render("export").master
+            finally:
+                pv.phase_path, pv._analysis = saved
+
+        def nudged_analysis(*a):
+            """The analysis planes with re moved one ulp up or down."""
+            re, im = saved_analysis(*a)
+            up = torch.from_numpy(np.random.default_rng(0).random(re.shape)
+                                  < 0.5).to(re.device)
+            away = torch.where(up, math.inf, -math.inf).to(re.dtype)
+            return torch.nextafter(re, away), im
+
+        saved_analysis = pv._analysis
+        on_card = render_excerpt(CARD)
+        card_plain = render_excerpt(CARD, phase_path=pv.phase_path_plain)
+        on_cpu = render_excerpt("cpu")
+        cpu_nudged = render_excerpt("cpu", analysis=nudged_analysis)
+        check(on_card.shape == card_plain.shape == on_cpu.shape,
+              f"master {on_card.shape} vs {card_plain.shape}, {on_cpu.shape}")
+        pv_excerpt_db = snr_db(card_plain, on_card)
+        device_db = snr_db(on_cpu, on_card)
+        nudge_db = snr_db(on_cpu, cpu_nudged)
+        print(f"[10 config4-pv] {EXCERPT_SECONDS} s excerpt: master "
+              f"{list(on_card.shape)}; kernels vs the plain versions, both on "
+              f"the card: SNR {pv_excerpt_db:.1f} dB (min {PV_EXCERPT_DB:.0f}),"
+              f" max|diff| {float(np.abs(on_card - card_plain).max()):.3e}; "
+              f"card vs cpu: SNR {device_db:.1f} dB (min {PV_DEVICE_DB:.0f}); "
+              f"cpu vs cpu with re one ulp off: SNR {nudge_db:.1f} dB ({card})")
+        check(pv_excerpt_db >= PV_EXCERPT_DB,
+              "the card's PV kernels disagree with its plain versions")
+        check(device_db >= PV_DEVICE_DB,
+              "card PV master disagrees with the CPU plain path")
+        del on_card, card_plain, on_cpu, cpu_nudged
+
+        # -- 11. config4-pv-options --------------------------------------------
+        proj = os.path.join(tmp, "config4_pv_options.json")
+        with open(proj, "w") as f:
+            json.dump(config4_graph(track_path, algorithm="pv", transient=True,
+                                    formants=True).serialize(), f)
+        _, counts_opt = cli_export(
+            cli, proj, os.path.join(tmp, "config4_pv_options.wav"),
+            "11 config4-pv-options", card)
+        check(counts_opt["pv_lock"] >= 2,
+              f"lock kernel launched {counts_opt['pv_lock']} times, want >= 2")
+        check(counts_opt["pv_phase_path"] == 0,
+              f"phase-path kernel launched {counts_opt['pv_phase_path']} times")
+
+        # -- 12. times ---------------------------------------------------------
+        pv_times = {}
+        for tag, (re, im, dpos, hop, n_fft) in pv_ops.items():
+            lock_in = lock_inputs[tag]
+            fns = {
+                "phase kernel": lambda: cuda_pv.phase_path_cuda(
+                    re, im, dpos, hop, n_fft, True),
+                "phase plain": lambda: pv.phase_path_plain(
+                    re, im, dpos, hop, n_fft, True),
+                "lock kernel": lambda: cuda_pv.lock_to_peaks_cuda(*lock_in),
+                "lock plain": lambda: pv._lock_to_peaks(*lock_in),
+            }
+            runs = {name: [] for name in fns}
+            for name in ("phase plain", "phase kernel", "phase kernel",
+                         "phase plain", "lock plain", "lock kernel",
+                         "lock kernel", "lock plain"):
+                runs[name] += cuda_ms(fns[name], 3, warmup=1)
+            n = re.numel()
+            # Least work: the phase path reads re, im and writes two planes;
+            # the lock reads four and writes two. Operations per element,
+            # each transcendental counted as one: ~33 for the phase path
+            # (magnitude, phase, wrap, advance, rotation, lock, products),
+            # ~15 for the lock.
+            pv_times[tag] = {name: summary(runs[name])[0] for name in fns}
+            pv_times[tag]["phase bound"] = bound(4 * 4 * n, 33 * n)
+            pv_times[tag]["lock bound"] = bound(4 * 6 * n, 15 * n)
+            for name in fns:
+                med, lo, hi, count = summary(runs[name])
+                print(f"[12 times] PV {tag} stage, planes {list(re.shape)}, "
+                      f"{name}: median {med:.4f} ms (min {lo:.4f}, max "
+                      f"{hi:.4f}, n={count}) ({card})")
+            for what in ("phase", "lock"):
+                ms, by = pv_times[tag][f"{what} bound"]
+                print(f"[12 times] PV {tag} stage {what} bound: {ms:.4f} ms by "
+                      f"{by}; kernel at {ms / pv_times[tag][what + ' kernel']:.2%}"
+                      f" of it ({card})")
+        del pv_ops, lock_inputs, fns
+
+        runner = Runner(config4_graph(track_path, algorithm="pv"), device=CARD)
+        arrays, lengths, sources = runner.decode()
+        compiled = runner.compile(sources, "export")
+        args = runner.ingest(arrays, lengths)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        outputs, meta = compiled(args)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        audio_s = outputs["master"][1] / meta["master"]["rate"]
+        del outputs
+        med, lo, hi, count = summary(cuda_ms(lambda: compiled(args), 3, warmup=1))
+        print(f"[12 times] config 4 on the phase vocoder, {audio_s:.3f} audio-s: "
+              f"device render median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+              f"n={count}), rtf_config4_pv {audio_s / (med / 1e3):.1f} audio-s "
+              f"per device-s; peak {peak:.2f} GiB above its inputs ({card})")
+        profile_render(lambda: compiled(args), card, "12 times", "config-4 PV")
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in (
+            ("5node", counts_5node), ("config4", counts_config4),
+            ("config4_pv", counts_pv), ("config4_pv_options", counts_opt))}
 
     pitch_times = wsola_times["pitch"]
+    pv_pitch = pv_times["pitch"]
     print(json.dumps({"kernels": [
         {
             "name": "polyphase_resample",
@@ -721,8 +1029,7 @@ def main() -> int:
             "source": "nodey_tpu_torch/csrc/polyphase_resample.cu",
             "replaces": "nodey_tpu/ops/pallas_resample.py:245",
             "launches": launches_5node + config4_resample,
-            "launches_by_path": {"5node": launches_5node,
-                                 "config4": config4_resample},
+            "launches_by_path": by_path("polyphase_resample"),
             "max_abs_err": kernel_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -736,13 +1043,40 @@ def main() -> int:
             "source": "nodey_tpu_torch/csrc/wsola_chain.cu",
             "replaces": "nodey_tpu/ops/pallas_wsola.py:452",
             "launches": config4_wsola,
-            "launches_by_path": {"5node": wsola_5node,
-                                 "config4": config4_wsola},
+            "launches_by_path": by_path("wsola_chain"),
             "max_abs_err": wsola_err,
             "ms": pitch_times["kernel"],
             "plain_ms": pitch_times["plain"],
             "bound_ms": pitch_times["bound"][0],
             "bound_by": pitch_times["bound"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "pv_phase_path",
+            "route": "cuda",
+            "source": "nodey_tpu_torch/csrc/pv_phase_path.cu",
+            "replaces": "nodey_tpu/ops/pallas_phase.py:174",
+            "launches": counts_pv["pv_phase_path"],
+            "launches_by_path": by_path("pv_phase_path"),
+            "max_abs_err": pv_worst["abs"],
+            "ms": pv_pitch["phase kernel"],
+            "plain_ms": pv_pitch["phase plain"],
+            "bound_ms": pv_pitch["phase bound"][0],
+            "bound_by": pv_pitch["phase bound"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "pv_lock",
+            "route": "cuda",
+            "source": "nodey_tpu_torch/csrc/pv_lock.cu",
+            "replaces": "nodey_tpu/ops/pallas_lock.py:126",
+            "launches": counts_opt["pv_lock"],
+            "launches_by_path": by_path("pv_lock"),
+            "max_abs_err": pv_worst["lock"],
+            "ms": pv_pitch["lock kernel"],
+            "plain_ms": pv_pitch["lock plain"],
+            "bound_ms": pv_pitch["lock bound"][0],
+            "bound_by": pv_pitch["lock bound"][1],
             "library_ms": None,
         },
     ]}))

@@ -195,8 +195,9 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def compile_graph(graph: Graph, sources: Dict[Tuple[int, str], SourceSpec],
                   mode: str = "export",
-                  device: torch.device | str = "cpu") -> CompiledGraph:
-    """Validate and order the graph; bind it to ``device``.
+                  device: torch.device | str = "cuda") -> CompiledGraph:
+    """Validate and order the graph; bind it to ``device`` (the card
+    unless the caller asks for the CPU, as every entry point does).
 
     Raises the graph error taxonomy from check_graph here, and the
     three-part ProcessorRuntimeError, attributed to its node, when the

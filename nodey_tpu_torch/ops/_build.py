@@ -104,6 +104,19 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nodey_wsola_chain.restype = i32
         lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32]
         lib.nodey_wsola_smem_bytes.restype = i64
+    elif name == "pv_phase_path":
+        lib.nodey_pv_phase_path.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+            ctypes.c_float, ctypes.c_double, vp,
+        ]
+        lib.nodey_pv_phase_path.restype = i32
+        lib.nodey_pv_phase_scratch_floats.argtypes = [i32, i32, i32]
+        lib.nodey_pv_phase_scratch_floats.restype = i64
+    elif name == "pv_lock":
+        lib.nodey_pv_lock.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
+        lib.nodey_pv_lock.restype = i32
+        lib.nodey_pv_lock_smem_bytes.argtypes = [i32]
+        lib.nodey_pv_lock_smem_bytes.restype = i64
     lib.nodey_cuda_error_string.argtypes = [i32]
     lib.nodey_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,6 +21,18 @@ from nodey_tpu_torch.core.stream import Stream
 
 
 @functools.lru_cache(maxsize=8)
+def _dft_matrices(n_fft: int):
+    """Real-DFT bases [n_fft, n_fft//2+1] (cos, -sin), unwindowed, built in
+    float64 and cast to float32 (the phase vocoder's analysis bases)."""
+    k = np.arange(n_fft)[:, None] * np.arange(n_fft // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * k / n_fft
+    return (
+        np.cos(ang).astype(np.float32),
+        (-np.sin(ang)).astype(np.float32),
+    )
+
+
+@functools.lru_cache(maxsize=8)
 def _windowed_stacked_basis(n_fft: int) -> np.ndarray:
     w = np.hanning(n_fft)
     k = np.arange(n_fft)[:, None] * np.arange(n_fft // 2 + 1)[None, :]

@@ -7,14 +7,17 @@ a resampling rate ``r*p`` and a WSOLA tempo ``1/p``, which run here as two
 stages:
 
 1. ``wsola_stretch_at_rate``: the greedy WSOLA splice chain
-   (:mod:`nodey_tpu_torch.ops.wsola`; the CUDA kernel on the card);
+   (:mod:`nodey_tpu_torch.ops.wsola`; the CUDA kernel on the card), or
+   with ``algorithm="pv"`` the phase vocoder
+   (:mod:`nodey_tpu_torch.ops.pv`; the CUDA phase-path and lock kernels
+   on the card);
 2. ``transpose_rate``: the polyphase resampler at a rational
    approximation of the factor, relabeled to the original nominal rate.
 
 Window parameters are SoundTouch's classic defaults (sequence 40 ms, seek
 15 ms, overlap 8 ms) with linear crossfades, as in the JAX package.
-Lengths are host ints. Not ported yet: the phase vocoder (``algorithm=
-"pv"``) and the streaming step (``wsola_stream_plan``/``_step``).
+Lengths are host ints. Not ported yet: the streaming steps
+(``wsola_stream_plan``/``_step``, ``pv_stream_*``).
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.ops import pv
 from nodey_tpu_torch.ops import resample as resample_ops
 from nodey_tpu_torch.ops import wsola
 from nodey_tpu_torch.ops.wsola import frame_pos
@@ -129,26 +132,27 @@ def soundtouch_like(ctx, stream: Stream, rate: float, pitch: float,
                     algorithm: str = "wsola",
                     pv_transient: bool = False,
                     preserve_formants: bool = False) -> Stream:
-    """Apply the SoundTouch (rate, pitch) pair to a stream: WSOLA at tempo
-    ``1/pitch``, then transposition by ``rate*pitch``.
+    """Apply the SoundTouch (rate, pitch) pair to a stream: the tempo stage
+    at ``1/pitch``, then transposition by ``rate*pitch``.
 
-    ``algorithm="pv"`` (the phase vocoder) is not ported yet and raises;
-    it never falls back to WSOLA."""
+    ``algorithm`` picks the tempo stage: "wsola" (reference parity) or
+    "pv" (the phase vocoder, with onset phase reset when
+    ``pv_transient`` and a formant pre-warp for the transposition when
+    ``preserve_formants``)."""
     eff_rate = rate * pitch
     eff_tempo = 1.0 / pitch
 
     data, length = stream.data, stream.length
     if abs(eff_tempo - 1.0) > 1e-9:
         if algorithm == "pv":
-            raise ProcessorRuntimeError(
-                "Phase vocoder not available",
-                "The phase-vocoder tempo algorithm is not ported to the "
-                "PyTorch engine yet; set the node's algorithm to 'wsola' "
-                "or render the project with the JAX package.",
-                f"algorithm={algorithm!r}, tempo={eff_tempo:.6g}",
+            data, length = pv.pv_stretch_at_rate(
+                data, length, eff_tempo, stream.rate,
+                transient=pv_transient,
+                formant_ratio=(eff_rate if preserve_formants else 1.0),
             )
-        data, length = wsola_stretch_at_rate(data, length, eff_tempo,
-                                             stream.rate)
+        else:
+            data, length = wsola_stretch_at_rate(data, length, eff_tempo,
+                                                 stream.rate)
     if abs(eff_rate - 1.0) > 1e-9:
         data, length = transpose_rate(data, length, eff_rate)
     return Stream(

@@ -12,9 +12,10 @@ resampling rate ``r * p`` and a WSOLA tempo ``1 / p``:
 * Pitch: rate=1, pitch=2^(semitones/12) -> WSOLA tempo 1/p + resample by
   p, preserving duration (audio-velocity.cpp:463-477)
 
-Both stages are in :mod:`nodey_tpu_torch.ops.stretch`. Not ported yet:
-the phase-vocoder algorithm (``algorithm="pv"`` raises at render) and
-chunk streaming (``plan_stream``/``lower_stream``).
+Both stages are in :mod:`nodey_tpu_torch.ops.stretch`; the tempo stage is
+WSOLA or, with ``algorithm="pv"``, the phase vocoder
+(:mod:`nodey_tpu_torch.ops.pv`). Not ported yet: chunk streaming
+(``plan_stream``/``lower_stream``).
 """
 
 from __future__ import annotations

@@ -1,18 +1,24 @@
 """The port's own copies of the JAX package's jax-free modules stay equal
 to them where it matters: config values, error classes and messages, the
-graph's rules and quirks, and the codec runtime's build."""
+graph's rules and quirks, the codec runtime's build, and the phase
+vocoder's constants, geometry and host bases."""
 
 import inspect
 
+import numpy as np
 import pytest
 
 from nodey_tpu import config as jconfig
 from nodey_tpu.core import errors as jerrors
 from nodey_tpu.core.graph import Graph as JGraph
+from nodey_tpu.ops import pv as jpv
+from nodey_tpu.ops.stft import _dft_matrices as j_dft_matrices
 from nodey_tpu_torch import config
 from nodey_tpu_torch.core import errors
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.host import decode, native_lib
+from nodey_tpu_torch.ops import pv
+from nodey_tpu_torch.ops.stft import _dft_matrices
 from nodey_tpu_torch.processors.amix import AudioAmix
 from nodey_tpu_torch.processors.audio_input import AudioInput
 from nodey_tpu_torch.processors.audio_output import AudioOutput
@@ -101,3 +107,24 @@ def test_codec_runtime_builds_in_the_port_build_directory():
     assert path.parts[-3:] == ("nodey_tpu_torch", "native", "libnodey_host.so")
     assert path.exists() and (path.parent / "build.lock").exists()
     assert native_lib.load() is lib
+
+
+def test_geometry_and_bases_equal_the_jax_package():
+    for rate in (8_000, 22_050, 44_100, 48_000):
+        assert pv.pv_params(rate) == jpv.pv_params(rate)
+        for tempo in (0.7937005259840998, 1.25, 2.0):
+            got, want = pv._pv_geometry(12_345, tempo, rate), jpv._pv_geometry(
+                12_345, tempo, rate)
+            assert got[:2] == want[:2] and got[4] == want[4]
+            np.testing.assert_array_equal(got[2], want[2])
+            np.testing.assert_array_equal(got[3], want[3])
+    for n_fft in (512, 1024, 2048):
+        for mine, theirs in ((_dft_matrices(n_fft), j_dft_matrices(n_fft)),
+                             (pv._idft_matrices(n_fft), jpv._idft_matrices(n_fft)),
+                             (pv._cepstral_matrices(n_fft),
+                              jpv._cepstral_matrices(n_fft))):
+            for a, b in zip(mine, theirs):
+                np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(pv._pv_window(n_fft), jpv._pv_window(n_fft))
+    assert pv.PV_TRANSIENT_FLUX == jpv.PV_TRANSIENT_FLUX
+    assert pv.PV_FORMANT_LIFTER_DIV == jpv.PV_FORMANT_LIFTER_DIV

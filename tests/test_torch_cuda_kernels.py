@@ -12,14 +12,24 @@ bank sums to 1 per phase and the inputs are within +/-1.5 (~30 float32
 ulps at that scale). The WSOLA kernel must choose the plain version's
 splice offsets exactly on these tone-plus-noise signals (no near ties),
 and its audio, blended with the same roundings, within the same 2e-6.
+
+The phase-vocoder kernels: the phase path's synthesis planes >= 100 dB
+against the plain version fed the same re and im, and every bin with
+mag > 0 within a phasor error |kernel - plain| / mag <= 1e-3 (its prefix
+is associated otherwise; a different peak choice would show as O(1)); the
+lock kernel within 2e-6 of the plain lock (unit phasors: a different peak
+choice would show as O(1)).
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import nodey_tpu_torch  # noqa: F401  (sets the TF32 flags)
-from nodey_tpu_torch.ops import cuda_resample, cuda_wsola, stretch, wsola
+from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola, pv
+from nodey_tpu_torch.ops import stretch, wsola
 from nodey_tpu_torch.ops import resample as tr
 from nodey_tpu_torch.ops.wsola import frame_pos
 
@@ -162,3 +172,147 @@ def test_wsola_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head"):
         cuda_wsola.wsola_chain_cuda(x, head[:1], *args)
     assert cuda_wsola.launches == before
+
+
+# -- the phase-vocoder kernels -------------------------------------------------
+
+# (rate, tempo, seconds, channels): a ragged last tile, mono, the 22.05 and
+# 8 kHz bin counts (513, 257), and a clip shorter than one tile.
+PV_CASES = [
+    (48_000, 0.7937005259840998, 1.3, 2),
+    (48_000, 1.25, 0.9, 1),
+    (22_050, 0.8, 1.1, 2),
+    (8_000, 2.0, 2.5, 2),
+    (48_000, 1.25, 0.2, 2),
+]
+
+
+def _snr_db(reference, test):
+    reference = reference.double().cpu()
+    noise = ((reference - test.double().cpu()) ** 2).sum().item()
+    return math.inf if noise == 0 else 10 * math.log10(
+        (reference ** 2).sum().item() / noise)
+
+
+def _pv_planes(device, rate, tempo, seconds, channels, seed=0):
+    rng = np.random.default_rng(seed)
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    x = np.stack([0.5 * np.sin(2 * np.pi * (440.0 + 97 * c) * t)
+                  + 0.2 * np.sin(2 * np.pi * 1234.5 * t + c)
+                  + 0.05 * rng.standard_normal(n) for c in range(channels)])
+    data = torch.from_numpy(x.astype(np.float32)).to(device)
+    n_fft, hop, pos, dpos, pad_to = pv._pv_geometry(n, tempo, rate)
+    re, im = pv._analysis(data, pos, pad_to, n_fft)
+    return re, im, dpos, hop, n_fft
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lock", [True, False])
+@pytest.mark.parametrize("rate,tempo,seconds,channels", PV_CASES)
+def test_pv_phase_kernel_matches_plain(cuda_device, rate, tempo, seconds,
+                                       channels, lock):
+    re, im, dpos, hop, n_fft = _pv_planes(cuda_device, rate, tempo, seconds,
+                                          channels)
+    before = cuda_pv.phase_path_launches
+    ry, iy = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
+    torch.cuda.synchronize()
+    assert cuda_pv.phase_path_launches == before + 1
+    pry, piy = pv.phase_path_plain(re, im, dpos, hop, n_fft, lock)
+    assert ry.shape == pry.shape == re.shape
+    assert _snr_db(pry, ry) >= 100.0 and _snr_db(piy, iy) >= 100.0
+    mag = torch.sqrt(re * re + im * im)
+    live = mag > 0
+    err = torch.hypot(ry - pry, iy - piy)[live] / mag[live]
+    assert err.max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,B,silent", [
+    (2, 37, 1025, ()), (1, 64, 257, ()), (2, 16, 1025, (0, 7, 15)),
+    (1, 3, 513, (1,)),
+])
+def test_pv_lock_kernel_matches_plain(cuda_device, C, K, B, silent):
+    rng = np.random.default_rng(K)
+    phi = rng.uniform(-np.pi, np.pi, (C, K, B))
+    ph_in = rng.uniform(-np.pi, np.pi, (C, K, B))
+    mag = np.abs(np.cumsum(rng.standard_normal((C, K, B)), axis=-1))
+    mag[:, list(silent), :] = 0.0
+    planes = [torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+              for a in (np.cos(phi), np.sin(phi), ph_in, mag)]
+    before = cuda_pv.lock_launches
+    oc, os_ = cuda_pv.lock_to_peaks_cuda(*planes)
+    torch.cuda.synchronize()
+    assert cuda_pv.lock_launches == before + 1
+    poc, pos_ = pv._lock_to_peaks(*planes)
+    assert (oc - poc).abs().max().item() <= 2e-6
+    assert (os_ - pos_).abs().max().item() <= 2e-6
+
+
+def _stretch_input():
+    rng = np.random.default_rng(12)
+    t = np.arange(40_000) / 48_000
+    return np.stack([0.5 * np.sin(2 * np.pi * 330.0 * t),
+                     0.3 * rng.standard_normal(40_000)]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs,kernel", [
+    ({}, "phase_path"),
+    ({"lock": False}, "phase_path"),
+    ({"transient": True}, "lock"),
+])
+def test_pv_stretch_on_card_matches_cpu(cuda_device, kwargs, kernel):
+    """The card's render (its GEMMs, transcendentals and prefix order
+    differ from the CPU's) stays >= 90 dB from the CPU's, and routes as
+    the JAX package does: the fused kernel on the main path, the lock
+    kernel on the option paths."""
+    data = _stretch_input()
+    before = (cuda_pv.phase_path_launches, cuda_pv.lock_launches)
+    out, n = pv.pv_stretch_at_rate(torch.from_numpy(data).to(cuda_device),
+                                   39_000, 1.25, 48_000, **kwargs)
+    want, want_n = pv.pv_stretch_at_rate(torch.from_numpy(data), 39_000,
+                                         1.25, 48_000, **kwargs)
+    after = (cuda_pv.phase_path_launches, cuda_pv.lock_launches)
+    assert out.is_cuda and n == want_n and out.shape == want.shape
+    assert _snr_db(want[:, :n], out[:, :n]) >= 90.0
+    launched = [a - b for a, b in zip(after, before)]
+    assert launched == ([1, 0] if kernel == "phase_path" else [0, 1])
+
+
+@pytest.mark.cuda
+def test_pv_formant_path_locks_through_the_kernel(cuda_device, monkeypatch):
+    """The formant pre-warp takes the log of every bin's magnitude, and the
+    leakage bins of a clean tone hold magnitudes near the GEMMs' rounding
+    floor, so the card's render is not held to the CPU's here: it is held
+    to the same render on the card with the plain lock in place of the
+    kernel (>= 100 dB)."""
+    x = torch.from_numpy(_stretch_input()).to(cuda_device)
+    args = (x, 39_000, 1.25, 48_000)
+    before = cuda_pv.lock_launches
+    out, n = pv.pv_stretch_at_rate(*args, formant_ratio=2 ** (4 / 12))
+    assert cuda_pv.lock_launches == before + 1
+    monkeypatch.setattr(cuda_pv, "lock_to_peaks_cuda", pv._lock_to_peaks)
+    want, want_n = pv.pv_stretch_at_rate(*args, formant_ratio=2 ** (4 / 12))
+    assert n == want_n and torch.isfinite(out).all()
+    assert _snr_db(want[:, :n], out[:, :n]) >= 100.0
+
+
+@pytest.mark.cuda
+def test_pv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    re, im, dpos, hop, n_fft = _pv_planes(cuda_device, 8_000, 1.25, 0.5, 2)
+    before = (cuda_pv.phase_path_launches, cuda_pv.lock_launches)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_pv.phase_path_cuda(re.double(), im.double(), dpos, hop, n_fft)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_pv.phase_path_cuda(re, im.cpu(), dpos, hop, n_fft)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_pv.phase_path_cuda(re.transpose(0, 1), im.transpose(0, 1),
+                                dpos, hop, n_fft)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_pv.phase_path_cuda(re, im, dpos[:-1], hop, n_fft)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_pv.phase_path_cuda(re, im, dpos, hop, 2 * n_fft)
+    with pytest.raises(ValueError, match="one shape"):
+        cuda_pv.lock_to_peaks_cuda(re, im, re, im[:, :-1].contiguous())
+    assert (cuda_pv.phase_path_launches, cuda_pv.lock_launches) == before

@@ -2,13 +2,16 @@
 
 Two 0.5 s 44.1 kHz stereo s16 tracks -> gain 1.5 on track 1 -> amix
 0.6/0.4 (both resampled to 48 kHz) -> spectrum tap -> output. The JAX side
-runs ``compile_graph`` on its own decode; the port runs
-``Runner(device="cpu")`` on a graph carried over by ``graph_from_jax``.
+runs ``compile_graph`` on the port's decode of the tracks (the same
+samples; the JAX ``Runner`` would build its codec runtime for its own
+decode); the port runs ``Runner(device="cpu")`` on a graph carried over
+by ``graph_from_jax``.
 The master must have an equal length and agree within 2e-6 (the
 resampler's float32 sums are taken in another order); the spectrum within
 100 dB SNR.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -19,8 +22,8 @@ import __graft_entry__ as graft
 from nodey_tpu.core import compiler as jcompiler
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu.core.graph import Graph as JGraph
-from nodey_tpu.core.runner import Runner as JRunner
 from nodey_tpu_torch.convert import graph_from_jax
+from nodey_tpu_torch.core import compiler
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.core.runner import Runner
 from nodey_tpu_torch.host.decode import write_wav_s16
@@ -43,17 +46,24 @@ def tracks(tmp_path):
     return paths
 
 
+def _jax_render(jg, tg, mode):
+    """The JAX compiler's outputs for ``jg`` on the port's decode of its
+    tracks (what the JAX ``Runner.render`` does after its own decode)."""
+    arrays, lengths, sources = Runner(tg, device="cpu").decode()
+    sources = {key: jcompiler.SourceSpec(**dataclasses.asdict(spec))
+               for key, spec in sources.items()}
+    return jcompiler.compile_graph(jg, sources, mode=mode).run(arrays, lengths)
+
+
 def test_flagship_graph_matches_jax(tracks):
     jg, _ = graft._flagship_graph(tracks)
-    arrays, lengths, sources = JRunner(jg)._decode_inputs()
-    jout = jcompiler.compile_graph(jg, sources, mode="export").run(
-        arrays, lengths
-    )
+    tg = graph_from_jax(jg)
+    jout = _jax_render(jg, tg, "export")
     jmaster, jlen = jout["master"]
-    jmaster = jmaster[:, : int(jlen)]
+    jmaster = np.asarray(jmaster)[:, : int(jlen)]
     [spec_key] = [k for k in jout if k.startswith("spectrum_")]
 
-    result = Runner(graph_from_jax(jg), device="cpu").render("export")
+    result = Runner(tg, device="cpu").render("export")
     assert result.rate == 48_000 and result.fmt == "flt"
     assert result.metrics.render_clock == "host"
     assert result.master.shape == jmaster.shape == (2, -(-22_050 * 160 // 147))
@@ -66,10 +76,12 @@ def test_flagship_graph_matches_jax(tracks):
 
 def test_preview_matches_jax(tracks):
     jg, _ = graft._flagship_graph(tracks)
-    jres = JRunner(jg).preview()
-    res = Runner(graph_from_jax(jg), device="cpu").preview()
-    assert res.master.shape == jres.master.shape
-    assert np.abs(res.master - jres.master).max() <= 2e-6
+    tg = graph_from_jax(jg)
+    jmaster, jlen = _jax_render(jg, tg, "preview")["preview"]
+    jmaster = np.asarray(jmaster)[:, : int(jlen)]
+    res = Runner(tg, device="cpu").preview()
+    assert res.master.shape == jmaster.shape
+    assert np.abs(res.master - jmaster).max() <= 2e-6
     assert np.abs(res.master).max() <= 1.0
 
 
@@ -121,3 +133,14 @@ def test_cuda_runner_raises_without_a_card(tracks):
         Runner(graph_from_jax(jg), device="cuda")
     with pytest.raises(ProcessorRuntimeError, match="No CUDA device"):
         Runner(graph_from_jax(jg))  # the default device is cuda
+
+
+def test_compile_graph_defaults_to_cuda(tracks):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    jg, _ = graft._flagship_graph(tracks)
+    tg = graph_from_jax(jg)
+    _, _, sources = Runner(tg, device="cpu").decode()
+    assert compiler.compile_graph(tg, sources, device="cpu").device.type == "cpu"
+    with pytest.raises(ProcessorRuntimeError, match="No CUDA device"):
+        compiler.compile_graph(tg, sources)  # the default device is cuda

@@ -21,7 +21,7 @@ from nodey_tpu.ops import pallas_wsola
 from nodey_tpu.ops import stretch as jstretch
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import Stream
-from nodey_tpu_torch.ops import stretch, wsola
+from nodey_tpu_torch.ops import pv, stretch, wsola
 
 GOLDEN_TOL = 1.2e-7
 
@@ -185,10 +185,23 @@ def test_positions_and_lengths_match_jax_at_large_k():
 
 
 def test_phase_vocoder_raises_and_does_not_fall_back():
-    data = torch.zeros((2, 4_000))
+    """``algorithm="pv"`` renders through the phase vocoder, never WSOLA,
+    and on a device it does not run on it raises."""
+    data = torch.from_numpy(
+        (0.3 * np.random.default_rng(4).standard_normal((2, 4_000))).astype(
+            np.float32))
     stream = Stream(data=data, length=4_000, rate=8_000, channels=2)
-    with pytest.raises(ProcessorRuntimeError, match="Phase vocoder") as info:
-        stretch.soundtouch_like(None, stream, rate=1.0, pitch=1.2,
+    out = stretch.soundtouch_like(None, stream, rate=1.0, pitch=1.2,
+                                  algorithm="pv")
+    want, n = pv.pv_stretch_at_rate(data, 4_000, 1.0 / 1.2, 8_000)
+    want, n = stretch.transpose_rate(want, n, 1.2)
+    assert out.length == n and torch.equal(out.data, want)
+    wsola_out = stretch.soundtouch_like(None, stream, rate=1.0, pitch=1.2)
+    assert wsola_out.length == n and not torch.equal(wsola_out.data, want)
+    meta = Stream(data=torch.empty((2, 4_000), device="meta"), length=4_000,
+                  rate=8_000, channels=2)
+    with pytest.raises(ProcessorRuntimeError, match="phase vocoder") as info:
+        stretch.soundtouch_like(None, meta, rate=1.0, pitch=1.2,
                                 algorithm="pv")
     assert info.value.explanation and info.value.detail
     # Without a tempo stage there is nothing for the PV to do: transpose only.
