@@ -59,6 +59,27 @@ Phases, in order; the first failure exits non-zero:
                shapes beside their bounds; the PV config-4 render as
                audio-seconds per device-second (rtf_config4_pv), and one
                render under torch.profiler.
+ 13. stream-kernel — config 4 streamed at 16 s chunks on phase 6's track
+               (the graph's chunk steps driven by hand): every launch of the
+               WSOLA kernel's chunk entry against the plain chunk chain on
+               the same (x, head, k0, base, K): splices equal (or a float64
+               near tie on at most 0.1% of the frames), body and tail_out
+               within 2e-6; each stage's splices of all steps equal the
+               offline chain kernel's (phase 6) over the whole clip;
+ 14. streamed — `run --stream --export` on the 300 s 5-node project and
+               config 4, every chunk step under
+               torch.cuda.set_sync_debug_mode("error"): masters of the
+               offline card render's length (phases 4 and 7) within 3e-7 and
+               2e-6, >= 1 resampler launch, >= 2 WSOLA kernel launches on
+               config 4; then each graph exported again at 100 s and at
+               300 s: the 300 s export's peak device memory no more than 2
+               MiB above the 100 s export's, and below the offline render's;
+ 15. stream times — e2e_streamed_wav and e2e_streamed_timevariant: the wall
+               RTF of three more exports each (WAV sinks, nothing
+               instrumented), median, min and max, and the median export's
+               stage budget; the chunk entry per launch at both stages'
+               k_cap beside its bound and the plain chunk chain, and its time
+               summed over the export's launches.
 Each path's launch counts are set to 0 just before it runs and read just
 after. The line before the last is one JSON object describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -114,6 +135,17 @@ GOLDEN_CASES = [
     (48_000, 0.8), (48_000, 1.25), (48_000, 2.0), (48_000, 1.1037),
     (44_100, 0.8), (44_100, 1.25), (44_100, 2.0),
 ]
+# Streaming (phases 13-15): export_streamed's chunk length, the 5-node
+# mix's streamed == offline bar (the JAX package's), the short clip of the
+# memory check, and how far the 300 s export's device peak may exceed the
+# 100 s export's: 2 MiB, a third of one 16 s master block (a buffer that
+# grew with the clip would add 0.37 MiB per audio-second, one a step kept
+# alive 6 MiB per step).
+STREAM_CHUNK_SECONDS = 16
+STREAM_MIX_TOL = 3e-7
+SHORT_SECONDS = 100
+STREAM_SLACK_BYTES = 2 * 2**20
+STREAM_TIMED_RUNS = 3
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -145,6 +177,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2):
         end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in events]
+
+
+def device_peak(fn) -> int:
+    """Bytes of device memory allocated at the peak of ``fn()`` above what
+    was allocated before it (garbage collected first, so no earlier tensor
+    is freed during ``fn``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def summary(times):
@@ -419,8 +468,10 @@ def chain_args(geo):
             geo["overlap"])
 
 
-def near_tie(x, head, bs, k: int, other: int, geo) -> float:
-    """|score64(bs[k]) - score64(other)| / max_b |score64(b)| of frame k,
+def near_tie(x, head, bs, k: int, other: int, geo, k0: int = 0,
+             base: int = 0) -> float:
+    """|score64(bs[k]) - score64(other)| / max_b |score64(b)| of the chain's
+    k-th frame (frame k0 + k, read from column frame_pos(k0 + k) - base),
     in float64 with the tail that the chain's choice bs[k-1] realized."""
     import numpy as np
 
@@ -431,9 +482,10 @@ def near_tie(x, head, bs, k: int, other: int, geo) -> float:
     if k == 0:
         tail = head
     else:
-        start = frame_pos(k - 1, num, den) + int(bs[k - 1]) + seq - ov
+        start = (frame_pos(k0 + k - 1, num, den) - base + int(bs[k - 1])
+                 + seq - ov)
         tail = x[:, start : start + ov]
-    pos = frame_pos(k, num, den)
+    pos = frame_pos(k0 + k, num, den) - base
     cand = x[:, pos : pos + seek + ov].double().cpu().numpy()
     tail = tail.double().cpu().numpy()
     win = np.lib.stride_tricks.sliding_window_view(cand, ov, axis=1)
@@ -471,6 +523,136 @@ def check_chain(tag: str, x, head, geo, card: str):
     check(worst <= TIE_REL, f"{tag}: a differing frame is no near tie")
     check(err <= TOL, f"{tag}: kernel audio disagrees with the plain assembly")
     return bs, body, err
+
+
+def check_chunk_calls(tag: str, calls, geo, card: str):
+    """Every recorded chunk-chain launch of one WSOLA stage against the plain
+    chunk chain on the same (x, head, k0, base, K): splices equal, or a
+    float64 near tie on at most TIE_SHARE of the frames; body and tail_out
+    within TOL of the plain version given the kernel's own splices. Returns
+    (the kernel's splices of all steps in order, worst max|diff|)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.ops import wsola
+    from nodey_tpu_torch.ops.wsola import frame_pos
+
+    decisions, worst, differ_total, gap_worst, frames = [], 0.0, 0, 0.0, 0
+    stride = geo["seq"] - geo["overlap"]
+    for args, (bs, body, tail) in calls:
+        x, head, k0, base, K = args[:5]
+        pbs, pbody, ptail = wsola.wsola_chunk_chain_plain(*args)
+        if torch.equal(bs, pbs):
+            err = max((body - pbody).abs().max().item(),
+                      (tail - ptail).abs().max().item())
+        else:
+            bs_host = bs.cpu().numpy()
+            replay = wsola.replay_decisions(x, head, bs_host, *args[4:],
+                                            k0=k0, base=base)
+            differ = np.nonzero(replay.cpu().numpy() != bs_host)[0]
+            differ_total += len(differ)
+            gap_worst = max([gap_worst] + [
+                near_tie(x, head, bs_host, int(k), int(replay[k]), geo,
+                         k0=k0, base=base) for k in differ])
+            want = wsola.assemble_plain(x, head, bs_host, *args[4:], k0=k0,
+                                        base=base)
+            last = frame_pos(k0 + K - 1, geo["num"], geo["den"]) - base \
+                + int(bs_host[-1]) + stride
+            err = max((body - want).abs().max().item(),
+                      (tail - x[:, last : last + geo["overlap"]]).abs()
+                      .max().item())
+        worst = max(worst, err)
+        frames += K
+        decisions.append(bs)
+    print(f"[13 stream-kernel] {tag}: {len(calls)} chunk launches, {frames} "
+          f"frames, K {min(c[0][4] for c in calls)}..{max(c[0][4] for c in calls)}"
+          f" per launch: {differ_total} frames choose otherwise than the plain "
+          f"chunk chain given the kernel's previous choice (max share "
+          f"{TIE_SHARE:g}), worst float64 gap {gap_worst:.3e} (max "
+          f"{TIE_REL:g}); max|body, tail_out - plain| = {worst:.3e} (tol "
+          f"{TOL:.0e}) ({card})")
+    check(differ_total <= TIE_SHARE * frames, f"{tag}: {differ_total} frames "
+          "differ from the plain chunk chain")
+    check(gap_worst <= TIE_REL, f"{tag}: a differing frame is no near tie")
+    check(worst <= TOL, f"{tag}: chunk kernel audio disagrees with plain")
+    return torch.cat(decisions), worst
+
+
+@contextlib.contextmanager
+def checked_steps(spans):
+    """Every chunk step of the streaming runs inside this block runs under
+    torch.cuda.set_sync_debug_mode("error"), so a device-to-host sync inside
+    a step raises; the executor's h2d, d2h hand-off and egress run outside
+    the mode. ``spans`` gets a pair of CUDA events around each step on the
+    compute stream (read after the run)."""
+    import torch
+
+    from nodey_tpu_torch.core import chunkflow
+
+    compile_stream_graph = chunkflow.compile_stream_graph
+
+    def compile_checked(*args, **kwargs):
+        compiled = compile_stream_graph(*args, **kwargs)
+        step = compiled.step
+
+        def checked_step(states, step_args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return step(states, step_args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                end.record()
+                spans.append((start, end))
+
+        compiled.step = checked_step
+        return compiled
+
+    chunkflow.compile_stream_graph = compile_checked
+    try:
+        yield
+    finally:
+        chunkflow.compile_stream_graph = compile_stream_graph
+
+
+def project_with_tracks(project: str, paths, out: str) -> str:
+    """Write to ``out`` a copy of the project whose audio_input reads
+    ``paths``; returns ``out``."""
+    with open(project) as f:
+        data = json.load(f)
+    for node in data["nodes"].values():
+        if node["identifier"] == "audio_input":
+            node["info"]["file_path"] = list(paths)
+    with open(out, "w") as f:
+        json.dump(data, f)
+    return out
+
+
+def stream_export(cli, project: str, out_wav: str):
+    """``run --stream --export`` of ``project`` on the card through the
+    port's CLI; returns (exit code, its output, the export's StreamMetrics
+    or None)."""
+    from nodey_tpu_torch.core.runner import Runner
+
+    captured = []
+    export_streamed = Runner.export_streamed
+
+    def capture(self, *args, **kwargs):
+        metrics = export_streamed(self, *args, **kwargs)
+        captured.append(self.last_stream_metrics)
+        return metrics
+
+    stdout = io.StringIO()
+    Runner.export_streamed = capture
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["run", project, "--stream", "--export", out_wav,
+                           "--device", CARD])
+    finally:
+        Runner.export_streamed = export_streamed
+    return rc, stdout.getvalue(), captured[0] if captured else None
 
 
 def profile_render(render, card: str, tag: str = "8 times",
@@ -516,6 +698,8 @@ def main() -> int:
     try:
         import nodey_tpu_torch  # noqa: F401  (sets the TF32 flags)
         from nodey_tpu_torch.app import cli
+        from nodey_tpu_torch.core import chunkflow
+        from nodey_tpu_torch.core.compiler import SourceSpec
         from nodey_tpu_torch.core.runner import Runner
         from nodey_tpu_torch.core.stream import Stream
         from nodey_tpu_torch.host.decode import decode_file
@@ -594,6 +778,7 @@ def main() -> int:
         with open(proj, "w") as f:
             json.dump(project, f)
         out_wav = os.path.join(tmp, "master.wav")
+        proj_5node, wav_5node, paths_5node = proj, out_wav, paths
 
         zero_counts()
         stdout = io.StringIO()
@@ -688,13 +873,14 @@ def main() -> int:
         # track 1 at 48 kHz, then the pitch stage's transposed output.
         track = torch.zeros((2, MAIN_CAPACITY), device=dev)
         track[:, :n] = torch.from_numpy(signals[0]).to(dev)
+        track1 = signals[0]
         del signals
         s48 = tr.resample_stream(Stream(data=track, length=n, rate=RATE,
                                         channels=2), 48_000)
         del track
         pitch = 2.0 ** (PITCH / 12.0)
         x1, head1, geo1 = wsola_operands(s48.data, 1.0 / pitch, 48_000)
-        _, body1, err1 = check_chain(
+        bs1, body1, err1 = check_chain(
             f"pitch +{PITCH:g} stage, tempo {1.0 / pitch:.5f}", x1, head1, geo1,
             card)
         out1 = torch.cat([head1, body1], dim=1)
@@ -704,7 +890,7 @@ def main() -> int:
         s2, len2 = stretch.transpose_rate(out1, len1, pitch)
         del s48, out1, body1
         x2, head2, geo2 = wsola_operands(s2, VELOCITY, 48_000)
-        _, _, err2 = check_chain(f"velocity {VELOCITY:g} stage, tempo "
+        bs2, _, err2 = check_chain(f"velocity {VELOCITY:g} stage, tempo "
                                  f"{VELOCITY:g}", x2, head2, geo2, card)
         check((geo1["K"], geo2["K"]) == CONFIG4_FRAMES,
               f"frames {(geo1['K'], geo2['K'])}, want {CONFIG4_FRAMES}")
@@ -718,6 +904,7 @@ def main() -> int:
         with open(proj, "w") as f:
             json.dump(config4_graph(track_path).serialize(), f)
         out_wav = os.path.join(tmp, "config4.wav")
+        proj_c4, wav_c4 = proj, out_wav
         zero_counts()
         stdout = io.StringIO()
         with contextlib.redirect_stdout(stdout):
@@ -1014,11 +1201,210 @@ def main() -> int:
               f"n={count}), rtf_config4_pv {audio_s / (med / 1e3):.1f} audio-s "
               f"per device-s; peak {peak:.2f} GiB above its inputs ({card})")
         profile_render(lambda: compiled(args), card, "12 times", "config-4 PV")
+        del runner, arrays, compiled, args
+
+        # -- 13. stream-kernel -------------------------------------------------
+        # Config 4 streamed at 16 s chunks on phase 6's data (track 1, float
+        # samples): the graph's own chunk steps, driven by hand, cut the
+        # pitch stage's 48 kHz input as the streaming plan does. Every launch
+        # of the chunk entry is held against the plain chunk chain on the
+        # same operands, and each stage's splices of all steps against the
+        # offline chain kernel's over the whole clip.
+        chunk = STREAM_CHUNK_SECONDS * RATE
+        graph13 = config4_graph(track_path)
+        compiled = chunkflow.compile_stream_graph(
+            graph13, {(0, "output_0"): SourceSpec(
+                rate=RATE, channels=2, fmt="flt", capacity=chunk)},
+            device=CARD)
+        by_kind = {node.processor.info().identifier: node.processor
+                   for node in graph13.nodes.values()}
+        plans = {"pitch": by_kind["pitch_modifier"]._wsola_plan,
+                 "velocity": by_kind["velocity_modifier"]._wsola_plan}
+        calls = {"pitch": [], "velocity": []}
+        chunk_chain = wsola.wsola_chunk_chain
+
+        def recording_chunk_chain(*a):
+            out = chunk_chain(*a)
+            if a[4]:
+                tag = "pitch" if a[5] == plans["pitch"].num else "velocity"
+                calls[tag].append(((a[0].clone(), a[1].clone(), *a[2:]), out))
+            return out
+
+        wsola.wsola_chunk_chain = recording_chunk_chain
+        try:
+            states, pos, steps13 = compiled.init_states, 0, 0
+            while True:
+                n = max(0, min(chunk, track1.shape[1] - pos))
+                block = torch.zeros((2, chunk), device=dev)
+                block[:, :n] = torch.from_numpy(track1[:, pos : pos + n]).to(dev)
+                pos += chunk
+                states, outs = compiled.step(states, {"n0:output_0": (
+                    block, n, pos >= track1.shape[1])})
+                steps13 += 1
+                if outs["master"][2]:
+                    break
+        finally:
+            wsola.wsola_chunk_chain = chunk_chain
+        torch.cuda.synchronize()
+        del compiled, states, outs, block
+        print(f"[13 stream-kernel] config 4 at {STREAM_CHUNK_SECONDS} s chunks: "
+              f"{steps13} steps; plans k_cap pitch {plans['pitch'].k_cap}, "
+              f"velocity {plans['velocity'].k_cap}; FIFO snapshot x "
+              f"[2, {plans['pitch'].window + plans['pitch'].push_cap}] and "
+              f"[2, {plans['velocity'].window + plans['velocity'].push_cap}] "
+              f"({card})")
+        stream_err = 0.0
+        for tag, geo, offline_bs in (("pitch", geo1, bs1),
+                                     ("velocity", geo2, bs2)):
+            streamed_bs, err = check_chunk_calls(
+                f"{tag} stage", calls[tag], geo, card)
+            stream_err = max(stream_err, err)
+            same = torch.equal(streamed_bs,
+                               offline_bs[: streamed_bs.numel()])
+            print(f"[13 stream-kernel] {tag} stage: splices of all "
+                  f"{len(calls[tag])} steps ({streamed_bs.numel()} frames) "
+                  f"{'equal' if same else 'DIFFER from'} the offline chain "
+                  f"kernel's first {streamed_bs.numel()} of K={geo['K']} "
+                  f"({card})")
+            check(same, f"{tag}: streamed splices differ from offline")
+        del track1
+
+        # -- 14. streamed export -----------------------------------------------
+        # Both graphs at 300 s through `run --stream`, every step under the
+        # sync debug mode, against the offline card renders of phases 4 and
+        # 7, launch counts set to 0 just before. Then device memory: each
+        # graph exported again at 100 s and at 300 s (after that first
+        # export, so the one-time allocations, filter banks and the DFT
+        # basis, are in place), the whole export's peak each, beside the
+        # offline render's peak on the same project.
+        short_paths = write_tracks(tmp, make_signals(SHORT_SECONDS, seed=5),
+                                   f"{SHORT_SECONDS}s")
+        streamed = {}
+        for tag, proj, offline_wav, tol, short_tracks in (
+                ("5node", proj_5node, wav_5node, STREAM_MIX_TOL, short_paths),
+                ("config4", proj_c4, wav_c4, TOL, short_paths[:1])):
+            out_wav = os.path.join(tmp, f"{tag}_streamed.wav")
+            spans = []
+            zero_counts()
+            with checked_steps(spans):
+                rc, text, metrics = stream_export(cli, proj, out_wav)
+            counts = read_counts()
+            print("\n".join(f"[14 streamed] {tag} cli: {line}"
+                            for line in text.splitlines()))
+            check(rc == 0, f"{tag}: cli run --stream exited {rc}")
+            check(metrics is not None, f"{tag}: the export did not stream")
+            got = decode_file(out_wav).data
+            want = decode_file(offline_wav).data
+            check(got.shape == want.shape,
+                  f"{tag}: streamed master {got.shape}, offline {want.shape}")
+            err = float(np.abs(got - want).max())
+            del got, want
+            device_ms = sum(a.elapsed_time(b) for a, b in spans)
+
+            short_proj = project_with_tracks(
+                proj, short_tracks,
+                os.path.join(tmp, f"{tag}_{SHORT_SECONDS}s.json"))
+            peaks = {}
+            for seconds, project in ((SHORT_SECONDS, short_proj),
+                                     (SECONDS, proj)):
+                result = []
+                peaks[seconds] = device_peak(lambda: result.append(
+                    stream_export(cli, project, out_wav)))
+                check(result[0][0] == 0 and result[0][2] is not None,
+                      f"{tag}: the {seconds} s streamed export failed")
+            offline_peak = device_peak(lambda: Runner(
+                cli._load_graph(proj), device=CARD).render("export"))
+            streamed[tag] = dict(counts=counts, err=err, device_ms=device_ms)
+            print(f"[14 streamed] {tag}: {SECONDS} s streamed master equal "
+                  f"in length to the offline card render, max|diff| "
+                  f"{err:.3e} (tol {tol:.0e}); launches {counts}; "
+                  f"{len(spans)} steps under sync debug mode 'error'; peak "
+                  f"device memory of a whole streamed export "
+                  f"{peaks[SHORT_SECONDS] / 2**20:.1f} MiB at {SHORT_SECONDS}"
+                  f" s, {peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
+                  f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB), offline render "
+                  f"{offline_peak / 2**20:.1f} MiB; host RSS peak of this "
+                  f"process {metrics.rss_peak_bytes / 2**20:.0f} MiB ({card})")
+            check(err <= tol, f"{tag}: streamed master disagrees with offline")
+            check(counts["polyphase_resample"] >= 1,
+                  f"{tag}: resampler launched {counts['polyphase_resample']}")
+            check(len(spans) == metrics.steps >= 4,
+                  f"{tag}: {len(spans)} checked steps of {metrics.steps}")
+            check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
+                  f"{tag}: streamed device memory grows with clip length")
+            check(peaks[SECONDS] < offline_peak,
+                  f"{tag}: streaming took more memory than the offline render")
+        check(streamed["config4"]["counts"]["wsola_chain"] >= 2,
+              "the WSOLA kernel did not run on the streamed config 4")
+
+        # -- 15. stream times --------------------------------------------------
+        for tag, proj, name, what in (
+                ("5node", proj_5node, "e2e_streamed_wav",
+                 "5-node graph, two tracks"),
+                ("config4", proj_c4, "e2e_streamed_timevariant",
+                 "config 4 on WSOLA, WAV sink")):
+            runs = []
+            for _ in range(STREAM_TIMED_RUNS):
+                rc, _text, m = stream_export(
+                    cli, proj, os.path.join(tmp, f"{tag}_timed.wav"))
+                check(rc == 0 and m is not None,
+                      f"{tag}: a timed streamed export failed")
+                runs.append(m)
+            runs.sort(key=lambda r: r.rtf)
+            m = runs[len(runs) // 2]
+            print(f"[15 stream times] {name} ({what}, {SECONDS} s, "
+                  f"{STREAM_CHUNK_SECONDS} s chunks, nothing instrumented): "
+                  f"wall RTF median {m.rtf:.1f} (min {runs[0].rtf:.1f}, max "
+                  f"{runs[-1].rtf:.1f}, n={len(runs)}); the median export: "
+                  f"{m.audio_seconds:.3f} audio-s in {m.wall_seconds:.4f} s "
+                  f"wall, {m.steps} steps, plan {m.compile_seconds:.4f} s, "
+                  f"decode wait {m.decode_wait_seconds:.4f} s, egress wait "
+                  f"{m.egress_wait_seconds:.4f} s, d2h busy "
+                  f"{m.d2h_busy_seconds:.4f} s, sink busy "
+                  f"{m.sink_busy_seconds:.4f} s; the steps' device span "
+                  f"(CUDA events around each step of phase 14's export) "
+                  f"{streamed[tag]['device_ms']:.4f} ms ({card})")
+        chunk_times = {}
+        for tag in ("pitch", "velocity"):
+            plan = plans[tag]
+            args, _ = calls[tag][len(calls[tag]) // 2]
+            args = (*args[:4], plan.k_cap, *args[5:])
+            runs = {"kernel": [], "plain": []}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                fn = (cuda_wsola.wsola_chunk_chain_cuda if name == "kernel"
+                      else wsola.wsola_chunk_chain_plain)
+                runs[name] += cuda_ms(lambda: fn(*args), 2, warmup=1)
+            C, ov = 2, plan.overlap
+            span = plan.window - 2          # the k_cap frames' windows
+            chunk_times[tag] = dict(
+                K=plan.k_cap,
+                kernel=summary(runs["kernel"])[0],
+                plain=summary(runs["plain"])[0],
+                bound=bound(4 * (C * span + C * ov + plan.k_cap
+                                 + C * plan.k_cap * plan.stride_out + C * ov),
+                            2 * C * ov * (plan.seek + 1) * plan.k_cap),
+                total=sum(cuda_ms(lambda a=a: cuda_wsola.wsola_chunk_chain_cuda(
+                    *a), 1, warmup=0)[0] for a, _ in calls[tag]),
+            )
+            t = chunk_times[tag]
+            for name in ("kernel", "plain"):
+                med, lo, hi, count = summary(runs[name])
+                print(f"[15 stream times] chunk chain, {tag} stage, K=k_cap="
+                      f"{plan.k_cap}, {name}: median {med:.4f} ms per launch "
+                      f"(min {lo:.4f}, max {hi:.4f}, n={count}) ({card})")
+            print(f"[15 stream times] chunk chain, {tag} stage bound: "
+                  f"{t['bound'][0]:.4f} ms by {t['bound'][1]}; kernel at "
+                  f"{t['bound'][0] / t['kernel']:.2%} of it; the kernel over "
+                  f"the export's {len(calls[tag])} launches: {t['total']:.4f} "
+                  f"ms ({card})")
+        del calls
 
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
-            ("config4_pv", counts_pv), ("config4_pv_options", counts_opt))}
+            ("config4_pv", counts_pv), ("config4_pv_options", counts_opt),
+            ("5node_streamed", streamed["5node"]["counts"]),
+            ("config4_streamed", streamed["config4"]["counts"]))}
 
     pitch_times = wsola_times["pitch"]
     pv_pitch = pv_times["pitch"]
@@ -1028,7 +1414,7 @@ def main() -> int:
             "route": "cuda",
             "source": "nodey_tpu_torch/csrc/polyphase_resample.cu",
             "replaces": "nodey_tpu/ops/pallas_resample.py:245",
-            "launches": launches_5node + config4_resample,
+            "launches": sum(by_path("polyphase_resample").values()),
             "launches_by_path": by_path("polyphase_resample"),
             "max_abs_err": kernel_err,
             "ms": kernel_ms,
@@ -1049,6 +1435,20 @@ def main() -> int:
             "plain_ms": pitch_times["plain"],
             "bound_ms": pitch_times["bound"][0],
             "bound_by": pitch_times["bound"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "wsola_chunk_chain",
+            "route": "cuda",
+            "source": "nodey_tpu_torch/csrc/wsola_chain.cu",
+            "replaces": "nodey_tpu/ops/pallas_wsola.py:408",
+            "launches": streamed["config4"]["counts"]["wsola_chain"],
+            "launches_by_path": by_path("wsola_chain"),
+            "max_abs_err": stream_err,
+            "ms": chunk_times["pitch"]["kernel"],
+            "plain_ms": chunk_times["pitch"]["plain"],
+            "bound_ms": chunk_times["pitch"]["bound"][0],
+            "bound_by": chunk_times["pitch"]["bound"][1],
             "library_ms": None,
         },
         {

@@ -1,13 +1,14 @@
-"""Command line of the port (the offline subset of nodey_tpu.app.cli).
+"""Command line of the port (a subset of nodey_tpu.app.cli).
 
 Usage:
     python -m nodey_tpu_torch validate project.json
     python -m nodey_tpu_torch run project.json --export out.wav|out.mp3 \
-        [--preview preview.wav] [--kbps 320] [--device cuda|cpu]
+        [--stream] [--preview preview.wav] [--kbps 320] [--device cuda|cpu]
 
-``run`` without ``--export`` renders the preview to ``preview.wav``. The
-default device is ``cuda``; with no card it fails rather than run on the
-CPU (pass ``--device cpu`` for that).
+``run`` without ``--export`` renders the preview to ``preview.wav``.
+``--stream`` exports chunk by chunk through the streaming executor, with
+bounded memory. The default device is ``cuda``; with no card it fails
+rather than run on the CPU (pass ``--device cpu`` for that).
 """
 
 from __future__ import annotations
@@ -50,10 +51,31 @@ def cmd_validate(args) -> int:
     return 0
 
 
+def _report_streamed(path: str, runner: Runner, metrics) -> None:
+    print(
+        f"exported {path} ({metrics.mode}): {metrics.audio_seconds:.2f} "
+        f"audio-s in {metrics.wall_seconds:.2f} s wall (RTF "
+        f"{metrics.rtf:.1f}x; compile {metrics.compile_seconds:.2f}s)"
+    )
+    sm = runner.last_stream_metrics
+    if sm is not None:
+        print(
+            f"  stages: {sm.steps} steps, decode wait "
+            f"{sm.decode_wait_seconds:.3f}s, egress wait "
+            f"{sm.egress_wait_seconds:.3f}s, d2h busy "
+            f"{sm.d2h_busy_seconds:.3f}s, sink busy "
+            f"{sm.sink_busy_seconds:.3f}s, host RSS peak "
+            f"{sm.rss_peak_bytes / 2**20:.0f} MiB"
+        )
+
+
 def cmd_run(args) -> int:
     graph = _load_graph(args.project)
     runner = Runner(graph, device=args.device)
-    if args.export:
+    if args.export and args.stream:
+        _report_streamed(args.export, runner, runner.export_streamed(
+            args.export, kbps=args.kbps))
+    elif args.export:
         _report(f"exported {args.export}",
                 runner.export(args.export, kbps=args.kbps))
     if args.preview or not args.export:
@@ -82,6 +104,8 @@ def main(argv=None) -> int:
     p_run.add_argument(
         "--export", help="output path: .wav (lossless) or .mp3 (LAME CBR)"
     )
+    p_run.add_argument("--stream", action="store_true",
+                       help="pipelined streaming export (bounded memory)")
     p_run.add_argument("--preview", help="preview WAV output path")
     p_run.add_argument("--kbps", type=int, default=320,
                        help="MP3 bitrate (default 320)")

@@ -15,6 +15,8 @@ SAMPLE_RATE = 48_000          # canonical output sample rate
 
 AUDIO_INPUT_NODE_NAME = "audio_input"
 
+AUDIO_STREAM_BUFFER_SIZE = 16     # blocks per streaming stage queue
+
 AUDIO_VOLUME_MAX = 10.0           # gain slider ceiling
 AMIX_STD_SAMPLE_RATE = 48_000     # mixer output rate
 

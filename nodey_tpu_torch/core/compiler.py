@@ -8,6 +8,7 @@ device that runs the nodes in order each time it is called.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 from typing import Any, Dict, List, Optional, Tuple
@@ -81,6 +82,22 @@ class LowerCtx:
             self.output_meta[key] = {"kind": "array", **(meta or {})}
 
 
+@contextlib.contextmanager
+def attributed_to(nid: int, node):
+    """Name the node in the detail of a ProcessorRuntimeError raised inside
+    the block, as the reference attributes a failure to its node
+    (runner.cpp:87-136). The type is kept, so callers can dispatch on
+    UnstreamableGraphError."""
+    try:
+        yield
+    except ProcessorRuntimeError as exc:
+        if f"[node {nid}" in exc.detail:
+            raise
+        raise type(exc)(exc.message, exc.explanation,
+                        f"{exc.detail} [node {nid}: "
+                        f"{node.processor.info().identifier}]") from exc
+
+
 def topo_order(graph: Graph) -> List[int]:
     """Kahn topological order over nodes, smallest ID first."""
     downstream: Dict[int, List[int]] = {nid: [] for nid in graph.nodes}
@@ -148,18 +165,8 @@ class CompiledGraph:
                 if from_pin in pin_values
             }
             ctx.node_id = nid
-            try:
+            with attributed_to(nid, node):
                 outs = node.processor.lower(ctx, node_inputs)
-            except ProcessorRuntimeError as exc:
-                # Attribute the failure to its node (runner.cpp:87-136).
-                if f"[node {nid}" in exc.detail:
-                    raise
-                raise ProcessorRuntimeError(
-                    exc.message,
-                    exc.explanation,
-                    f"{exc.detail} [node {nid}: "
-                    f"{node.processor.info().identifier}]",
-                ) from exc
             for pin_name, value in outs.items():
                 pin_id = node.pin_name_map.get(pin_name)
                 if pin_id is None:

@@ -1,24 +1,30 @@
 """The Runner: decode -> ingest -> render -> sink (port of
-nodey_tpu.core.runner, offline paths only).
+nodey_tpu.core.runner: the offline paths and the streamed export).
 
 ``Runner(graph, device=...)`` binds the graph to one device. A CUDA device
 without a card raises; nothing falls back to the CPU. On the card the
 render is timed with CUDA events; on the CPU with the host clock, and the
-metrics say which (``render_clock``).
+metrics say which (``render_clock``). ``export_streamed`` runs the graph
+chunk by chunk through the streaming executor on the same device, and
+``stop()`` cancels it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from nodey_tpu_torch import config as cfg
-from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+from nodey_tpu_torch.core.errors import (ProcessorRuntimeError, RunCancelled,
+                                         UnstreamableGraphError)
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.core import compiler
 from nodey_tpu_torch.core.stream import FMT_S16
@@ -36,6 +42,11 @@ class RunMetrics:
     # "cuda_events" on the card, "host" on the CPU.
     render_clock: str = "host"
     encode_seconds: float = 0.0
+    # "offline", or "streamed" for export_streamed (whose full stage
+    # metrics are Runner.last_stream_metrics).
+    mode: str = "offline"
+    compile_seconds: float = 0.0
+    rss_peak_bytes: int = 0
 
     @property
     def rtf(self) -> float:
@@ -64,6 +75,9 @@ class Runner:
     def __init__(self, graph: Graph, device: torch.device | str = "cuda"):
         self.graph = graph
         self.device = compiler.resolve_device(device)
+        self._stop_event = threading.Event()
+        self._active_executor = None
+        self.last_stream_metrics = None
 
     def decode(self):
         """Decode every audio_input slot on the host, files in parallel.
@@ -192,3 +206,71 @@ class Runner:
     def preview(self) -> RunResult:
         """Offline preview render: clamped 48 kHz stereo master."""
         return self.render(mode="preview")
+
+    def stop(self) -> None:
+        """Cancel a streamed export in flight, at chunk granularity (the
+        reference's stop tokens, src/infra/runner.cpp:53-63): the call
+        raises :class:`RunCancelled` and leaves no partial file."""
+        self._stop_event.set()
+        executor = self._active_executor
+        if executor is not None:
+            executor.stop()
+
+    def export_streamed(
+        self,
+        path: str,
+        kbps: int = 320,
+        progress: Optional[Callable[[float], None]] = None,
+        chunk_seconds: float = 16.0,
+    ) -> RunMetrics:
+        """Pipelined export, decode ∥ chunk step ∥ d2h ∥ encode, with
+        bounded host and device memory (the reference's streaming export,
+        audio-io.cpp:86-226 and 640-844), through the streaming executor on
+        this runner's device. 16 s chunks, as the JAX package exports.
+
+        A graph that cannot stream in lockstep (mixer branches at different
+        tempos) falls back to the offline export on the same device, as in
+        the JAX package: the reference's behaviour for such a graph."""
+        from nodey_tpu_torch.core.stream_executor import StreamExecutor
+
+        self._stop_event.clear()
+        executor = StreamExecutor(
+            self.graph, mode="export", chunk_seconds=chunk_seconds,
+            master_wire="s16", collect_frames=False, device=self.device,
+        )
+        self._active_executor = executor
+        sinks = []
+
+        def sink(block: np.ndarray) -> None:
+            if not sinks:
+                # Opened on the first block: the executor publishes the
+                # master's format after its plan pass.
+                meta = executor.master_meta
+                sinks.append(host_encode.open_sink(
+                    path, meta["rate"], meta["channels"], kbps, meta["fmt"]))
+            sinks[0].write(block)
+
+        try:
+            try:
+                sm = executor.run(sink, progress=progress)
+                if self._stop_event.is_set():
+                    # A stop() mid-run drains early with a truncated output.
+                    raise RunCancelled("streamed export")
+            finally:
+                self._active_executor = None
+                if sinks:
+                    sinks[0].close()
+        except UnstreamableGraphError:
+            # Raised by the plan pass, before any output exists.
+            self.last_stream_metrics = None
+            return self.export(path, kbps=kbps).metrics
+        except RunCancelled:
+            with contextlib.suppress(OSError):
+                os.remove(path)
+            raise
+        self.last_stream_metrics = sm
+        return RunMetrics(
+            audio_seconds=sm.audio_seconds, wall_seconds=sm.wall_seconds,
+            mode="streamed", compile_seconds=sm.compile_seconds,
+            rss_peak_bytes=sm.rss_peak_bytes,
+        )

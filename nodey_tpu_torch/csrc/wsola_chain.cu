@@ -1,10 +1,13 @@
 // WSOLA greedy splice chain for Hopper (sm_90a), FP32 on the CUDA cores.
 //
 // Replaces nodey_tpu/ops/pallas_wsola.py::_wsola_chain_pallas_impl with
-// emit_audio=True (wsola_chain_assemble_pallas), the TPU's serial-chain
-// kernel. Both compute, for frames k = 0 .. K-1 with window position
-// pos(k) = (k*num + den/2) / den and the previous realized tail [C, overlap]
-// (frame 0: `head`):
+// emit_audio=True, the TPU's serial-chain kernel, through both of its
+// entries: the offline one (wsola_chain_assemble_pallas, pallas_wsola.py:360)
+// and the chunk one of the streaming WSOLA step (wsola_chunk_chain_pallas,
+// :408, with its k0_base and head_override). Both compute, for frames
+// i = 0 .. K-1 with window position pos(i) = frame_pos(k0 + i) - base,
+// frame_pos(k) = (k*num + den/2) / den, and the previous realized tail
+// [C, overlap] (frame 0: `head`):
 //
 //   score[b] = (sum_{c,v} tail[c][v] * w[c][b+v])
 //              * rsqrt(sum_{c,v} w[c][b+v]^2 + 1e-9),   b = 0 .. seek
@@ -13,7 +16,14 @@
 //                           (j < overlap), else seg[c][j]  (j < stride)
 //   next tail = seg[c][stride .. stride+overlap),  seg = w[c][bs[k] ..]
 //
-// where w is the window x[c][pos(k) .. pos(k) + seek + seq).
+// where w is the window x[c][pos(i) .. pos(i) + seek + seq) and bs[i],
+// body's i-th stride belong to frame i. Offline, k0 = base = 0 and `head` is
+// x's first `overlap` samples. A chunk step passes the FIFO snapshot x whose
+// column 0 is input sample `base`, the first frame k0 it has not yet emitted,
+// and the tail it carried from the previous step; the kernel also writes the
+// tail realized after its last frame to `tail_out` (the next step's head).
+// The TPU entry runs a fixed k_cap frames and masks the ones that are not
+// ready; here the wrapper launches exactly the ready frames.
 //
 // Design. Each frame depends on the previous frame's choice, so the chain
 // is serial: one CTA per clip loops over all K frames. What the TPU kernel
@@ -33,8 +43,10 @@
 //
 // What bounds it: 2*C*overlap*(seek+1) multiply-adds per frame (1.1M at
 // 48 kHz stereo, correlation and energy), all on ONE SM, with one shared
-// load per multiply-add (the tail value is a broadcast). The whole card would
-// do the same work ~132x faster; splitting a frame's candidates over a
+// load per multiply-add (the tail value is a broadcast). A chunk launch is
+// the same serial chain over one step's ready frames: at most k_cap, 633 and
+// 405 at config 4's two stages with 16 s chunks. The whole card would do the
+// same work ~132x faster; splitting a frame's candidates over a
 // thread-block cluster and computing every frame's energies in a parallel
 // prologue (they do not depend on the chain) are later work.
 //
@@ -46,9 +58,9 @@
 // the plain version's separate roundings, so given equal decisions the
 // emitted audio is bitwise the plain version's.
 //
-// C interface (loaded with ctypes): nodey_wsola_chain launches on the given
-// stream and returns cudaGetLastError(); it never synchronizes and allocates
-// nothing.
+// C interface (loaded with ctypes): nodey_wsola_chain, the one entry of
+// both, launches on the given stream and returns cudaGetLastError(); it
+// never synchronizes and allocates nothing.
 
 #include <cuda_runtime.h>
 
@@ -92,21 +104,23 @@ __device__ __forceinline__ bool ranks_before(float a, int ia, float b,
   return ia < ib;
 }
 
-// Copy frame k's window [channels][win] into `buf` (no wait).
+// Copy the window [channels][win] at column `pos` of x (row stride `ld`)
+// into `buf` (no wait).
 __device__ __forceinline__ void stage_window(float* buf, const float* x,
-                                             long long nx, int channels,
+                                             long long ld, int channels,
                                              long long pos, int win) {
   for (int i = threadIdx.x; i < channels * win; i += kThreads) {
     const int c = i / win;
     const int j = i - c * win;
-    cp_async_f32(buf + i, x + c * nx + pos + j);
+    cp_async_f32(buf + i, x + c * ld + pos + j);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
                    int* __restrict__ bs, float* __restrict__ body,
-                   int channels, long long nx, int frames, long long num,
+                   float* __restrict__ tail_out, int channels, long long ld,
+                   int frames, long long k0, long long base, long long num,
                    long long den, int seq, int seek, int overlap) {
   extern __shared__ float smem[];
   const int win = seek + seq;
@@ -124,14 +138,14 @@ wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
   for (int i = threadIdx.x; i < channels * overlap; i += kThreads) {
     tail[i] = head[i];
   }
-  stage_window(windows, x, nx, channels, frame_pos(0, num, den), win);
+  stage_window(windows, x, ld, channels, frame_pos(k0, num, den) - base, win);
   cp_async_commit();
 
   for (int k = 0; k < frames; ++k) {
     float* w = windows + (k & 1) * channels * win;
     if (k + 1 < frames) {
-      stage_window(windows + ((k + 1) & 1) * channels * win, x, nx, channels,
-                   frame_pos(k + 1, num, den), win);
+      stage_window(windows + ((k + 1) & 1) * channels * win, x, ld, channels,
+                   frame_pos(k0 + k + 1, num, den) - base, win);
     }
     cp_async_commit();  // possibly empty: keeps the group count uniform
     cp_async_wait_one();
@@ -218,6 +232,16 @@ wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
     }
     __syncthreads();  // the new tail is set; buffer k&1 may be refilled
   }
+  for (int i = threadIdx.x; i < channels * overlap; i += kThreads) {
+    tail_out[i] = tail[i];
+  }
+}
+
+long long smem_bytes(int channels, int win, int overlap) {
+  return static_cast<long long>(sizeof(float)) *
+             (static_cast<long long>(channels) * overlap +
+              2LL * channels * win + kWarps) +
+         static_cast<long long>(sizeof(int)) * (kWarps + 1);
 }
 
 }  // namespace
@@ -226,29 +250,29 @@ extern "C" {
 
 // Shared memory bytes of one CTA: the tail, two windows, the argmax scratch.
 long long nodey_wsola_smem_bytes(int channels, int win, int overlap) {
-  return static_cast<long long>(sizeof(float)) *
-             (static_cast<long long>(channels) * overlap +
-              2LL * channels * win + kWarps) +
-         static_cast<long long>(sizeof(int)) * (kWarps + 1);
+  return smem_bytes(channels, win, overlap);
 }
 
-// x [channels, nx] (every window pos(k) + seek + seq <= nx), head
-// [channels, overlap], bs [frames] int32, body [channels, frames * (seq -
-// overlap)]: contiguous, on the current device. Returns a cudaError_t (0 on
-// a clean launch).
+// Frame i reads x's columns from frame_pos(k0 + i) - base (every window
+// inside the row); x's rows are `ld` floats apart, each row's samples
+// contiguous. head and tail_out [channels, overlap], bs [frames] int32,
+// body [channels, frames * (seq - overlap)], all on the current device.
+// Offline: k0 = base = 0, ld = nx. Returns a cudaError_t (0 on a clean
+// launch).
 int nodey_wsola_chain(const float* x, const float* head, int* bs, float* body,
-                      int channels, long long nx, int frames, long long num,
+                      float* tail_out, int channels, long long ld, int frames,
+                      long long k0, long long base, long long num,
                       long long den, int seq, int seek, int overlap,
                       void* stream) {
-  const long long smem =
-      nodey_wsola_smem_bytes(channels, seek + seq, overlap);
+  const long long smem = smem_bytes(channels, seek + seq, overlap);
   cudaError_t err = cudaFuncSetAttribute(
       wsola_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   wsola_chain_kernel<<<1, kThreads, static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(
-      x, head, bs, body, channels, nx, frames, num, den, seq, seek, overlap);
+      x, head, bs, body, tail_out, channels, ld, frames, k0, base, num, den,
+      seq, seek, overlap);
   return static_cast<int>(cudaGetLastError());
 }
 

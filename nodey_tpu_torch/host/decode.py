@@ -4,6 +4,9 @@ Primary path: the native FFmpeg runtime (``nodey_tpu_torch.host.native_lib``,
 which builds itself on first use). Where that library does not build or
 load, a pure-Python RIFF/WAV reader covers PCM16, PCM32 and float32 WAV;
 any other input then raises the same three-part error as the JAX package.
+:class:`StreamDecoder` is the native pull decoder with bounded memory that
+the streaming executor reads chunks from; it raises where the runtime is
+missing, and the executor then decodes the whole clip and slices it.
 """
 
 from __future__ import annotations
@@ -95,6 +98,83 @@ def _decode_native(lib, path: str) -> DecodedAudio:
         fmt=_FMT_FROM_TAG.get(int(out.fmt), FMT_FLT),
         pts0_us=int(out.pts0_us),
     )
+
+
+class StreamDecoder:
+    """Streaming pull decoder with bounded host memory (native API
+    ``na_decoder_*`` in ``host/native/decode.cpp``): the counterpart of the
+    reference's incremental decode fiber (audio-io.cpp:86-226) for clips
+    too long to hold decoded. Raises the three-part error where the native
+    runtime does not load."""
+
+    def __init__(self, path: str):
+        lib = load_native()
+        if lib is None:
+            raise ProcessorRuntimeError(
+                "Streaming decoder unavailable",
+                "The native host runtime (libnodey_host) could not be "
+                "loaded.",
+                "na_decoder_open",
+            )
+        self._lib = lib
+        info = native_lib.NaDecoded()
+        errbuf = ctypes.create_string_buffer(512)
+        self._handle = lib.na_decoder_open(
+            path.encode(), ctypes.byref(info), errbuf, len(errbuf)
+        )
+        if not self._handle:
+            raise ProcessorRuntimeError(
+                errbuf.value.decode() or "Failed to open input file",
+                "The program fails to open the input file, check if the "
+                "path is valid",
+                f"File path: {path}",
+            )
+        self.rate = int(info.sample_rate)
+        self.channels = int(info.channels)
+        self.fmt = _FMT_FROM_TAG.get(int(info.fmt), FMT_FLT)
+        self.pts0_us = int(info.pts0_us)
+
+    def read(self, max_samples: int):
+        """Next planar float32 [channels, n] block (n <= max_samples); None
+        at EOF."""
+        if self._handle is None:
+            return None
+        buf = np.empty(max_samples * self.channels, dtype=np.float32)
+        n = self._lib.na_decoder_read(
+            self._handle,
+            buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            max_samples,
+        )
+        if n < 0:
+            raise ProcessorRuntimeError(
+                "Failed to decode input file",
+                "The program cannot decode the audio file, check the audio "
+                "file",
+                "na_decoder_read",
+            )
+        if n == 0:
+            return None
+        block = buf[: n * self.channels].reshape(n, self.channels).T
+        return np.ascontiguousarray(block, dtype=np.float32)
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.na_decoder_close(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def blocks(self, block_samples: int):
+        """Iterate planar blocks until EOF."""
+        while True:
+            block = self.read(block_samples)
+            if block is None:
+                return
+            yield block
 
 
 def _bad_structure(path: str, what: str = "") -> ProcessorRuntimeError:

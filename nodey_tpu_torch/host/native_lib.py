@@ -79,6 +79,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.na_decode_file.restype = ctypes.c_int
     lib.na_free_decoded.argtypes = [ctypes.POINTER(NaDecoded)]
     lib.na_free_decoded.restype = None
+    lib.na_decoder_open.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(NaDecoded), ctypes.c_char_p,
+        ctypes.c_int,
+    ]
+    lib.na_decoder_open.restype = ctypes.c_void_p
+    lib.na_decoder_read.argtypes = [ctypes.c_void_p, c_float_p,
+                                    ctypes.c_int64]
+    lib.na_decoder_read.restype = ctypes.c_int64
+    lib.na_decoder_close.argtypes = [ctypes.c_void_p]
+    lib.na_decoder_close.restype = None
 
     lib.na_mp3_open_ex.argtypes = [
         ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

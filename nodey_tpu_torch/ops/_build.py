@@ -99,7 +99,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nodey_polyphase_smem_bytes.restype = i64
     elif name == "wsola_chain":
         lib.nodey_wsola_chain.argtypes = [
-            vp, vp, vp, vp, i32, i64, i32, i64, i64, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, i32, i64, i32, i64, i64, i64, i64, i32, i32,
+            i32, vp,
         ]
         lib.nodey_wsola_chain.restype = i32
         lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32]

@@ -17,9 +17,14 @@ samples, then ``seg`` up to ``stride = seq - overlap``. The next tail is
 
 This is the function of ``nodey_tpu/ops/pallas_wsola.py::
 wsola_chain_assemble_pallas`` (``_wsola_chain_pallas_impl`` with
-``emit_audio=True``). ``wsola_chain`` sends a CUDA tensor to the
+``emit_audio=True``). Its chunk entry ``wsola_chunk_chain_pallas`` runs
+frames k0 .. k0+K-1 of the same chain over a FIFO snapshot whose column 0
+is input sample ``base``, seeded from a carried tail: that is
+``wsola_chunk_chain_plain`` here, which also returns the tail realized
+after its last frame (the JAX step slices it out of the snapshot itself).
+``wsola_chain`` and ``wsola_chunk_chain`` send a CUDA tensor to the
 hand-written kernel (:mod:`nodey_tpu_torch.ops.cuda_wsola`) and a CPU
-tensor to ``wsola_chain_plain``; neither falls back to the other.
+tensor to the plain versions; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -53,12 +58,18 @@ def fades(overlap: int, device) -> tuple:
 
 
 def check_window(x: torch.Tensor, K: int, num: int, den: int, seq: int,
-                  seek: int) -> None:
-    need = frame_pos(K - 1, num, den) + seek + seq if K > 0 else 0
-    if x.shape[1] < need:
+                 seek: int, k0: int = 0, base: int = 0) -> None:
+    """Raise unless every window of frames k0 .. k0+K-1, read from column
+    ``frame_pos(k) - base`` of ``x``, lies inside ``x``."""
+    if K <= 0:
+        return
+    first = frame_pos(k0, num, den) - base
+    need = frame_pos(k0 + K - 1, num, den) - base + seek + seq
+    if first < 0 or x.shape[1] < need:
         raise ValueError(
-            f"WSOLA chain: x has {x.shape[1]} samples, frame {K - 1}'s "
-            f"window reads up to {need}"
+            f"WSOLA chain: x has {x.shape[1]} samples from input sample "
+            f"{base}, frames {k0}..{k0 + K - 1}'s window reads columns "
+            f"{first}..{need}"
         )
 
 
@@ -77,12 +88,16 @@ def _blend(tail, seg, fade_in, fade_out, overlap: int, stride: int):
     return torch.cat([head, seg[:, overlap:]], dim=1)[:, :stride]
 
 
-def wsola_chain_plain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
-                      den: int, seq: int, seek: int, overlap: int):
-    """``(bs int32 [K], body float32 [C, K*stride])`` of the greedy chain,
-    one frame at a time in Python (see the module docstring). ``x`` [C, N]
-    must cover frame K-1's window."""
-    check_window(x, K, num, den, seq, seek)
+def wsola_chunk_chain_plain(x: torch.Tensor, head: torch.Tensor, k0: int,
+                            base: int, K: int, num: int, den: int, seq: int,
+                            seek: int, overlap: int):
+    """``(bs int32 [K], body float32 [C, K*stride], tail_out [C, overlap])``
+    of frames k0 .. k0+K-1 of the greedy chain, one frame at a time in
+    Python (see the module docstring): frame k reads ``x`` from column
+    ``frame_pos(k) - base``, frame k0's tail is ``head``, and ``tail_out``
+    is a fresh tensor holding the tail realized after the last frame
+    (``head`` itself when K == 0)."""
+    check_window(x, K, num, den, seq, seek, k0=k0, base=base)
     C = x.shape[0]
     stride = seq - overlap
     fade_in, fade_out = fades(overlap, x.device)
@@ -90,58 +105,81 @@ def wsola_chain_plain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
     bs = []
     body = torch.empty((C, K * stride), dtype=x.dtype, device=x.device)
     tail = head
-    for k in range(K):
-        pos = frame_pos(k, num, den)
+    for i in range(K):
+        pos = frame_pos(k0 + i, num, den) - base
         window = x[:, pos : pos + seek + seq]
         best = int(best_offset(window[:, : seek + overlap], tail, ones))
         seg = window[:, best : best + seq]
-        body[:, k * stride : (k + 1) * stride] = _blend(
+        body[:, i * stride : (i + 1) * stride] = _blend(
             tail, seg, fade_in, fade_out, overlap, stride)
         tail = seg[:, stride : stride + overlap]
         bs.append(best)
-    return torch.tensor(bs, dtype=torch.int32, device=x.device), body
+    return (torch.tensor(bs, dtype=torch.int32, device=x.device), body,
+            tail.clone() if K else head)
+
+
+def wsola_chain_plain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
+                      den: int, seq: int, seek: int, overlap: int):
+    """``(bs int32 [K], body float32 [C, K*stride])`` of the whole chain
+    (frames 0 .. K-1 of ``x`` [C, N], which must cover frame K-1's
+    window)."""
+    bs, body, _ = wsola_chunk_chain_plain(x, head, 0, 0, K, num, den, seq,
+                                          seek, overlap)
+    return bs, body
 
 
 def replay_decisions(x: torch.Tensor, head: torch.Tensor, bs, K: int,
-                     num: int, den: int, seq: int, seek: int,
-                     overlap: int) -> torch.Tensor:
-    """int64 [K]: the plain scoring of every frame k given the chain's own
-    choice bs[k-1] for its tail (frame 0 scores ``head``). Where a chain's
-    decisions are right, this equals ``bs``; a frame where it differs is a
-    decision the plain version would have made otherwise."""
-    check_window(x, K, num, den, seq, seek)
+                     num: int, den: int, seq: int, seek: int, overlap: int,
+                     k0: int = 0, base: int = 0) -> torch.Tensor:
+    """int64 [K]: the plain scoring of every frame given the chain's own
+    choice for the frame before it (frame k0 scores ``head``), frames and
+    columns as in ``wsola_chunk_chain_plain``. Where a chain's decisions
+    are right, this equals ``bs``; a frame where it differs is a decision
+    the plain version would have made otherwise."""
+    check_window(x, K, num, den, seq, seek, k0=k0, base=base)
     C = x.shape[0]
     stride = seq - overlap
     bs = [int(b) for b in bs]
     ones = torch.ones((1, C, overlap), dtype=x.dtype, device=x.device)
     picks = []
     tail = head
-    for k in range(K):
-        pos = frame_pos(k, num, den)
+    for i in range(K):
+        pos = frame_pos(k0 + i, num, den) - base
         picks.append(best_offset(x[:, pos : pos + seek + overlap], tail, ones))
-        start = pos + bs[k] + stride
+        start = pos + bs[i] + stride
         tail = x[:, start : start + overlap]
     return torch.stack(picks) if picks else torch.empty(0, dtype=torch.int64)
 
 
 def assemble_plain(x: torch.Tensor, head: torch.Tensor, bs, K: int, num: int,
-                   den: int, seq: int, seek: int, overlap: int) -> torch.Tensor:
+                   den: int, seq: int, seek: int, overlap: int,
+                   k0: int = 0, base: int = 0) -> torch.Tensor:
     """float32 [C, K*stride]: the audio a chain with splice choices ``bs``
-    emits, by the plain version's blend."""
-    check_window(x, K, num, den, seq, seek)
+    emits, by the plain version's blend (frames and columns as in
+    ``wsola_chunk_chain_plain``)."""
+    check_window(x, K, num, den, seq, seek, k0=k0, base=base)
     C = x.shape[0]
     stride = seq - overlap
     bs = [int(b) for b in bs]
     fade_in, fade_out = fades(overlap, x.device)
     body = torch.empty((C, K * stride), dtype=x.dtype, device=x.device)
     tail = head
-    for k in range(K):
-        start = frame_pos(k, num, den) + bs[k]
+    for i in range(K):
+        start = frame_pos(k0 + i, num, den) - base + bs[i]
         seg = x[:, start : start + seq]
-        body[:, k * stride : (k + 1) * stride] = _blend(
+        body[:, i * stride : (i + 1) * stride] = _blend(
             tail, seg, fade_in, fade_out, overlap, stride)
         tail = seg[:, stride : stride + overlap]
     return body
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type != "cpu":
+        raise ProcessorRuntimeError(
+            "Unsupported device for time stretching",
+            "The WSOLA chain runs on a CUDA card (kernel) or on the CPU.",
+            f"device={x.device}",
+        )
 
 
 def wsola_chain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
@@ -153,10 +191,21 @@ def wsola_chain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
 
         return cuda_wsola.wsola_chain_cuda(x, head, K, num, den, seq, seek,
                                            overlap)
-    if x.device.type != "cpu":
-        raise ProcessorRuntimeError(
-            "Unsupported device for time stretching",
-            "The WSOLA chain runs on a CUDA card (kernel) or on the CPU.",
-            f"device={x.device}",
-        )
+    _check_device(x)
     return wsola_chain_plain(x, head, K, num, den, seq, seek, overlap)
+
+
+def wsola_chunk_chain(x: torch.Tensor, head: torch.Tensor, k0: int, base: int,
+                      K: int, num: int, den: int, seq: int, seek: int,
+                      overlap: int):
+    """``(bs, body, tail_out)`` of frames k0 .. k0+K-1: a CUDA tensor
+    launches the kernel's chunk entry (or raises); a CPU tensor takes
+    ``wsola_chunk_chain_plain``."""
+    if x.is_cuda:
+        from nodey_tpu_torch.ops import cuda_wsola
+
+        return cuda_wsola.wsola_chunk_chain_cuda(x, head, k0, base, K, num,
+                                                 den, seq, seek, overlap)
+    _check_device(x)
+    return wsola_chunk_chain_plain(x, head, k0, base, K, num, den, seq, seek,
+                                   overlap)

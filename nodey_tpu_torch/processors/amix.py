@@ -1,13 +1,19 @@
 """N-input weighted mixer node (port of nodey_tpu.processors.amix).
 
 Reference: ``processor::Audio_amix`` (src/processor/audio-amix.cpp): each
-input is normalized to 48 kHz stereo float, then summed with its volume.
+input is normalized to 48 kHz stereo float, then summed with its volume;
+streamed, through a resample stage per input and an aligned merge.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import numpy as np
+import torch
+
+from nodey_tpu_torch import config
+from nodey_tpu_torch.core import chunkflow
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
@@ -109,12 +115,12 @@ class AudioAmix(Processor):
             self.volumes.append(min(max(vol, -16.0), 16.0))
             self.locks.append(bool(value.get(f"locks{i}", False)))
 
-    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
+    def _inputs(self, inputs: Dict[str, Any]) -> List[Any]:
         self._pad_params()
-        streams = []
+        values = []
         for i in range(self.input_num):
-            stream = inputs.get(f"input_{i + 1}")
-            if stream is None:
+            value = inputs.get(f"input_{i + 1}")
+            if value is None:
                 # Reference: audio-amix.cpp:119-126.
                 raise ProcessorRuntimeError(
                     "Audio Mixer processor has no input",
@@ -122,5 +128,55 @@ class AudioAmix(Processor):
                     "function properly.",
                     f"Input item 'input_{i + 1}' not found",
                 )
-            streams.append(stream)
+            values.append(value)
+        return values
+
+    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        streams = self._inputs(inputs)
         return {"output": mix_ops.amix(streams, self.volumes[: self.input_num])}
+
+    # -- chunk streaming: per-input 48 kHz stereo resample stage, then an
+    #    aligned merge (core/chunkflow.py) --------------------------------------
+
+    def plan_stream(self, ctx, in_specs):
+        self._rs_plans = []
+        rs_states = []
+        normed = []
+        for spec in self._inputs(in_specs):
+            stereo = spec.replace(channels=2, fmt="flt")
+            out_spec, st, plan = chunkflow.plan_resample_stage(
+                stereo, config.AMIX_STD_SAMPLE_RATE, ctx.device)
+            self._rs_plans.append(plan)
+            rs_states.append(st)
+            normed.append(out_spec)
+        self._merge_plan, merge_fifos = chunkflow.plan_aligned_merge(
+            normed, [0] * len(normed), ctx.device)
+        out_spec = normed[0].replace(
+            rate=config.AMIX_STD_SAMPLE_RATE, channels=2,
+            width=self._merge_plan["take_cap"], fmt="flt", t0_us=0.0,
+        )
+        return {"output": out_spec}, {"rs": rs_states, "merge": merge_fifos}
+
+    def lower_stream(self, ctx, inputs, state):
+        rs_states = []
+        normed = []
+        for chunk, plan, st in zip(self._inputs(inputs), self._rs_plans,
+                                   state["rs"]):
+            st, out = chunkflow.run_resample_stage(
+                plan, st, chunkflow.to_stereo_chunk(chunk),
+                config.AMIX_STD_SAMPLE_RATE)
+            rs_states.append(st)
+            normed.append(out)
+        merge, windows, take, done = chunkflow.run_aligned_merge(
+            self._merge_plan, state["merge"], normed)
+        acc = torch.zeros_like(windows[0])
+        for window, vol in zip(windows, self.volumes[: self.input_num]):
+            acc = acc + window * float(np.float32(vol))
+        out = chunkflow.ChunkStream(
+            data=acc, n=take, done=done,
+            spec=chunkflow.ChunkSpec(
+                rate=config.AMIX_STD_SAMPLE_RATE, channels=2, fmt="flt",
+                width=acc.shape[1], t0_us=0.0,
+            ),
+        )
+        return {"output": out}, {"rs": rs_states, "merge": merge}

@@ -1,7 +1,8 @@
 """Audio input node (port of nodey_tpu.processors.audio_input).
 
-Decoding happens on the host before the graph runs (the Runner); each
-file slot is an external input of the graph, bound by ``ctx.external``.
+Decoding happens on the host before the graph runs (the Runner), or chunk
+by chunk beside it (the streaming executor); each file slot is an external
+input of the graph, bound by ``ctx.external``.
 Reference: ``processor::Audio_input`` (src/processor/audio-io.cpp:27-426).
 """
 
@@ -83,3 +84,14 @@ class AudioInput(Processor):
             f"output_{i}": ctx.external(ctx.node_id, f"output_{i}")
             for i in range(len(self.file_paths))
         }
+
+    # -- chunk streaming: each slot is a per-chunk external input ------------
+
+    def plan_stream(self, ctx, in_specs):
+        return {
+            f"output_{i}": ctx.external_spec(ctx.node_id, f"output_{i}")
+            for i in range(len(self.file_paths))
+        }, None
+
+    def lower_stream(self, ctx, inputs, state):
+        return self.lower(ctx, inputs), state

@@ -13,6 +13,7 @@ from typing import Any, Dict, List
 import torch
 
 from nodey_tpu_torch import config
+from nodey_tpu_torch.core import chunkflow
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import FMT_FLT, AudioStreamType
@@ -52,9 +53,10 @@ class AudioOutput(Processor):
             )
         ]
 
-    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        stream = inputs.get("input")
-        if stream is None:
+    @staticmethod
+    def _require(inputs):
+        value = inputs.get("input")
+        if value is None:
             # Reference: audio-io.cpp:854-862.
             raise ProcessorRuntimeError(
                 "Audio output processor has no input",
@@ -62,6 +64,10 @@ class AudioOutput(Processor):
                 "properly.",
                 "Input item 'input' not found",
             )
+        return value
+
+    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        stream = self._require(inputs)
         if ctx.mode == "export":
             ctx.emit("master", stream)
         else:
@@ -69,3 +75,32 @@ class AudioOutput(Processor):
             clamped = torch.clamp(out.data, -1.0, 1.0)
             ctx.emit("preview", out.with_data(clamped, fmt=FMT_FLT))
         return {}
+
+    # -- chunk streaming: export emits the master chunk as it is; preview
+    #    resamples to 48 kHz stereo through a streaming stage and clamps ------
+
+    def plan_stream(self, ctx, in_specs):
+        spec = self._require(in_specs)
+        if ctx.mode == "export":
+            ctx.emit_spec("master", {"kind": "stream", "rate": spec.rate,
+                                     "channels": spec.channels,
+                                     "fmt": spec.fmt})
+            return {}, None
+        _spec, state, self._rs_plan = chunkflow.plan_resample_stage(
+            spec.replace(channels=2, fmt="flt"), config.SAMPLE_RATE,
+            ctx.device)
+        ctx.emit_spec("preview", {"kind": "stream", "rate": config.SAMPLE_RATE,
+                                  "channels": 2, "fmt": "flt"})
+        return {}, state
+
+    def lower_stream(self, ctx, inputs, state):
+        chunk = self._require(inputs)
+        if ctx.mode == "export":
+            ctx.emit("master", chunk)
+            return {}, state
+        state, out = chunkflow.run_resample_stage(
+            self._rs_plan, state, chunkflow.to_stereo_chunk(chunk),
+            config.SAMPLE_RATE)
+        ctx.emit("preview", out.with_data(torch.clamp(out.data, -1.0, 1.0),
+                                          fmt=FMT_FLT))
+        return {}, state

@@ -59,12 +59,26 @@ class AudioVol(Processor):
             self.set_volume(blob["volume"])
 
     def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        stream = inputs.get("input")
-        if stream is None:
+        return {"output": gain_ops.apply_gain(self._require(inputs),
+                                              self.volume)}
+
+    # -- chunk streaming: gain is stateless elementwise work ------------------
+
+    def plan_stream(self, ctx, in_specs):
+        return {"output": self._require(in_specs)}, None
+
+    def lower_stream(self, ctx, inputs, state):
+        chunk = self._require(inputs)
+        data = gain_ops.gain_array(chunk.data, self.volume, chunk.spec.fmt)
+        return {"output": chunk.with_data(data)}, state
+
+    def _require(self, inputs):
+        value = inputs.get("input")
+        if value is None:
             raise ProcessorRuntimeError(
                 "Volume adjust processor has no input",
                 "Volume adjust processor requires an audio stream input to "
                 "function properly.",
                 "Input item 'input' not found",
             )
-        return {"output": gain_ops.apply_gain(stream, self.volume)}
+        return value

@@ -1,16 +1,16 @@
-"""Explicit resample node (port of nodey_tpu.processors.resample_node,
-offline ``lower`` only).
+"""Explicit resample node (port of nodey_tpu.processors.resample_node).
 
 The reference resamples implicitly inside mixers and the output sink via
 libswresample; BASELINE config 4 ("44.1k->48k polyphase") calls for an
-explicit node. Output: float, original channel count. Chunk streaming
-(``plan_stream``/``lower_stream``) is not ported yet.
+explicit node. Output: float, original channel count. Streamed, the tap
+history rides in a FIFO carry (ops/chunkops.py).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+from nodey_tpu_torch.core import chunkflow
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
@@ -71,12 +71,29 @@ class AudioResample(Processor):
                 # reduction or explode the phase bank.
                 self.target_rate = min(max(int(rate), 4_000), 192_000)
 
-    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        stream = inputs.get("input")
-        if stream is None:
+    @staticmethod
+    def _require(inputs):
+        value = inputs.get("input")
+        if value is None:
             raise ProcessorRuntimeError(
                 "Resample processor has no input",
                 "Resample requires an audio stream input to function properly.",
                 "Input item 'input' not found",
             )
-        return {"output": resample_ops.resample_stream(stream, self.target_rate)}
+        return value
+
+    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        return {"output": resample_ops.resample_stream(self._require(inputs),
+                                                       self.target_rate)}
+
+    def plan_stream(self, ctx, in_specs):
+        # The plan is geometry and the bank; it lives on the instance, the
+        # carry holds only the FIFO.
+        out_spec, state, self._stream_plan = chunkflow.plan_resample_stage(
+            self._require(in_specs), self.target_rate, ctx.device)
+        return {"output": out_spec}, state
+
+    def lower_stream(self, ctx, inputs, state):
+        state, out = chunkflow.run_resample_stage(
+            self._stream_plan, state, self._require(inputs), self.target_rate)
+        return {"output": out}, state

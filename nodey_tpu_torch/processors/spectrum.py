@@ -1,7 +1,9 @@
 """STFT spectrum tap node (port of nodey_tpu.processors.spectrum).
 
 Audio passes through unchanged on ``output``; the magnitude spectrogram
-is emitted as the side output ``spectrum_<node id>``.
+is emitted as the side output ``spectrum_<node id>``. Streamed, a
+hop-aligned frame FIFO emits each step's complete frames as
+``(frames, count, done)``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Any, Dict, List
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
+from nodey_tpu_torch.ops import chunkops
 from nodey_tpu_torch.ops import stft as stft_ops
 
 
@@ -51,14 +54,19 @@ class AudioSpectrum(Processor):
             if isinstance(hop, int) and not isinstance(hop, bool):
                 self.hop = max(1, hop)
 
-    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
-        stream = inputs.get("input")
-        if stream is None:
+    @staticmethod
+    def _require(inputs):
+        value = inputs.get("input")
+        if value is None:
             raise ProcessorRuntimeError(
                 "Spectrum processor has no input",
                 "Spectrum requires an audio stream input to function properly.",
                 "Input item 'input' not found",
             )
+        return value
+
+    def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
+        stream = self._require(inputs)
         spectrum = stft_ops.magnitude_spectrogram(
             stream, n_fft=self.n_fft, hop=self.hop
         )
@@ -68,3 +76,21 @@ class AudioSpectrum(Processor):
             meta={"hop": self.hop, "n_fft": self.n_fft, "rate": stream.rate},
         )
         return {"output": stream}
+
+    def plan_stream(self, ctx, in_specs):
+        spec = self._require(in_specs)
+        plan = chunkops.stft_plan(self.n_fft, self.hop, spec.width)
+        self._stream_plan = plan
+        ctx.emit_spec(f"spectrum_{ctx.node_id}", {
+            "kind": "frames", "hop": self.hop, "n_fft": self.n_fft,
+            "rate": spec.rate, "frames_cap": plan.frames_cap,
+        })
+        return {"output": spec}, chunkops.stft_stream_init(
+            plan, spec.channels, ctx.device)
+
+    def lower_stream(self, ctx, inputs, state):
+        chunk = self._require(inputs)
+        state, frames, count, done = chunkops.stft_stream_step(
+            self._stream_plan, state, chunk.data, chunk.n, chunk.done)
+        ctx.emit(f"spectrum_{ctx.node_id}", (frames, count, done))
+        return {"output": chunk}, state

@@ -1,5 +1,5 @@
 """Tempo (velocity) and pitch modifier nodes (port of
-nodey_tpu.processors.velocity, offline ``lower`` only).
+nodey_tpu.processors.velocity).
 
 Reference: ``processor::Velocity_modifier`` / ``Pitch_modifier``
 (src/processor/audio-velocity.cpp). The reference drives SoundTouch with
@@ -14,17 +14,21 @@ resampling rate ``r * p`` and a WSOLA tempo ``1 / p``:
 
 Both stages are in :mod:`nodey_tpu_torch.ops.stretch`; the tempo stage is
 WSOLA or, with ``algorithm="pv"``, the phase vocoder
-(:mod:`nodey_tpu_torch.ops.pv`). Not ported yet: chunk streaming
-(``plan_stream``/``lower_stream``).
+(:mod:`nodey_tpu_torch.ops.pv`). Streamed, the same two stages run as a
+streaming WSOLA stage chained into a streaming resampler
+(:mod:`nodey_tpu_torch.ops.chunkops`). The phase vocoder's streaming step
+(``pv_stream_*``) is not ported yet: streaming a node on ``"pv"`` raises.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
+from nodey_tpu_torch.core import chunkflow
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
+from nodey_tpu_torch.ops import chunkops
 from nodey_tpu_torch.ops import stretch as stretch_ops
 
 _ALGORITHMS = ("wsola", "pv")
@@ -123,6 +127,65 @@ class _SoundTouchBase(Processor):
             preserve_formants=self.preserve_formants,
         )
         return {"output": out}
+
+    # -- chunk streaming: the (rate, pitch) pair as a streaming WSOLA stage
+    #    chained into a streaming transposition resampler ----------------------
+
+    def plan_stream(self, ctx, in_specs):
+        spec = _require_input(in_specs, type(self).__name__)
+        rate_f, pitch_f = self._factors()
+        eff_rate = rate_f * pitch_f
+        eff_tempo = 1.0 / pitch_f
+
+        states = {}
+        width = spec.width
+        self._wsola_plan = None
+        if abs(eff_tempo - 1.0) > 1e-9:
+            if self.algorithm == "pv":
+                raise ProcessorRuntimeError(
+                    "Streaming on the phase vocoder is not supported yet",
+                    "Chunk streaming runs the WSOLA tempo stage; the phase "
+                    "vocoder's streaming step comes in a later slice of the "
+                    "port. Export without --stream, or set the node's "
+                    "algorithm to 'wsola'.",
+                    f"algorithm={self.algorithm!r} tempo={eff_tempo:g}",
+                )
+            plan = chunkops.wsola_plan(eff_tempo, spec.rate, width)
+            self._wsola_plan = plan
+            states["w"] = chunkops.wsola_stream_init(plan, spec.channels,
+                                                     ctx.device)
+            width = plan.out_cap
+
+        self._rs_plan = None
+        if abs(eff_rate - 1.0) > 1e-9:
+            num, den = stretch_ops._rational_factor(eff_rate)
+            # transpose_rate consumes `num` input samples per `den` outputs.
+            mid = chunkflow.ChunkSpec(rate=num, channels=spec.channels,
+                                      fmt="flt", width=width)
+            _out, states["r"], self._rs_plan = chunkflow.plan_resample_stage(
+                mid, den, ctx.device)
+            width = self._rs_plan.out_cap
+
+        # Output duration scales by 1/rate_f overall (tempo x transpose), so
+        # the nominal arrival per step does too: a merge downstream must see
+        # the true cadence to reject a mix it cannot stream.
+        cadence = spec.cadence / rate_f if spec.cadence > 0 else -1.0
+        return {"output": spec.replace(width=width, fmt="flt",
+                                       cadence=cadence)}, states
+
+    def lower_stream(self, ctx, inputs, state):
+        chunk = _require_input(inputs, type(self).__name__)
+        data, n, done = chunk.data, chunk.n, chunk.done
+        new_state = dict(state)
+        if self._wsola_plan is not None:
+            new_state["w"], data, n, done = chunkops.wsola_stream_step(
+                self._wsola_plan, state["w"], data, n, done)
+        if self._rs_plan is not None:
+            new_state["r"], data, n, done = chunkops.resample_stream_step(
+                self._rs_plan, state["r"], data, n, done)
+        out = chunk.with_data(data, fmt="flt")
+        out.n, out.done = n, done
+        return {"output": out}, new_state
 
 
 class VelocityModifier(_SoundTouchBase):

@@ -11,7 +11,9 @@ order with FFMA, the plain version through a GEMM in another order; the
 bank sums to 1 per phase and the inputs are within +/-1.5 (~30 float32
 ulps at that scale). The WSOLA kernel must choose the plain version's
 splice offsets exactly on these tone-plus-noise signals (no near ties),
-and its audio, blended with the same roundings, within the same 2e-6.
+and its audio, blended with the same roundings, within the same 2e-6;
+through its chunk entry too, whose returned tail is a copy of samples
+(bitwise).
 
 The phase-vocoder kernels: the phase path's synthesis planes >= 100 dB
 against the plain version fed the same re and im, and every bin with
@@ -143,6 +145,44 @@ def test_wsola_kernel_matches_plain(cuda_device, rate, tempo, K, channels):
     assert body.shape == pbody.shape == (channels, K * (args[3] - args[5]))
     assert torch.equal(bs, pbs)
     assert (body - pbody).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,tempo,K,channels", WSOLA_CASES)
+def test_wsola_chunk_kernel_matches_plain(cuda_device, rate, tempo, K, channels):
+    """The chunk entry: frames k0 .. k0+K-1 read from column frame_pos(k) -
+    base of a column slice of a wider buffer (rows cap apart), seeded from
+    a carried head; it returns the tail after its last frame."""
+    k0 = 9
+    x, _, (n_frames, num, den, seq, seek, overlap) = _wsola_operands(
+        cuda_device, rate, tempo, k0 + K, channels, seed=3)
+    base = frame_pos(k0, num) - 5
+    buf = torch.zeros((channels, x.shape[1] - base + 77), device=cuda_device)
+    buf[:, : x.shape[1] - base] = x[:, base:]
+    window = buf[:, : x.shape[1] - base]          # not contiguous
+    head = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (channels, overlap)).astype(np.float32)).to(cuda_device)
+    args = (k0, base, K, num, den, seq, seek, overlap)
+    before = cuda_wsola.launches
+    bs, body, tail = cuda_wsola.wsola_chunk_chain_cuda(window, head, *args)
+    torch.cuda.synchronize()
+    assert cuda_wsola.launches == before + 1
+    pbs, pbody, ptail = wsola.wsola_chunk_chain_plain(window, head, *args)
+    assert torch.equal(bs, pbs)
+    assert (body - pbody).abs().max().item() <= TOL
+    assert torch.equal(tail, ptail)
+    # k0 = base = 0 is the offline entry.
+    chain = (n_frames, num, den, seq, seek, overlap)
+    obs, obody = cuda_wsola.wsola_chain_cuda(x, x[:, :overlap], *chain)
+    cbs, cbody, _ = cuda_wsola.wsola_chunk_chain_cuda(x, x[:, :overlap], 0, 0,
+                                                      *chain)
+    assert torch.equal(obs, cbs) and torch.equal(obody, cbody)
+    # No ready frame: no launch, the head comes back as the tail.
+    count = cuda_wsola.launches
+    _, _, same = cuda_wsola.wsola_chunk_chain_cuda(window, head, k0, base, 0,
+                                                   num, den, seq, seek,
+                                                   overlap)
+    assert same is head and cuda_wsola.launches == count
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 
 A fresh interpreter whose ``sys.meta_path`` refuses jax and the JAX
 package imports every module of ``nodey_tpu_torch`` and renders a tiny
-WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``;
-afterwards ``sys.modules`` holds neither. ``chip_smoke.py`` is held to the
+WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``, once
+offline and once streamed (``--stream``); afterwards ``sys.modules`` holds
+neither. ``chip_smoke.py`` is held to the
 same, and no source file of the port names either in an import.
 """
 
@@ -15,6 +16,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from nodey_tpu_torch.host.decode import write_wav_s16
 
@@ -71,7 +73,8 @@ def _run(code, *args, cwd):
     )
 
 
-def test_cli_runs_with_jax_blocked(tmp_path):
+@pytest.mark.parametrize("stream", [False, True])
+def test_cli_runs_with_jax_blocked(tmp_path, stream):
     rng = np.random.default_rng(3)
     paths = []
     for i in range(2):
@@ -86,10 +89,14 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     out = tmp_path / "out.wav"
 
     proc = _run(_CLI_DRIVER, "run", str(proj), "--export", str(out),
-                "--device", "cpu", cwd=tmp_path)
+                "--device", "cpu", *(["--stream"] if stream else []),
+                cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout
-    assert "spectrum 'spectrum_4'" in proc.stdout
+    if stream:
+        assert "(streamed)" in proc.stdout and "stages:" in proc.stdout
+    else:
+        assert "spectrum 'spectrum_4'" in proc.stdout
     assert out.stat().st_size > 44 + 2 * 4 * 4410
 
 
