@@ -80,8 +80,34 @@ Phases, in order; the first failure exits non-zero:
                stage budget; the chunk entry per launch at both stages'
                k_cap beside its bound and the plain chunk chain, and its time
                summed over the export's launches.
+ 16. wsola-table — the score-table kernel against wsola_score_table_plain
+               on the card, on the 7 golden signals and on phase 6's two
+               config-4 chains (K 11,820 and 7,507): differing entries each
+               a float64 near tie (TIE_REL) on at most TIE_SHARE of the
+               K*(seek+1) entries, the table bitwise the same at
+               frames_per_step 1, 2 and 4, the walk kernel bitwise the plain
+               walk; against the chain kernel: F[k][bs[k-1]] == bs[k] but for
+               near ties on at most TIE_SHARE of K, frame 0 exactly, and the
+               plain assembly of the walk's splices within 2e-6 of the chain
+               kernel's body where they agree. Times at both shapes: the
+               kernel, the plain table, the library yardstick (chunked
+               torch.bmm + argmax), the walk and the plain walk, with bounds;
+ 17. probes  — both step probes in both forms against their plain outputs
+               (exactly); tools.probes.wsola_step_overhead (bare and dma us
+               per step by K-slope) beside the chain's us per frame; then
+               `python -m nodey_tpu_torch.tools.ab_wsola_fps 30 8` in process:
+               its whole output, fps 2 and 4 tables equal to fps 1, and a
+               launch of each of its five kernels;
+ 18. resample-data — resample.resample_data (the polyphase kernel, the
+               counterpart of resample_data_pallas) against its plain version
+               (2e-6) at tests/test_pallas.py's shapes (44.1<->48 kHz, C 1
+               and 2, 0.5 s) and at 48->44.1 kHz on 300 s stereo; then
+               tools.probes.resample_ab at 48->44.1 and 44.1->48 kHz (kernel,
+               plain, F.conv1d, 300 s stereo).
 Each path's launch counts are set to 0 just before it runs and read just
-after. The line before the last is one JSON object describing the kernels;
+after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
+the resampler's A/B). The line before the last is one JSON object
+describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -146,6 +172,12 @@ STREAM_MIX_TOL = 3e-7
 SHORT_SECONDS = 100
 STREAM_SLACK_BYTES = 2 * 2**20
 STREAM_TIMED_RUNS = 3
+# Phases 16-18: the A/B tool's arguments (python -m
+# nodey_tpu_torch.tools.ab_wsola_fps 30 8), the probes' step count for their
+# checks and times (bench.py's larger K), tests/test_pallas.py's rate pairs.
+TOOL_ARGS = ["30", "8"]
+PROBE_STEPS = 4096
+RESAMPLE_DATA_PAIRS = [(44_100, 48_000), (48_000, 44_100)]
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -349,22 +381,32 @@ def config4_graph(path, algorithm="wsola", transient=False, formants=False):
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola
+    from nodey_tpu_torch.ops import cuda_probes, cuda_pv, cuda_resample
+    from nodey_tpu_torch.ops import cuda_wsola, cuda_wsola_table
 
     cuda_resample.launches = 0
     cuda_wsola.launches = 0
     cuda_pv.phase_path_launches = 0
     cuda_pv.lock_launches = 0
+    cuda_wsola_table.table_launches = 0
+    cuda_wsola_table.walk_launches = 0
+    cuda_probes.bare_launches = 0
+    cuda_probes.dma_launches = 0
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola
+    from nodey_tpu_torch.ops import cuda_probes, cuda_pv, cuda_resample
+    from nodey_tpu_torch.ops import cuda_wsola, cuda_wsola_table
 
     return {"polyphase_resample": cuda_resample.launches,
             "wsola_chain": cuda_wsola.launches,
             "pv_phase_path": cuda_pv.phase_path_launches,
-            "pv_lock": cuda_pv.lock_launches}
+            "pv_lock": cuda_pv.lock_launches,
+            "wsola_score_table": cuda_wsola_table.table_launches,
+            "wsola_table_walk": cuda_wsola_table.walk_launches,
+            "step_probe_bare": cuda_probes.bare_launches,
+            "step_probe_dma": cuda_probes.dma_launches}
 
 
 def cli_export(cli, project: str, out_wav: str, tag: str, card: str):
@@ -523,6 +565,371 @@ def check_chain(tag: str, x, head, geo, card: str):
     check(worst <= TIE_REL, f"{tag}: a differing frame is no near tie")
     check(err <= TOL, f"{tag}: kernel audio disagrees with the plain assembly")
     return bs, body, err
+
+
+def table_gaps(x, geo, entries, table, other):
+    """For score-table rows (k, p) in ``entries`` [n, 2]: |score64(table[k,
+    p]) - score64(other[k, p])| / max_b |score64(b)| of that row, in
+    float64 on x's device (row p of frame k >= 1 scores the tail
+    x[:, frame_pos(k-1) + stride + p :], frame 0 the head)."""
+    import torch
+
+    from nodey_tpu_torch.ops.wsola import frame_pos
+
+    seq, seek, ov = geo["seq"], geo["seek"], geo["overlap"]
+    num, den = geo["num"], geo["den"]
+    rows = {}
+    for k, p in entries.tolist():
+        rows.setdefault(k, []).append(p)
+    gaps = []
+    for k, ps in rows.items():
+        pos = frame_pos(k, num, den)
+        cand = x[:, pos : pos + seek + ov].double().unfold(1, ov, 1)
+        p = torch.tensor(ps, device=x.device)
+        start = frame_pos(k - 1, num, den) + seq - ov if k else 0
+        cols = (p[:, None] * (k > 0) + start
+                + torch.arange(ov, device=x.device))
+        scores = (torch.einsum("cpv,cbv->pb", x[:, cols].double(), cand)
+                  / torch.sqrt((cand * cand).sum((0, 2)) + 1e-9))
+        i = torch.arange(len(ps), device=x.device)
+        gap = scores[i, table[k, p].long()] - scores[i, other[k, p].long()]
+        gaps += (gap.abs() / scores.abs().max(dim=1).values).tolist()
+    return gaps
+
+
+def library_table(x, geo):
+    """The score table's library yardstick, timed by this script only (the
+    port never calls it): per 64 frames one ``torch.bmm`` of the
+    channel-stacked Hankel operands [F, n, C*overlap] (TF32 off), the
+    candidates' rsqrt norms, then ``torch.argmax``."""
+    import torch
+
+    from nodey_tpu_torch.ops.wsola import frame_pos
+
+    K, num, den, seq, seek, ov = chain_args(geo)
+    C, n = x.shape[0], seek + 1
+    cols = torch.arange(seek + ov, device=x.device)
+    table = torch.empty((K, n), dtype=torch.int32, device=x.device)
+    for k0 in range(0, K, 64):
+        ks = range(k0, min(K, k0 + 64))
+        pos = torch.tensor([frame_pos(k, num, den) for k in ks],
+                           device=x.device)
+        prev = torch.tensor([frame_pos(k - 1, num, den) + seq - ov if k else 0
+                             for k in ks], device=x.device)
+
+        def stacked(starts):
+            return (x[:, starts[:, None] + cols].unfold(2, ov, 1)
+                    .permute(1, 2, 0, 3).reshape(len(ks), n, C * ov))
+
+        cand, tail = stacked(pos), stacked(prev)
+        if k0 == 0:
+            tail[0] = x[:, :ov].reshape(1, C * ov)
+        scores = torch.bmm(tail, cand.transpose(1, 2))
+        scores *= torch.rsqrt((cand * cand).sum(2) + 1e-9)[:, None, :]
+        table[k0 : k0 + len(ks)] = torch.argmax(scores, dim=2).int()
+    return table
+
+
+def check_table(tag: str, x, head, geo, card: str, chain=None):
+    """Phase 16 on one (x, geometry): the score kernel against the plain
+    table (differing entries float64 near ties, on at most TIE_SHARE of
+    them), bitwise the same at frames_per_step 1, 2 and 4; the walk kernel
+    against the plain walk of the same table, bitwise. With ``chain`` = the
+    chain kernel's (bs, body) on the same operands: F[k][bs[k-1]] == bs[k]
+    but for near ties on at most TIE_SHARE of K, frame 0 exactly, and
+    ``wsola.assemble_plain`` of the walk's splices within TOL of the chain
+    kernel's body on every frame where the walk and the chain agree (and
+    agreed the frame before). Returns (table, worst gap, worst body err)."""
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_wsola_table, wsola
+
+    args = chain_args(geo)
+    K, n_cand = geo["K"], geo["seek"] + 1
+    tables = {f: cuda_wsola_table.wsola_score_table_cuda(
+        x, *args, frames_per_step=f) for f in (1, 2, 4)}
+    table = tables[1]
+    plain = wsola.wsola_score_table_plain(x, *args)
+    same_fps = all(torch.equal(table, tables[f]) for f in (2, 4))
+    differ = (table != plain).nonzero()
+    gaps = table_gaps(x, geo, differ, table, plain)
+    walk = cuda_wsola_table.walk_table_cuda(table)
+    same_walk = torch.equal(walk, wsola.walk_table_plain(table))
+    torch.cuda.synchronize()
+    worst = max(gaps, default=0.0)
+    print(f"[16 wsola-table] {tag}: K={K}, table [{K}, {n_cand}]: "
+          f"{len(differ)} entries differ from the plain table (max share "
+          f"{TIE_SHARE:g} = {int(TIE_SHARE * K * n_cand)}), worst float64 gap "
+          f"{worst:.3e} of the row's max |score| (max {TIE_REL:g}); "
+          f"frames_per_step 1, 2, 4 {'bitwise equal' if same_fps else 'DIFFER'}"
+          f"; walk kernel vs plain walk "
+          f"{'bitwise equal' if same_walk else 'DIFFER'} ({card})")
+    check(len(differ) <= TIE_SHARE * K * n_cand,
+          f"{tag}: {len(differ)} table entries differ from the plain table")
+    check(worst <= TIE_REL, f"{tag}: a differing table entry is no near tie")
+    check(same_fps, f"{tag}: the table depends on frames_per_step")
+    check(same_walk, f"{tag}: the walk kernel disagrees with the plain walk")
+    err = 0.0
+    if chain is not None:
+        bs, body = chain
+        bs_host = bs.cpu().numpy()
+        pred = table[1:].gather(1, bs[:-1].long()[:, None])[:, 0]
+        off = ((pred != bs[1:]).nonzero()[:, 0] + 1).tolist()
+        cross = [near_tie(x, head, bs_host, k, int(pred[k - 1]), geo)
+                 for k in off]
+        frame0 = bool((table[0] == bs[0]).all())
+        agree = walk == bs
+        agree[1:] &= agree[:-1].clone()
+        stride = geo["seq"] - geo["overlap"]
+        want = wsola.assemble_plain(x, head, walk.cpu().numpy(), *args)
+        cols = agree.repeat_interleave(stride)
+        if bool(cols.any()):
+            err = (body[:, cols] - want[:, cols]).abs().max().item()
+        print(f"[16 wsola-table] {tag}: against the chain kernel: "
+              f"F[k][bs[k-1]] != bs[k] on {len(off)} of {K} frames (max share "
+              f"{TIE_SHARE:g}), worst float64 gap {max(cross, default=0.0):.3e}"
+              f"; frame 0 {'equal' if frame0 else 'DIFFERS'}; the walk equals "
+              f"the chain on {int(agree.sum())} of {K} frames; plain assembly "
+              f"of the walk's splices vs the chain kernel's body there: "
+              f"max|diff| {err:.3e} (tol {TOL:.0e}) ({card})")
+        check(len(off) <= TIE_SHARE * K, f"{tag}: the table and the chain "
+              f"kernel disagree on {len(off)} frames")
+        check(max(cross, default=0.0) <= TIE_REL, f"{tag}: a frame where the "
+              "table and the chain differ is no near tie")
+        check(frame0, f"{tag}: frame 0's row is not the chain's first choice")
+        check(err <= TOL, f"{tag}: the walk's audio disagrees with the chain's")
+    return table, worst, err
+
+
+def table_and_probe_phases(card: str, dev, stages, chain_us: float):
+    """Phases 16-18 (see the module docstring). ``stages``: config 4's two
+    chains from phase 6, (tag, x, head, geo, bs, body) each; ``chain_us``:
+    the chain kernel's microseconds per frame (phase 8). Returns (the launch
+    counts of the three paths run here, by path; the kernels' entries of the
+    ``kernels`` line, without their launches)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_probes, cuda_wsola, cuda_wsola_table
+    from nodey_tpu_torch.ops import wsola
+    from nodey_tpu_torch.ops import resample as tr
+    from nodey_tpu_torch.tools import ab_wsola_fps, probes
+
+    # -- 16. wsola-table -------------------------------------------------------
+    table_gap = 0.0
+    for rate, tempo in GOLDEN_CASES:
+        sig = torch.from_numpy(golden_signal(rate)).to(dev)
+        x, head, geo = wsola_operands(sig, tempo, rate)
+        chain = cuda_wsola.wsola_chain_cuda(x, head, *chain_args(geo))
+        _, gap, _ = check_table(f"golden signal {rate} Hz, tempo {tempo}", x,
+                                head, geo, card, chain)
+        table_gap = max(table_gap, gap)
+    times = {}
+    for tag, x, head, geo, bs, body in stages:
+        table, gap, _ = check_table(f"config-4 {tag} stage", x, head, geo,
+                                    card, (bs, body))
+        table_gap = max(table_gap, gap)
+        args = chain_args(geo)
+        fns = {
+            "kernel": lambda: cuda_wsola_table.wsola_score_table_cuda(x, *args),
+            "plain": lambda: wsola.wsola_score_table_plain(x, *args),
+            "library": lambda: library_table(x, geo),
+            "walk kernel": lambda: cuda_wsola_table.walk_table_cuda(table),
+            "walk plain": lambda: wsola.walk_table_plain(table),
+        }
+        runs = {name: [] for name in fns}
+        for name in ("plain", "library", "kernel", "kernel", "library",
+                     "plain", "walk plain", "walk kernel", "walk kernel",
+                     "walk plain"):
+            runs[name] += cuda_ms(fns[name], 2, warmup=1)
+        K, n, C, ov = geo["K"], geo["seek"] + 1, x.shape[0], geo["overlap"]
+        times[tag] = {name: summary(runs[name])[0] for name in fns}
+        # Least work: x read once, the table written once; C*ov*n multiply-
+        # adds for each of frame 0's candidates and each (p, b) pair of the
+        # other frames. The walk: one entry read and one splice written per
+        # frame.
+        times[tag]["bound"] = bound(4 * (x.numel() + K * n),
+                                    2 * C * ov * n * (n * (K - 1) + 1))
+        times[tag]["walk bound"] = bound(8 * K, 0)
+        for name in fns:
+            med, lo, hi, count = summary(runs[name])
+            label = " (library yardstick)" if name == "library" else ""
+            print(f"[16 wsola-table] times, {tag} stage, K={K}, x "
+                  f"{list(x.shape)}, {name}{label}: median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+                  f"n={count}) ({card})")
+        for what, key in (("score table", "kernel"), ("walk", "walk kernel")):
+            ms, by = times[tag][("walk " if what == "walk" else "") + "bound"]
+            print(f"[16 wsola-table] {what} bound, {tag} stage: {ms:.4f} ms "
+                  f"by {by}; kernel at {ms / times[tag][key]:.2%} of it; "
+                  f"{times[tag][key] * 1e3 / K:.4f} us per frame ({card})")
+        del table, fns
+
+    # -- 17. probes -----------------------------------------------------------
+    rng = np.random.default_rng(17)
+    block = torch.from_numpy(rng.standard_normal(cuda_probes.BLOCK).astype(
+        np.float32)).to(dev)
+    wide = torch.from_numpy(rng.standard_normal(
+        (2, probes.DMA_COLUMNS)).astype(np.float32)).to(dev)
+    span = probes.span_dma()
+    probe_fns = {}
+    for per_step in (True, False):
+        probe_fns[("bare", per_step)] = (
+            lambda p=per_step: cuda_probes.step_probe_bare_cuda(
+                block, PROBE_STEPS, p),
+            lambda p=per_step: cuda_probes.step_probe_bare_plain(
+                block, PROBE_STEPS, p))
+    for ring in (True, False):
+        probe_fns[("dma", ring)] = (
+            lambda r=ring: cuda_probes.step_probe_dma_cuda(
+                wide, PROBE_STEPS, span, r),
+            lambda r=ring: cuda_probes.step_probe_dma_plain(
+                wide, PROBE_STEPS, span, r))
+    what = {("bare", True): "out[k] per step (bench.py)",
+            ("bare", False): "one fixed block (the tool)",
+            ("dma", True): "3-slot ring, one-step prefetch (bench.py)",
+            ("dma", False): "two copies per step, both waited (the tool)"}
+    for key, (kernel, plain) in probe_fns.items():
+        same = torch.equal(kernel(), plain())
+        print(f"[17 probes] {key[0]} probe, {what[key]}, K={PROBE_STEPS}: "
+              f"{'equal to' if same else 'DIFFERS from'} its plain output "
+              f"({card})")
+        check(same, f"the {key[0]} probe disagrees with its plain output")
+    # Least bytes: x read once (the dma probe: the union of its windows),
+    # each output written once.
+    limit = cuda_probes.dma_limit(probes.DMA_COLUMNS, span)
+    window_cols = min((PROBE_STEPS - 1) * cuda_probes.LANE, limit) + span
+    bounds = {
+        ("bare", True): bound(4 * 1024 * (1 + PROBE_STEPS), 0),
+        ("bare", False): bound(4 * 1024 * 2, 0),
+        ("dma", True): bound(
+            4 * 2 * (window_cols + PROBE_STEPS * cuda_probes.LANE), 0),
+        ("dma", False): bound(4 * 2 * (window_cols + cuda_probes.LANE), 0),
+    }
+    probe_times = {}
+    for key, (kernel, plain) in probe_fns.items():
+        runs = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            runs[name] += cuda_ms(kernel if name == "kernel" else plain, 5)
+        t = probe_times[key] = {k: summary(v)[0] for k, v in runs.items()}
+        t["bound"] = bounds[key]
+        print(f"[17 probes] {key[0]} probe, {what[key]}, K={PROBE_STEPS}, per "
+              f"launch: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} "
+              f"ms, bound {t['bound'][0]:.6f} ms by {t['bound'][1]} ({card})")
+    zero_counts()
+    bare_s, dma_s = probes.wsola_step_overhead(8, device=CARD)
+    counts_steps = read_counts()
+    print(f"[17 probes] step overhead by K-slope ({probes.STEP_KS[0]} -> "
+          f"{probes.STEP_KS[1]} steps, CUDA events): bare {bare_s * 1e6:.4f} "
+          f"us per step, dma {dma_s * 1e6:.4f} us per step; the chain kernel "
+          f"{chain_us:.4f} us per frame (phase 8, K={stages[0][3]['K']}); "
+          f"launches {counts_steps} ({card})")
+    check(counts_steps["step_probe_bare"] >= 2
+          and counts_steps["step_probe_dma"] >= 2,
+          "wsola_step_overhead did not run both probe kernels")
+    probe_times[("bare", True)]["us_per_step"] = bare_s * 1e6
+    probe_times[("dma", True)]["us_per_step"] = dma_s * 1e6
+
+    stdout = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(stdout):
+        rc = ab_wsola_fps.main(TOOL_ARGS)
+    counts_tool = read_counts()
+    print("\n".join(f"[17 probes] ab_wsola_fps {' '.join(TOOL_ARGS)}: {line}"
+                    for line in stdout.getvalue().splitlines()))
+    print(f"[17 probes] ab_wsola_fps launches {counts_tool} ({card})")
+    check(rc == 0, f"ab_wsola_fps exited {rc}")
+    for fps in (2, 4):
+        check(f"table fps={fps} == fps=1: True" in stdout.getvalue(),
+              f"ab_wsola_fps: the table at fps={fps} differs")
+    for name in ("wsola_score_table", "wsola_table_walk", "step_probe_bare",
+                 "step_probe_dma", "wsola_chain"):
+        check(counts_tool[name] >= 1, f"ab_wsola_fps did not launch {name}")
+
+    # -- 18. resample-data ----------------------------------------------------
+    resample_err = 0.0
+    cases = [(i, o, c, i // 2) for i, o in RESAMPLE_DATA_PAIRS for c in (1, 2)]
+    cases.append((48_000, 44_100, 2, 48_000 * SECONDS))
+    for in_rate, out_rate, channels, n in cases:
+        data = torch.from_numpy((0.3 * np.random.default_rng(0).standard_normal(
+            (channels, n))).astype(np.float32)).to(dev)
+        got = tr.resample_data(data, in_rate, out_rate)
+        x, G, M, W, bank = tr.bank_operands(data, in_rate, out_rate)
+        want = tr.apply_filter_bank_plain(x, G, M, W, bank)[:, : got.shape[1]]
+        err = (got - want).abs().max().item()
+        print(f"[18 resample-data] resample_data {in_rate}->{out_rate} Hz, "
+              f"[{channels}, {n}] -> {list(got.shape)}: max|kernel - plain| "
+              f"{err:.3e} (tol {TOL:.0e}) ({card})")
+        check(err <= TOL, f"resample_data disagrees at {in_rate}->{out_rate}")
+        resample_err = max(resample_err, err)
+        del data, got, x, want
+    zero_counts()
+    ab = {pair: probes.resample_ab(*pair, SECONDS, device=CARD) for pair in (
+        (48_000, 44_100), (44_100, 48_000))}
+    counts_ab = read_counts()
+    for (in_rate, out_rate), r in ab.items():
+        print(f"[18 resample-data] resample_ab {in_rate}->{out_rate} Hz, "
+              f"{SECONDS} s stereo: resample_data (the polyphase kernel) "
+              f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"F.conv1d (library yardstick) {r['conv1d_ms']:.4f} ms, "
+              f"max|kernel - plain| {r['max_diff']:.3e} ({card})")
+        check(r["max_diff"] <= TOL, f"resample_ab: kernel and plain disagree "
+              f"at {in_rate}->{out_rate}")
+        resample_err = max(resample_err, r["max_diff"])
+    print(f"[18 resample-data] resample_ab launches {counts_ab} ({card})")
+    check(counts_ab["polyphase_resample"] >= 2,
+          "resample_ab did not launch the polyphase kernel")
+    x, G, M, W, bank = tr.bank_operands(
+        torch.zeros((2, 48_000 * SECONDS), device=dev), 48_000, 44_100)
+    resample_bound = resample_work_bound(x, G, M, bank)
+    del x
+    print(f"[18 resample-data] 48->44.1 kHz, {SECONDS} s stereo bound: "
+          f"{resample_bound[0]:.4f} ms by {resample_bound[1]} ({card})")
+
+    pitch = times[stages[0][0]]
+    r = ab[(48_000, 44_100)]
+    entries = [
+        {"name": "wsola_score_table", "route": "cuda",
+         "source": "nodey_tpu_torch/csrc/wsola_score_table.cu",
+         "replaces": "nodey_tpu/ops/pallas_wsola.py:71",
+         "max_abs_err": table_gap,
+         "max_abs_err_is": "worst float64 score gap / row max |score| of an "
+                           "entry that differs from the plain table",
+         "ms": pitch["kernel"], "plain_ms": pitch["plain"],
+         "bound_ms": pitch["bound"][0], "bound_by": pitch["bound"][1],
+         "library_ms": pitch["library"]},
+        {"name": "wsola_table_walk", "route": "cuda",
+         "source": "nodey_tpu_torch/csrc/wsola_score_table.cu",
+         "replaces": "nodey_tpu/ops/pallas_wsola.py:307",
+         "max_abs_err": 0.0,
+         "ms": pitch["walk kernel"], "plain_ms": pitch["walk plain"],
+         "bound_ms": pitch["walk bound"][0],
+         "bound_by": pitch["walk bound"][1], "library_ms": None},
+    ]
+    for probe, replaces in (
+            ("bare", "bench.py:979 and tools/ab_wsola_fps.py:42"),
+            ("dma", "bench.py:994 and tools/ab_wsola_fps.py:60")):
+        t, tool = probe_times[(probe, True)], probe_times[(probe, False)]
+        entries.append({
+            "name": f"step_probe_{probe}", "route": "cuda",
+            "source": "nodey_tpu_torch/csrc/step_probes.cu",
+            "replaces": replaces, "max_abs_err": 0.0,
+            "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None, "us_per_step": t["us_per_step"],
+            "tool_form": {"ms": tool["kernel"], "plain_ms": tool["plain"],
+                          "bound_ms": tool["bound"][0],
+                          "bound_by": tool["bound"][1]}})
+    entries.append({
+        "name": "resample_data", "route": "cuda",
+        "source": "nodey_tpu_torch/csrc/polyphase_resample.cu",
+        "replaces": "nodey_tpu/ops/pallas_resample.py:56",
+        "max_abs_err": resample_err,
+        "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": resample_bound[0], "bound_by": resample_bound[1],
+        "library_ms": r["conv1d_ms"]})
+    paths = {"ab_wsola_fps": counts_tool, "step_overhead": counts_steps,
+             "resample_ab": counts_ab}
+    return paths, entries
 
 
 def check_chunk_calls(tag: str, calls, geo, card: str):
@@ -888,9 +1295,9 @@ def main() -> int:
                    out1.shape[1])
         out1[:, len1:] = 0.0
         s2, len2 = stretch.transpose_rate(out1, len1, pitch)
-        del s48, out1, body1
+        del s48, out1
         x2, head2, geo2 = wsola_operands(s2, VELOCITY, 48_000)
-        bs2, _, err2 = check_chain(f"velocity {VELOCITY:g} stage, tempo "
+        bs2, body2, err2 = check_chain(f"velocity {VELOCITY:g} stage, tempo "
                                  f"{VELOCITY:g}", x2, head2, geo2, card)
         check((geo1["K"], geo2["K"]) == CONFIG4_FRAMES,
               f"frames {(geo1['K'], geo2['K'])}, want {CONFIG4_FRAMES}")
@@ -988,7 +1395,6 @@ def main() -> int:
             print(f"[8 times] WSOLA {tag} stage bound: {ms:.4f} ms by {by}; "
                   f"kernel at {ms / wsola_times[tag]['kernel']:.2%} of it "
                   f"({card})")
-        del x1, x2, head1, head2
 
         def conv1d_call(x3, weight, M_):
             return F.conv1d(x3, weight, stride=M_)
@@ -1399,12 +1805,33 @@ def main() -> int:
                   f"ms ({card})")
         del calls
 
+    # -- 16-18. wsola-table, probes, resample-data --------------------------
+    stages = [("pitch", x1, head1, geo1, bs1, body1),
+              ("velocity", x2, head2, geo2, bs2, body2)]
+    del x1, x2, head1, head2, body1, body2
+    chain_us = wsola_times["pitch"]["kernel"] * 1e3 / geo1["K"]
+    tool_paths, tool_entries = table_and_probe_phases(card, dev, stages,
+                                                      chain_us)
+    del stages
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
             ("config4_pv", counts_pv), ("config4_pv_options", counts_opt),
             ("5node_streamed", streamed["5node"]["counts"]),
-            ("config4_streamed", streamed["config4"]["counts"]))}
+            ("config4_streamed", streamed["config4"]["counts"]),
+            *tool_paths.items())}
+
+    def with_launches(entry):
+        # resample_data is the polyphase kernel reached through the A/B
+        # entry: its launches are those of that path alone.
+        if entry["name"] == "resample_data":
+            paths = {"resample_ab":
+                     tool_paths["resample_ab"]["polyphase_resample"]}
+        else:
+            paths = by_path(entry["name"])
+        return {**entry, "launches": sum(paths.values()),
+                "launches_by_path": paths}
 
     pitch_times = wsola_times["pitch"]
     pv_pitch = pv_times["pitch"]
@@ -1479,6 +1906,7 @@ def main() -> int:
             "bound_by": pv_pitch["lock bound"][1],
             "library_ms": None,
         },
+        *map(with_launches, tool_entries),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

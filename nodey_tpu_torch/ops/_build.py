@@ -28,6 +28,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# The card allows 227 KB of shared memory per block.
+SMEM_LIMIT = 227 * 1024
+
 _lock = threading.Lock()
 _libs: dict = {}
 
@@ -118,6 +121,23 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nodey_pv_lock.restype = i32
         lib.nodey_pv_lock_smem_bytes.argtypes = [i32]
         lib.nodey_pv_lock_smem_bytes.restype = i64
+    elif name == "wsola_score_table":
+        lib.nodey_wsola_score_table.argtypes = [
+            vp, i64, i32, i32, i32, i64, i64, i32, i32, i32, vp, vp,
+        ]
+        lib.nodey_wsola_score_table.restype = i32
+        lib.nodey_wsola_table_walk.argtypes = [vp, i32, i32, vp, vp]
+        lib.nodey_wsola_table_walk.restype = i32
+        lib.nodey_wsola_table_smem_bytes.argtypes = [i32, i32, i32]
+        lib.nodey_wsola_table_smem_bytes.restype = i64
+    elif name == "step_probes":
+        lib.nodey_step_probe_bare.argtypes = [vp, vp, i32, i32, vp]
+        lib.nodey_step_probe_bare.restype = i32
+        lib.nodey_step_probe_dma.argtypes = [vp, i64, i32, i32, i64, i32, vp,
+                                             vp]
+        lib.nodey_step_probe_dma.restype = i32
+        lib.nodey_step_probe_dma_smem_bytes.argtypes = [i32, i32]
+        lib.nodey_step_probe_dma_smem_bytes.restype = i64
     lib.nodey_cuda_error_string.argtypes = [i32]
     lib.nodey_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,6 +153,16 @@ def load_library(name: str) -> ctypes.CDLL:
                 build_all([name])
             _libs[name] = _bind(name, ctypes.CDLL(str(so)))
         return _libs[name]
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise unless ``rc``, the cudaError_t a library's C entry returned
+    after its launch, is 0."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.nodey_cuda_error_string(rc).decode()} (cudaError {rc})"
+        )
 
 
 def build_log(name: str) -> str:

@@ -27,9 +27,6 @@ from nodey_tpu_torch.ops import _build
 phase_path_launches = 0
 lock_launches = 0
 
-# The card allows 227 KB of shared memory per block.
-_SMEM_LIMIT = 227 * 1024
-
 
 def _check_planes(names, planes, what: str):
     first = planes[0]
@@ -46,13 +43,6 @@ def _check_planes(names, planes, what: str):
                 f"{name} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous planes ({name})")
-
-
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(
-            f"{what} launch failed: "
-            f"{lib.nodey_cuda_error_string(rc).decode()} (cudaError {rc})")
 
 
 def phase_path_cuda(re: torch.Tensor, im: torch.Tensor, dpos, hop: int,
@@ -74,7 +64,7 @@ def phase_path_cuda(re: torch.Tensor, im: torch.Tensor, dpos, hop: int,
     # (b * dpos) and (b * hop) are formed in int32.
     if (B - 1) * max(int(dpos.max(initial=0)), hop) >= 2**31:
         raise ValueError(f"{what}: hops too long for int32 bin products")
-    if 9 * 4 * B > _SMEM_LIMIT:  # seven float rows and two int rows
+    if 9 * 4 * B > _build.SMEM_LIMIT:  # seven float rows and two int rows
         raise ValueError(f"{what}: {B} bins need more shared memory than a "
                          f"block has")
     ry = torch.empty_like(re)
@@ -92,7 +82,7 @@ def phase_path_cuda(re: torch.Tensor, im: torch.Tensor, dpos, hop: int,
             iy.data_ptr(), scratch.data_ptr(), C, K, B, hop, n_fft,
             int(bool(lock)), float(np.float32(2.0 * math.pi / n_fft)),
             2.0 * math.pi / n_fft, stream)
-    _raise_on(lib, rc, what)
+    _build.check_launch(lib, rc, what)
     phase_path_launches += 1
     return ry, iy
 
@@ -112,7 +102,7 @@ def lock_to_peaks_cuda(cos_phi: torch.Tensor, sin_phi: torch.Tensor,
     if C * K >= 2**31:
         raise ValueError(f"{what}: {C * K} rows, more than a grid holds")
     lib = _build.load_library("pv_lock")
-    if lib.nodey_pv_lock_smem_bytes(B) > _SMEM_LIMIT:
+    if lib.nodey_pv_lock_smem_bytes(B) > _build.SMEM_LIMIT:
         raise ValueError(f"{what}: {B} bins need more shared memory than a "
                          f"block has")
     with torch.cuda.device(mag.device):
@@ -120,6 +110,6 @@ def lock_to_peaks_cuda(cos_phi: torch.Tensor, sin_phi: torch.Tensor,
         rc = lib.nodey_pv_lock(
             cos_phi.data_ptr(), sin_phi.data_ptr(), ph_in.data_ptr(),
             mag.data_ptr(), oc.data_ptr(), os_.data_ptr(), C * K, B, stream)
-    _raise_on(lib, rc, what)
+    _build.check_launch(lib, rc, what)
     lock_launches += 1
     return oc, os_

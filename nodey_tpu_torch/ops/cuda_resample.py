@@ -80,10 +80,6 @@ def apply_filter_bank_cuda(x: torch.Tensor, G: int, M: int, W: int,
             x.data_ptr(), bank.data_ptr(), y.data_ptr(),
             C, N, G, L, M, W, tile_g, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "polyphase kernel launch failed: "
-            f"{lib.nodey_cuda_error_string(rc).decode()} (cudaError {rc})"
-        )
+    _build.check_launch(lib, rc, "polyphase kernel")
     launches += 1
     return y

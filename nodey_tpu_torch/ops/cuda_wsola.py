@@ -26,9 +26,6 @@ from nodey_tpu_torch.ops.wsola import check_window
 # Launches of the kernel, offline and in streaming chunk steps.
 launches = 0
 
-# The card allows 227 KB of shared memory per block.
-_SMEM_LIMIT = 227 * 1024
-
 
 def _check(x: torch.Tensor, head: torch.Tensor, K: int, num: int, den: int,
            seq: int, seek: int, overlap: int, k0: int, base: int):
@@ -60,20 +57,13 @@ def _check(x: torch.Tensor, head: torch.Tensor, K: int, num: int, den: int,
         raise ValueError(f"WSOLA kernel: {K} frames, more than an int32 holds")
     lib = _build.load_library("wsola_chain")
     smem = lib.nodey_wsola_smem_bytes(x.shape[0], seek + seq, overlap)
-    if smem > _SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"WSOLA kernel: {x.shape[0]} channels of a {seek + seq}-sample "
-            f"window need {smem} bytes of shared memory (max {_SMEM_LIMIT})"
+            f"window need {smem} bytes of shared memory (max "
+            f"{_build.SMEM_LIMIT})"
         )
     return lib
-
-
-def _raise_on(lib, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            "WSOLA kernel launch failed: "
-            f"{lib.nodey_cuda_error_string(rc).decode()} (cudaError {rc})"
-        )
 
 
 def wsola_chunk_chain_cuda(x: torch.Tensor, head: torch.Tensor, k0: int,
@@ -103,7 +93,7 @@ def wsola_chunk_chain_cuda(x: torch.Tensor, head: torch.Tensor, k0: int,
             tail_out.data_ptr(), C, x.stride(0), K, k0, base, num, den, seq,
             seek, overlap, stream,
         )
-    _raise_on(lib, rc)
+    _build.check_launch(lib, rc, "WSOLA kernel")
     launches += 1
     return bs, body, tail_out
 

@@ -155,7 +155,13 @@ def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
 
 def resample_data(data: torch.Tensor, in_rate: int,
                   out_rate: int) -> torch.Tensor:
-    """Resample [C, N] float32 to ceil(N*L/M) output samples."""
+    """Resample [C, N] float32 to ceil(N*L/M) output samples.
+
+    Also the counterpart of ``nodey_tpu/ops/pallas_resample.py::
+    resample_data_pallas``, the TPU's ungrouped kernel (one [128, W] x
+    [W, L] GEMM per channel per grid step): on a CUDA tensor this launches
+    the polyphase kernel, which computes that same ungrouped sum, so the
+    entry needs no code path of its own."""
     if in_rate == out_rate:
         return data
     x, G, M, W, bank = bank_operands(data, in_rate, out_rate)

@@ -25,6 +25,18 @@ after its last frame (the JAX step slices it out of the snapshot itself).
 ``wsola_chain`` and ``wsola_chunk_chain`` send a CUDA tensor to the
 hand-written kernel (:mod:`nodey_tpu_torch.ops.cuda_wsola`) and a CPU
 tensor to the plain versions; neither falls back to the other.
+
+The same chain has a parallel formulation, the score table of
+``nodey_tpu/ops/pallas_wsola.py::wsola_score_table``: F[k, p] is the first
+best candidate of frame k for the tail that frame k-1's choice p would
+realize, ``x[:, frame_pos(k-1) + stride + p :][:, :overlap]`` (frame 0: the
+head ``x[:, :overlap]`` for every p), and the walk ``b_k = F[k, b_{k-1}]``
+from ``b_{-1} = 0`` (``splice_offsets``) gives the chain's splices. Every
+frame's row of the table is independent; only the walk is serial. Here the
+table is [K, seek+1] in real order (the JAX table's permuted 128-lane rows
+are TPU layout). ``wsola_score_table``, ``walk_table`` and
+``splice_offsets`` dispatch as the chain does, to
+:mod:`nodey_tpu_torch.ops.cuda_wsola_table` on the card.
 """
 
 from __future__ import annotations
@@ -173,6 +185,72 @@ def assemble_plain(x: torch.Tensor, head: torch.Tensor, bs, K: int, num: int,
     return body
 
 
+# Frames scored together by the plain table (bounds its working set:
+# ~13 MB a frame at 48 kHz stereo, operands, products and temporaries).
+TABLE_CHUNK_FRAMES = 64
+
+
+def _hankel(x: torch.Tensor, starts, width: int, overlap: int):
+    """float32 [C*F, width - overlap + 1, overlap], a fresh tensor: row r of
+    frame f is ``x[:, starts[f] + r :][:, :overlap]``, channel-major."""
+    cols = (torch.tensor(starts, device=x.device)[:, None]
+            + torch.arange(width, device=x.device))
+    rows = x[:, cols].unfold(2, overlap, 1)      # [C, F, n, overlap]
+    return rows.reshape(-1, width - overlap + 1, overlap).contiguous()
+
+
+def wsola_scores_plain(x: torch.Tensor, ks, num: int, den: int, seq: int,
+                       seek: int, overlap: int) -> torch.Tensor:
+    """float32 [len(ks), seek+1, seek+1]: score[f, p, b] of frame ks[f],
+    tail row p against candidate b, by ``unfold`` and one ``bmm`` per
+    (channel, frame): ``corr * rsqrt(energy + 1e-9)`` with corr and energy
+    summed over channels."""
+    C = x.shape[0]
+    stride, span, n = seq - overlap, seek + overlap, seek + 1
+    ks = list(ks)
+    cand = _hankel(x, [frame_pos(k, num, den) for k in ks], span, overlap)
+    tail = _hankel(x, [frame_pos(k - 1, num, den) + stride if k else 0
+                       for k in ks], span, overlap)
+    if ks and ks[0] == 0:
+        # Frame 0 scores the head for every tail row.
+        tail.view(C, len(ks), n, overlap)[:, 0] = x[:, None, :overlap]
+    corr = torch.bmm(tail, cand.transpose(1, 2)).view(C, len(ks), n, n).sum(0)
+    energy = (cand * cand).sum(2).view(C, len(ks), n).sum(0)
+    return corr * torch.rsqrt(energy + 1e-9)[:, None, :]
+
+
+def wsola_score_table_plain(x: torch.Tensor, K: int, num: int, den: int,
+                            seq: int, seek: int, overlap: int) -> torch.Tensor:
+    """int32 [K, seek+1]: the score table (see the module docstring), the
+    first maximum of each row of ``wsola_scores_plain``, chunked over
+    frames. ``x`` [C, N] must cover frame K-1's window."""
+    check_window(x, K, num, den, seq, seek)
+    table = torch.empty((K, seek + 1), dtype=torch.int32, device=x.device)
+    for k0 in range(0, K, TABLE_CHUNK_FRAMES):
+        ks = range(k0, min(K, k0 + TABLE_CHUNK_FRAMES))
+        scores = wsola_scores_plain(x, ks, num, den, seq, seek, overlap)
+        table[k0 : k0 + len(ks)] = torch.argmax(scores, dim=2).int()
+    return table
+
+
+def walk_table_plain(table: torch.Tensor) -> torch.Tensor:
+    """int32 [K]: b_k = table[k, b_{k-1}] from b_{-1} = 0, one gather per
+    frame on ``table``'s device."""
+    bs = torch.empty(table.shape[0], dtype=torch.int32, device=table.device)
+    b = torch.zeros(1, dtype=torch.int64, device=table.device)
+    for k in range(table.shape[0]):
+        b = table[k].gather(0, b).long()
+        bs[k : k + 1] = b
+    return bs
+
+
+def splice_offsets_plain(x: torch.Tensor, K: int, num: int, den: int,
+                         seq: int, seek: int, overlap: int) -> torch.Tensor:
+    """int32 [K]: the chain's splices by the table route, plain."""
+    return walk_table_plain(
+        wsola_score_table_plain(x, K, num, den, seq, seek, overlap))
+
+
 def _check_device(x: torch.Tensor) -> None:
     if x.device.type != "cpu":
         raise ProcessorRuntimeError(
@@ -209,3 +287,40 @@ def wsola_chunk_chain(x: torch.Tensor, head: torch.Tensor, k0: int, base: int,
     _check_device(x)
     return wsola_chunk_chain_plain(x, head, k0, base, K, num, den, seq, seek,
                                    overlap)
+
+
+def wsola_score_table(x: torch.Tensor, K: int, num: int, den: int, seq: int,
+                      seek: int, overlap: int,
+                      frames_per_step: int = 1) -> torch.Tensor:
+    """The score table: a CUDA tensor launches the score kernel (each CTA
+    scoring ``frames_per_step`` frames in a loop; the table is the same at
+    any value), a CPU tensor takes the plain version."""
+    if x.is_cuda:
+        from nodey_tpu_torch.ops import cuda_wsola_table
+
+        return cuda_wsola_table.wsola_score_table_cuda(
+            x, K, num, den, seq, seek, overlap, frames_per_step)
+    _check_device(x)
+    if frames_per_step < 1:
+        raise ValueError(f"frames_per_step must be >= 1, got {frames_per_step}")
+    return wsola_score_table_plain(x, K, num, den, seq, seek, overlap)
+
+
+def walk_table(table: torch.Tensor) -> torch.Tensor:
+    """The walk of a score table: the walk kernel on a CUDA tensor, the
+    plain walk on a CPU tensor."""
+    if table.is_cuda:
+        from nodey_tpu_torch.ops import cuda_wsola_table
+
+        return cuda_wsola_table.walk_table_cuda(table)
+    _check_device(table)
+    return walk_table_plain(table)
+
+
+def splice_offsets(x: torch.Tensor, K: int, num: int, den: int, seq: int,
+                   seek: int, overlap: int,
+                   frames_per_step: int = 1) -> torch.Tensor:
+    """int32 [K]: the chain's splices by the table route (score table, then
+    its walk), as ``pallas_wsola.splice_offsets`` computes them."""
+    return walk_table(wsola_score_table(x, K, num, den, seq, seek, overlap,
+                                        frames_per_step))

@@ -21,6 +21,12 @@ mag > 0 within a phasor error |kernel - plain| / mag <= 1e-3 (its prefix
 is associated otherwise; a different peak choice would show as O(1)); the
 lock kernel within 2e-6 of the plain lock (unit phasors: a different peak
 choice would show as O(1)).
+
+The WSOLA score-table kernel sums each score in another order than the
+plain version's bmm, so an entry may differ only where two candidates'
+float64 scores lie within 1e-5 of the row's largest |score|; it sums in the
+chain kernel's order, so it must agree with the chain kernel exactly. The
+walk and the step probes copy or index values: bitwise.
 """
 
 import math
@@ -30,8 +36,8 @@ import pytest
 import torch
 
 import nodey_tpu_torch  # noqa: F401  (sets the TF32 flags)
-from nodey_tpu_torch.ops import cuda_pv, cuda_resample, cuda_wsola, pv
-from nodey_tpu_torch.ops import stretch, wsola
+from nodey_tpu_torch.ops import cuda_probes, cuda_pv, cuda_resample, cuda_wsola
+from nodey_tpu_torch.ops import cuda_wsola_table, pv, stretch, wsola
 from nodey_tpu_torch.ops import resample as tr
 from nodey_tpu_torch.ops.wsola import frame_pos
 
@@ -212,6 +218,122 @@ def test_wsola_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head"):
         cuda_wsola.wsola_chain_cuda(x, head[:1], *args)
     assert cuda_wsola.launches == before
+
+
+# -- the WSOLA score table, its walk, the step probes --------------------------
+
+# (rate, tempo, frames, channels): the tests' 8 kHz geometry, 48 kHz
+# (721 candidates: 12 row tiles, a ragged last one, 3 candidate passes),
+# 44.1 kHz (seek 660, overlap 352), mono.
+TABLE_CASES = [
+    (8_000, 1.25, 23, 2),
+    (48_000, 1.25, 9, 2),
+    (44_100, 0.8, 7, 2),
+    (48_000, 0.7937005259840998, 6, 1),
+]
+
+
+def _table_gap(x, args, k, p, b1, b2):
+    """|score64(b1) - score64(b2)| / max_b |score64(b)| of table row (k, p)."""
+    K, num, den, seq, seek, overlap = args
+    pos = frame_pos(k, num, den)
+    start = frame_pos(k - 1, num, den) + seq - overlap + p if k else 0
+    tail = x[:, start : start + overlap].double().cpu().numpy()
+    cand = x[:, pos : pos + seek + overlap].double().cpu().numpy()
+    win = np.lib.stride_tricks.sliding_window_view(cand, overlap, axis=1)
+    scores = (np.einsum("cv,cbv->b", tail, win)
+              / np.sqrt((win * win).sum(axis=(0, 2)) + 1e-9))
+    return abs(scores[b1] - scores[b2]) / np.abs(scores).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,tempo,K,channels", TABLE_CASES)
+def test_score_table_kernel_matches_plain(cuda_device, rate, tempo, K,
+                                          channels):
+    x, _, args = _wsola_operands(cuda_device, rate, tempo, K, channels, seed=5)
+    before = cuda_wsola_table.table_launches
+    table = cuda_wsola_table.wsola_score_table_cuda(x, *args)
+    torch.cuda.synchronize()
+    assert cuda_wsola_table.table_launches == before + 1
+    want = wsola.wsola_score_table_plain(x, *args)
+    assert table.dtype == torch.int32 and table.shape == want.shape
+    assert (table[0] == table[0, 0]).all()
+    differ = (table != want).nonzero().tolist()
+    assert len(differ) <= 0.01 * table.numel()
+    for k, p in differ:
+        gap = _table_gap(x, args, k, p, int(table[k, p]), int(want[k, p]))
+        assert gap <= 1e-5
+    for fps in (2, 4, K + 3):
+        assert torch.equal(table, cuda_wsola_table.wsola_score_table_cuda(
+            x, *args, frames_per_step=fps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,tempo,K,channels", TABLE_CASES)
+def test_score_table_walk_is_the_chain_kernel(cuda_device, rate, tempo, K,
+                                              channels):
+    """The table scores in the chain kernel's order: the row of the chain's
+    previous choice holds its next choice, and the walk is the chain."""
+    x, head, args = _wsola_operands(cuda_device, rate, tempo, K, channels)
+    table = cuda_wsola_table.wsola_score_table_cuda(x, *args)
+    bs, _ = cuda_wsola.wsola_chain_cuda(x, head, *args)
+    assert table[0, 0] == bs[0]
+    assert torch.equal(table[1:].gather(1, bs[:-1].long()[:, None])[:, 0],
+                       bs[1:])
+    before = cuda_wsola_table.walk_launches
+    walk = cuda_wsola_table.walk_table_cuda(table)
+    torch.cuda.synchronize()
+    assert cuda_wsola_table.walk_launches == before + 1
+    assert torch.equal(walk, wsola.walk_table_plain(table))
+    assert torch.equal(walk, bs)
+    assert torch.equal(wsola.splice_offsets(x, *args), bs)
+
+
+@pytest.mark.cuda
+def test_score_table_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, _, args = _wsola_operands(cuda_device, 8_000, 1.25, 5, 2)
+    before = (cuda_wsola_table.table_launches, cuda_wsola_table.walk_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_wsola_table.wsola_score_table_cuda(x.cpu(), *args)
+    with pytest.raises(ValueError, match="window reads"):
+        cuda_wsola_table.wsola_score_table_cuda(x[:, :-3].contiguous(), *args)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_wsola_table.wsola_score_table_cuda(x.double(), *args)
+    with pytest.raises(ValueError, match="frames_per_step"):
+        cuda_wsola_table.wsola_score_table_cuda(x, *args, frames_per_step=0)
+    table = wsola.wsola_score_table_plain(x, *args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_wsola_table.walk_table_cuda(table.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        cuda_wsola_table.walk_table_cuda(table.long())
+    assert (cuda_wsola_table.table_launches,
+            cuda_wsola_table.walk_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 5, 4096])
+def test_step_probes_match_plain(cuda_device, K):
+    rng = np.random.default_rng(K)
+    block = torch.from_numpy(rng.standard_normal((8, 128)).astype(
+        np.float32)).to(cuda_device)
+    wide = torch.from_numpy(rng.standard_normal((2, 1 << 16)).astype(
+        np.float32)).to(cuda_device)
+    before = (cuda_probes.bare_launches, cuda_probes.dma_launches)
+    for per_step in (True, False):
+        got = cuda_probes.step_probe_bare_cuda(block, K, per_step)
+        assert torch.equal(got, cuda_probes.step_probe_bare_plain(
+            block, K, per_step))
+    for ring in (True, False):
+        got = cuda_probes.step_probe_dma_cuda(wide, K, 1280, ring)
+        assert torch.equal(got, cuda_probes.step_probe_dma_plain(
+            wide, K, 1280, ring))
+    torch.cuda.synchronize()
+    assert (cuda_probes.bare_launches, cuda_probes.dma_launches) == (
+        before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_probes.step_probe_bare_cuda(block.double(), K)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_probes.step_probe_dma_cuda(wide.cpu(), K, 1280)
 
 
 # -- the phase-vocoder kernels -------------------------------------------------

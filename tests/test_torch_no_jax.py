@@ -4,8 +4,9 @@ A fresh interpreter whose ``sys.meta_path`` refuses jax and the JAX
 package imports every module of ``nodey_tpu_torch`` and renders a tiny
 WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``, once
 offline and once streamed (``--stream``); afterwards ``sys.modules`` holds
-neither. ``chip_smoke.py`` is held to the
-same, and no source file of the port names either in an import.
+neither. ``chip_smoke.py`` and the A/B tool (``python -m
+nodey_tpu_torch.tools.ab_wsola_fps``) are held to the same, and no source
+file of the port (``tools/`` included) names either in an import.
 """
 
 import ast
@@ -108,6 +109,26 @@ def test_chip_smoke_loads_nothing_of_jax_and_fails_without_a_card(tmp_path):
     assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout + proc.stderr
     assert "nodey_tpu_torch" in proc.stderr or "cuda" in proc.stderr.lower()
     assert '"ok": true' not in proc.stdout
+
+
+_TOOL_SCRIPT = _BLOCKER + r"""
+import runpy
+sys.argv = ["ab_wsola_fps", "1", "1"]
+try:
+    runpy.run_module("nodey_tpu_torch.tools.ab_wsola_fps", run_name="__main__")
+finally:
+    report()
+"""
+
+
+def test_ab_tool_loads_nothing_of_jax_and_fails_without_a_card(tmp_path):
+    """The A/B tool measures on the card only: without one it says so and
+    exits non-zero, having imported neither jax nor nodey_tpu."""
+    proc = _run(_TOOL_SCRIPT, cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout + proc.stderr
+    assert "no CUDA card" in proc.stderr, proc.stderr
+    assert "K=" not in proc.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):
