@@ -16,9 +16,10 @@ Phases, in order; the first failure exits non-zero:
                44.1 kHz stereo s16 tracks (export to WAV), then a 10 s
                excerpt of the same graph in code rendered on the card and on
                the CPU: master max|diff| <= 2e-6, spectrum SNR >= 100 dB;
-  5. times   — CUDA events after a warm-up: the polyphase kernel and its plain
-               version at the 5-node path's shape, and the whole graph's
-               device render as audio-seconds per device-second;
+  5. times   — CUDA events after a warm-up: the polyphase kernel and its
+               plain version at the 5-node path's shape, beside its bound,
+               and the whole graph's device render as audio-seconds per
+               device-second;
   6. wsola   — the WSOLA chain kernel against its plain version on the card:
                splice offsets bitwise on the 7 golden signals; at config 4's
                two 300 s shapes (K 11,820 and 7,507) every frame's choice
@@ -26,16 +27,20 @@ Phases, in order; the first failure exits non-zero:
                (a differing frame must be a near tie: float64 scores within
                1e-5 of the frame's max |score|, at most 0.1% of K) and the
                audio against the plain assembly of the same choices (2e-6);
+               the chain's energy prologue against its plain version at both
+               shapes (relative 1e-5);
   7. config4 — the config-4 graph (resample -> pitch +4 -> velocity 1.25
                keep_pitch) through the CLI on a 300 s 44.1 kHz stereo track,
                exported to WAV: length 11,519,994, finite, >= 2 launches of
                each kernel; a 10 s excerpt on the card and on the CPU: equal
                splice decisions, master max|diff| <= 2e-6;
-  8. times   — CUDA events: the WSOLA kernel and its plain version at both
-               shapes; the 635/504 resample (kernel, plain, conv1d); conv1d at
-               44.1->48 kHz; the config-4 render as audio-seconds per
-               device-second, and one render under torch.profiler (device
-               time by kernel, the device's idle share);
+  8. times   — CUDA events: the WSOLA kernel (prologue and chain) and its
+               plain version at both shapes, its us per frame beside the
+               serial floor (an estimate); the prologue alone and its plain
+               version; the 635/504 resample (kernel, plain, conv1d);
+               conv1d at 44.1->48 kHz; the config-4 render as audio-seconds
+               per device-second, and one render under torch.profiler
+               (device time by kernel, the device's idle share);
   9. pv-kernels — the phase-vocoder kernels against their plain versions on
                the card, at config 4's two PV shapes (K 35,460 and 22,520, on
                the main path's own data) and on the 7 golden signals: the
@@ -103,7 +108,8 @@ Phases, in order; the first failure exits non-zero:
                (2e-6) at tests/test_pallas.py's shapes (44.1<->48 kHz, C 1
                and 2, 0.5 s) and at 48->44.1 kHz on 300 s stereo; then
                tools.probes.resample_ab at 48->44.1 and 44.1->48 kHz (kernel,
-               plain, F.conv1d, 300 s stereo).
+               plain, F.conv1d, 300 s stereo); the kernel alone at 48->44.1
+               kHz in both register tiles beside its bound.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B). The line before the last is one JSON object
@@ -149,6 +155,12 @@ PV_EXCERPT_DB = 90.0
 PV_DEVICE_DB = 40.0
 TIE_REL = 1e-5                   # a differing choice must be this near a tie
 TIE_SHARE = 1e-3                 # ... on at most this share of the frames
+# The WSOLA energy prologue against its plain version (conv1d of the squared
+# window): two float32 sums of C*overlap squares in different orders.
+ENERGY_REL = 1e-5
+# One FFMA's latency on this card, in cycles (an estimate for the chain's
+# serial floor: C*overlap dependent FFMAs per frame).
+FFMA_LATENCY_CYCLES = 4
 # (in_rate, out_rate, samples): the two main-path pairs first.
 MAIN_CAPACITY = -(-RATE * SECONDS // 65_536) * 65_536  # Runner._bucket
 KERNEL_PAIRS = [
@@ -252,6 +264,24 @@ def resample_work_bound(x, G: int, M: int, bank):
     taps = tr._effective_taps(L, M, tr.DEFAULT_TAPS)
     return bound(4 * (x.numel() + bank.numel() + C * G * L),
                  2 * taps * C * G * L)
+
+
+def time_resampler(tag: str, label: str, fns: dict, order, iters: int,
+                   card: str, work_bound):
+    """Median ms of each of ``fns`` (timed in ``order``, CUDA events),
+    printed, the kernels' beside ``work_bound``; returns the medians by
+    name."""
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name] += cuda_ms(fns[name], iters)
+    for name in fns:
+        med, lo, hi, count = summary(runs[name])
+        share = (f"; the bound {work_bound[0]:.4f} ms by {work_bound[1]} is "
+                 f"{work_bound[0] / med:.2%} of it"
+                 if name.startswith("kernel") else "")
+        print(f"[{tag}] {label}, {name}: median {med:.4f} ms (min {lo:.4f}, "
+              f"max {hi:.4f}, n={count}){share} ({card})")
+    return {name: summary(runs[name])[0] for name in fns}
 
 
 def snr_db(reference, test) -> float:
@@ -386,6 +416,7 @@ def zero_counts() -> None:
 
     cuda_resample.launches = 0
     cuda_wsola.launches = 0
+    cuda_wsola.energy_launches = 0
     cuda_pv.phase_path_launches = 0
     cuda_pv.lock_launches = 0
     cuda_wsola_table.table_launches = 0
@@ -401,6 +432,7 @@ def read_counts() -> dict:
 
     return {"polyphase_resample": cuda_resample.launches,
             "wsola_chain": cuda_wsola.launches,
+            "wsola_energy": cuda_wsola.energy_launches,
             "pv_phase_path": cuda_pv.phase_path_launches,
             "pv_lock": cuda_pv.lock_launches,
             "wsola_score_table": cuda_wsola_table.table_launches,
@@ -567,6 +599,29 @@ def check_chain(tag: str, x, head, geo, card: str):
     return bs, body, err
 
 
+def check_energy(tag: str, x, geo, card: str):
+    """The chain's energy prologue against its plain version on one chain's
+    operands, every frame, in the wrapper's blocks of BLOCK_FRAMES: max
+    relative difference <= ENERGY_REL. Returns (max relative, max abs)."""
+    from nodey_tpu_torch.ops import cuda_wsola, wsola
+
+    K, args = geo["K"], chain_args(geo)[1:]
+    rel = err = 0.0
+    for k0 in range(0, K, cuda_wsola.BLOCK_FRAMES):
+        n = min(cuda_wsola.BLOCK_FRAMES, K - k0)
+        got = cuda_wsola.wsola_energy_cuda(x, k0, 0, n, *args)
+        want = wsola.wsola_energy_plain(x, k0, 0, n, *args)
+        rel = max(rel, ((got - want).abs() / want).max().item())
+        err = max(err, (got - want).abs().max().item())
+        del got, want
+    print(f"[6 wsola] {tag}: energy prologue, table [{K}, {geo['seek'] + 1}]"
+          f" in {-(-K // cuda_wsola.BLOCK_FRAMES)} launches: max|kernel - "
+          f"plain| / plain = {rel:.3e} (tol {ENERGY_REL:.0e}), max|kernel - "
+          f"plain| = {err:.3e} ({card})")
+    check(rel <= ENERGY_REL, f"{tag}: the energy prologue disagrees with plain")
+    return rel, err
+
+
 def table_gaps(x, geo, entries, table, other):
     """For score-table rows (k, p) in ``entries`` [n, 2]: |score64(table[k,
     p]) - score64(other[k, p])| / max_b |score64(b)| of that row, in
@@ -710,8 +765,8 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
     import numpy as np
     import torch
 
-    from nodey_tpu_torch.ops import cuda_probes, cuda_wsola, cuda_wsola_table
-    from nodey_tpu_torch.ops import wsola
+    from nodey_tpu_torch.ops import cuda_probes, cuda_resample, cuda_wsola
+    from nodey_tpu_torch.ops import cuda_wsola_table, wsola
     from nodey_tpu_torch.ops import resample as tr
     from nodey_tpu_torch.tools import ab_wsola_fps, probes
 
@@ -853,7 +908,7 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
         data = torch.from_numpy((0.3 * np.random.default_rng(0).standard_normal(
             (channels, n))).astype(np.float32)).to(dev)
         got = tr.resample_data(data, in_rate, out_rate)
-        x, G, M, W, bank = tr.bank_operands(data, in_rate, out_rate)
+        x, G, M, W, bank, _ = tr.bank_operands(data, in_rate, out_rate)
         want = tr.apply_filter_bank_plain(x, G, M, W, bank)[:, : got.shape[1]]
         err = (got - want).abs().max().item()
         print(f"[18 resample-data] resample_data {in_rate}->{out_rate} Hz, "
@@ -878,12 +933,21 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
     print(f"[18 resample-data] resample_ab launches {counts_ab} ({card})")
     check(counts_ab["polyphase_resample"] >= 2,
           "resample_ab did not launch the polyphase kernel")
-    x, G, M, W, bank = tr.bank_operands(
-        torch.zeros((2, 48_000 * SECONDS), device=dev), 48_000, 44_100)
+    data = torch.from_numpy((0.3 * np.random.default_rng(0).standard_normal(
+        (2, 48_000 * SECONDS))).astype(np.float32)).to(dev)
+    x, G, M, W, bank, support = tr.bank_operands(data, 48_000, 44_100)
     resample_bound = resample_work_bound(x, G, M, bank)
-    del x
     print(f"[18 resample-data] 48->44.1 kHz, {SECONDS} s stereo bound: "
-          f"{resample_bound[0]:.4f} ms by {resample_bound[1]} ({card})")
+          f"{resample_bound[0]:.4f} ms by {resample_bound[1]}; resample_data "
+          f"at {resample_bound[0] / ab[(48_000, 44_100)]['kernel_ms']:.2%} of "
+          f"it ({card})")
+    kernel_times = time_resampler(
+        "18 resample-data", f"48->44.1 kHz, {SECONDS} s stereo, the polyphase "
+        f"kernel alone (no pad, no slice)", {
+            "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
+                                        x, G, M, W, support)},
+        ("kernel", "kernel"), 10, card, resample_bound)
+    del data, x
 
     pitch = times[stages[0][0]]
     r = ab[(48_000, 44_100)]
@@ -926,7 +990,8 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
         "max_abs_err": resample_err,
         "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": resample_bound[0], "bound_by": resample_bound[1],
-        "library_ms": r["conv1d_ms"]})
+        "library_ms": r["conv1d_ms"],
+        "kernel_alone_ms": kernel_times["kernel"]})
     paths = {"ab_wsola_fps": counts_tool, "step_overhead": counts_steps,
              "resample_ab": counts_ab}
     return paths, entries
@@ -1130,6 +1195,13 @@ def main() -> int:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"[1 device] {card}")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(clocks.returncode == 0, f"nvidia-smi failed: {clocks.stderr.strip()}")
+    sm_clock_mhz = float(clocks.stdout.strip().splitlines()[0])
+    print(f"[1 device] max SM clock {sm_clock_mhz:.0f} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1155,8 +1227,8 @@ def main() -> int:
         data = torch.from_numpy(
             (0.5 * rng.standard_normal((2, n))).astype(np.float32)
         ).to(dev)
-        x, G, M, W, bank = tr.bank_operands(data, in_rate, out_rate)
-        got = cuda_resample.apply_filter_bank_cuda(x, G, M, W, bank)
+        x, G, M, W, bank, support = tr.bank_operands(data, in_rate, out_rate)
+        got = cuda_resample.apply_filter_bank_cuda(x, G, M, W, support)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         want = tr.apply_filter_bank_plain(x, G, M, W, bank)
@@ -1164,10 +1236,11 @@ def main() -> int:
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         err = (got - want).abs().max().item()
         print(f"[3 kernel] {in_rate}->{out_rate} Hz, bank {list(bank.shape)}, "
-              f"x {list(x.shape)}, G={G}, tile ragged="
-              f"{G % cuda_resample._TILE_G != 0}: max|kernel - plain| = "
-              f"{err:.3e} (tol {TOL:.0e}); plain version's peak "
-              f"{peak:.1f} MiB above its inputs ({card})")
+              f"support {list(support.compact.shape)}, rows of "
+              f"{support.row_used}, x {list(x.shape)}, G={G}, group tile "
+              f"ragged={G % 128 != 0}: max|kernel - plain| = {err:.3e} (tol "
+              f"{TOL:.0e}); plain version's peak {peak:.1f} MiB above its "
+              f"inputs ({card})")
         check(err <= TOL, f"kernel disagrees with plain at {in_rate}->{out_rate}")
         resample_err[(in_rate, out_rate)] = err
         del data, x, got, want
@@ -1232,21 +1305,21 @@ def main() -> int:
         data = torch.from_numpy(
             (0.5 * rng.standard_normal((2, MAIN_CAPACITY))).astype(np.float32)
         ).to(dev)
-        x, G, M, W, bank = tr.bank_operands(data, *KERNEL_PAIRS[0][:2])
-        kernel = functools.partial(
-            cuda_resample.apply_filter_bank_cuda, x, G, M, W, bank)
-        plain = functools.partial(tr.apply_filter_bank_plain, x, G, M, W, bank)
-        runs = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain"):  # in turns
-            runs[name] += cuda_ms(kernel if name == "kernel" else plain, 10)
-        kernel_ms, plain_ms = (summary(runs[k])[0] for k in ("kernel", "plain"))
-        for name in ("kernel", "plain"):
-            med, lo, hi, count = summary(runs[name])
-            print(f"[5 times] 44.1->48 kHz, one {SECONDS} s stereo track, "
-                  f"{name}: median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
-                  f"n={count}) ({card})")
+        x, G, M, W, bank, support = tr.bank_operands(data, *KERNEL_PAIRS[0][:2])
         resample_bound = resample_work_bound(x, G, M, bank)
-        del data, x, kernel, plain
+        fns = {
+            "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
+                                        x, G, M, W, support),
+            "plain": functools.partial(tr.apply_filter_bank_plain, x, G, M, W,
+                                       bank),
+        }
+        resample_times = {"44.1->48": time_resampler(
+            "5 times", f"44.1->48 kHz, one {SECONDS} s stereo track",
+            fns, ("plain", "kernel", "kernel", "plain"), 10, card,
+            resample_bound)}
+        kernel_ms = resample_times["44.1->48"]["kernel"]
+        plain_ms = resample_times["44.1->48"]["plain"]
+        del data, x, fns
 
         runner = Runner(flagship_graph(paths), device=CARD)
         arrays, lengths, sources = runner.decode()
@@ -1302,6 +1375,9 @@ def main() -> int:
         check((geo1["K"], geo2["K"]) == CONFIG4_FRAMES,
               f"frames {(geo1['K'], geo2['K'])}, want {CONFIG4_FRAMES}")
         wsola_err = max(err1, err2)
+        energy_err = [check_energy(f"{tag} stage", x, geo, card)
+                      for tag, x, geo in (("pitch", x1, geo1),
+                                          ("velocity", x2, geo2))]
         del s2
 
         # -- 7. config4 --------------------------------------------------------
@@ -1330,6 +1406,9 @@ def main() -> int:
               f"config-4 master {master.shape}, want (2, {CONFIG4_LENGTH})")
         check(bool(np.isfinite(master).all()), "config-4 master not finite")
         check(config4_wsola >= 2, f"WSOLA kernel launched {config4_wsola} times")
+        check(counts_config4["wsola_energy"] == config4_wsola,
+              f"WSOLA energy prologue launched {counts_config4['wsola_energy']}"
+              f" times beside {config4_wsola} chain launches")
         check(config4_resample >= 2,
               f"resample kernel launched {config4_resample} times")
         del master
@@ -1365,7 +1444,7 @@ def main() -> int:
         check(err <= TOL, "card master disagrees with the CPU plain path")
 
         # -- 8. times ----------------------------------------------------------
-        wsola_times = {}
+        wsola_times, energy_times = {}, {}
         for tag, (x, head, geo) in (("pitch", (x1, head1, geo1)),
                                     ("velocity", (x2, head2, geo2))):
             args = (x, head, *chain_args(geo))
@@ -1395,6 +1474,38 @@ def main() -> int:
             print(f"[8 times] WSOLA {tag} stage bound: {ms:.4f} ms by {by}; "
                   f"kernel at {ms / wsola_times[tag]['kernel']:.2%} of it "
                   f"({card})")
+            # The serial floor (an estimate): each candidate's correlation
+            # is a chain of C*overlap dependent FFMAs (2*C*overlap flops).
+            floor_us = C * ov * FFMA_LATENCY_CYCLES / sm_clock_mhz
+            per_frame = wsola_times[tag]["kernel"] * 1e3 / K
+            wsola_times[tag]["us_per_frame"] = per_frame
+            print(f"[8 times] WSOLA {tag} stage: {per_frame:.4f} us per frame "
+                  f"(prologue and chain, {-(-K // cuda_wsola.BLOCK_FRAMES)} "
+                  f"launches each); serial floor ~{floor_us:.4f} us (estimate:"
+                  f" {C * ov} dependent FFMAs x {FFMA_LATENCY_CYCLES} cycles at"
+                  f" the {sm_clock_mhz:.0f} MHz max SM clock) ({card})")
+            eargs = (x, 0, 0, *chain_args(geo))
+            runs = {"kernel": [], "plain": []}
+            for name in ("plain", "kernel", "kernel", "plain"):
+                fn = (cuda_wsola.wsola_energy_cuda if name == "kernel"
+                      else wsola.wsola_energy_plain)
+                runs[name] += cuda_ms(lambda: fn(*eargs), 3, warmup=1)
+            # Least work: x read once, the table written once; a multiply
+            # and an add per (candidate, channel, tap).
+            energy_times[tag] = dict(
+                kernel=summary(runs["kernel"])[0],
+                plain=summary(runs["plain"])[0],
+                bound=bound(4 * (x.numel() + K * n_cand),
+                            2 * C * ov * n_cand * K))
+            for name in ("kernel", "plain"):
+                med, lo, hi, count = summary(runs[name])
+                print(f"[8 times] WSOLA energy prologue, {tag} stage, K={K} "
+                      f"in one launch, {name}: median {med:.4f} ms (min "
+                      f"{lo:.4f}, max {hi:.4f}, n={count}) ({card})")
+            ms, by = energy_times[tag]["bound"]
+            print(f"[8 times] WSOLA energy prologue, {tag} stage bound: "
+                  f"{ms:.4f} ms by {by}; kernel at "
+                  f"{ms / energy_times[tag]['kernel']:.2%} of it ({card})")
 
         def conv1d_call(x3, weight, M_):
             return F.conv1d(x3, weight, stride=M_)
@@ -1402,40 +1513,35 @@ def main() -> int:
         data = torch.from_numpy(
             (0.5 * rng.standard_normal((2, KERNEL_PAIRS[1][2]))).astype(
                 np.float32)).to(dev)
-        x, G, M, W, bank = tr.bank_operands(data, *KERNEL_PAIRS[1][:2])
+        x, G, M, W, bank, support = tr.bank_operands(data,
+                                                     *KERNEL_PAIRS[1][:2])
+        transpose_bound = resample_work_bound(x, G, M, bank)
         fns = {
             "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
-                                        x, G, M, W, bank),
+                                        x, G, M, W, support),
             "plain": functools.partial(tr.apply_filter_bank_plain, x, G, M, W,
                                        bank),
             "conv1d": functools.partial(conv1d_call, x.view(2, 1, -1),
                                         bank.view(-1, 1, W), M),
         }
-        runs = {name: [] for name in fns}
-        for name in ("plain", "conv1d", "kernel", "kernel", "conv1d", "plain"):
-            runs[name] += cuda_ms(fns[name], 5)
-        transpose_bound = resample_work_bound(x, G, M, bank)
-        for name in fns:
-            med, lo, hi, count = summary(runs[name])
-            print(f"[8 times] 635/504 transposition, bank "
-                  f"{list(bank.shape)}, x {list(x.shape)}, {name}: median "
-                  f"{med:.4f} ms (min {lo:.4f}, max {hi:.4f}, n={count}) "
-                  f"({card})")
-        print(f"[8 times] 635/504 transposition bound: "
-              f"{transpose_bound[0]:.4f} ms by {transpose_bound[1]} ({card})")
+        resample_times["635/504"] = time_resampler(
+            "8 times", f"635/504 transposition, bank {list(bank.shape)}, x "
+            f"{list(x.shape)}", fns,
+            ("plain", "conv1d", "kernel", "kernel", "conv1d", "plain"), 5,
+            card, transpose_bound)
         del data, x, fns
 
         data = torch.from_numpy(
             (0.5 * rng.standard_normal((2, MAIN_CAPACITY))).astype(np.float32)
         ).to(dev)
-        x, G, M, W, bank = tr.bank_operands(data, *KERNEL_PAIRS[0][:2])
+        x, G, M, W, bank, _ = tr.bank_operands(data, *KERNEL_PAIRS[0][:2])
         med, lo, hi, count = summary(cuda_ms(functools.partial(
             conv1d_call, x.view(2, 1, -1), bank.view(-1, 1, W), M), 10))
         library_ms = med
         print(f"[8 times] 44.1->48 kHz, one {SECONDS} s stereo track, conv1d: "
               f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, n={count}); "
-              f"bound {resample_bound[0]:.4f} ms by {resample_bound[1]} "
-              f"({card})")
+              f"bound {resample_bound[0]:.4f} ms by {resample_bound[1]}; the "
+              f"kernel {kernel_ms:.4f} ms ({card})")
         del data, x
 
         runner = Runner(config4_graph(track_path), device=CARD)
@@ -1740,7 +1846,8 @@ def main() -> int:
                   f"{tag}: streamed device memory grows with clip length")
             check(peaks[SECONDS] < offline_peak,
                   f"{tag}: streaming took more memory than the offline render")
-        check(streamed["config4"]["counts"]["wsola_chain"] >= 2,
+        check(streamed["config4"]["counts"]["wsola_chain"] >= 2
+              and streamed["config4"]["counts"]["wsola_energy"] >= 2,
               "the WSOLA kernel did not run on the streamed config 4")
 
         # -- 15. stream times --------------------------------------------------
@@ -1849,6 +1956,12 @@ def main() -> int:
             "bound_ms": resample_bound[0],
             "bound_by": resample_bound[1],
             "library_ms": library_ms,
+            "transposition_635_504": {
+                "ms": resample_times["635/504"]["kernel"],
+                "plain_ms": resample_times["635/504"]["plain"],
+                "bound_ms": transpose_bound[0],
+                "bound_by": transpose_bound[1],
+                "library_ms": resample_times["635/504"]["conv1d"]},
         },
         {
             "name": "wsola_chain",
@@ -1863,6 +1976,7 @@ def main() -> int:
             "bound_ms": pitch_times["bound"][0],
             "bound_by": pitch_times["bound"][1],
             "library_ms": None,
+            "us_per_frame": pitch_times["us_per_frame"],
         },
         {
             "name": "wsola_chunk_chain",
@@ -1876,6 +1990,23 @@ def main() -> int:
             "plain_ms": chunk_times["pitch"]["plain"],
             "bound_ms": chunk_times["pitch"]["bound"][0],
             "bound_by": chunk_times["pitch"]["bound"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "wsola_energy",
+            "route": "cuda",
+            "source": "nodey_tpu_torch/csrc/wsola_chain.cu",
+            "replaces": "nodey_tpu/ops/pallas_wsola.py:452",
+            "helper_of": "wsola_chain: no Pallas kernel of its own (the TPU "
+                         "chain sums its energies in its serial loop)",
+            "launches": sum(by_path("wsola_energy").values()),
+            "launches_by_path": by_path("wsola_energy"),
+            "max_abs_err": max(e[1] for e in energy_err),
+            "max_rel_err": max(e[0] for e in energy_err),
+            "ms": energy_times["pitch"]["kernel"],
+            "plain_ms": energy_times["pitch"]["plain"],
+            "bound_ms": energy_times["pitch"]["bound"][0],
+            "bound_by": energy_times["pitch"]["bound"][1],
             "library_ms": None,
         },
         {

@@ -1,4 +1,5 @@
-// WSOLA greedy splice chain for Hopper (sm_90a), FP32 on the CUDA cores.
+// WSOLA greedy splice chain for Hopper (sm_90a), FP32 on the CUDA cores:
+// the chain kernel and its energy prologue.
 //
 // Replaces nodey_tpu/ops/pallas_wsola.py::_wsola_chain_pallas_impl with
 // emit_audio=True, the TPU's serial-chain kernel, through both of its
@@ -23,44 +24,74 @@
 // and the tail it carried from the previous step; the kernel also writes the
 // tail realized after its last frame to `tail_out` (the next step's head).
 // The TPU entry runs a fixed k_cap frames and masks the ones that are not
-// ready; here the wrapper launches exactly the ready frames.
+// ready; here the wrapper launches exactly the ready frames, in blocks of at
+// most a few thousand frames (ops/cuda_wsola.py), each block's head the
+// previous block's tail_out.
 //
-// Design. Each frame depends on the previous frame's choice, so the chain
-// is serial: one CTA per clip loops over all K frames. What the TPU kernel
-// did for Mosaic (the 128-lane DMA superset window, the 3-slot rotation, the
-// 16-sublane pre-shifted window) has no counterpart here. Per frame:
+// The energy prologue (wsola_energy_kernel). The normalizer rsqrt(energy[b])
+// depends only on the frame's window position, never on the chain's choices,
+// so it leaves the serial path: a parallel kernel over all SMs (one CTA per
+// frame) writes inv[i][b] = 1 / sqrtf(energy(i, b) + 1e-9f) for the frames
+// of one launch, [frames, seek + 1]. It serves the port's counterpart of
+// _wsola_chain_pallas_impl and has no Pallas kernel of its own (the TPU
+// kernel sums energies inside its serial loop). 2*C*overlap*(seek+1) flops a
+// frame, ~0.1 ms for 4096 frames at 48 kHz stereo across the card.
+//
+// The chain kernel. Each frame depends on the previous frame's choice, so
+// the chain is serial: one CTA loops over the launch's frames. What the TPU
+// kernel did for Mosaic (the 128-lane DMA superset window, the 3-slot
+// rotation, the 16-sublane pre-shifted window) has no counterpart here. Per
+// frame:
 //   * the window positions do not depend on the data (only the splice
-//     does), so frame k+1's window is copied into shared memory with
-//     cp.async while frame k is scored: two window buffers, double-buffered;
+//     does), so frame k+1's window and its inv row are copied into shared
+//     memory with cp.async while frame k is scored (double-buffered);
 //   * the realized tail [C, overlap] stays in shared memory across frames;
-//   * the seek+1 candidates are spread over the block's threads (one
-//     candidate per thread, 721 of 768 threads at 48 kHz); each sums its
-//     correlation and its energy directly, channel by channel, in tap order;
-//   * a block-wide argmax keeps the lowest index on ties (and ranks NaN
-//     above every number, as np.argmax and torch.argmax do);
+//   * register tile: each thread holds kCand = 6 consecutive candidates
+//     b0 .. b0+5 (b0 = 6*thread). Per tap it loads one new window value and
+//     the tail value (a broadcast), two taps per 8-byte load, into a ring of
+//     8 registers whose slot is the value's column mod 8 (the loop is
+//     unrolled over the ring's period, so no value is moved), and issues 6
+//     FFMAs: 7 instructions a tap, where one candidate a thread (with its
+//     energy) takes 2 shared loads a multiply-add. The loads run two steps
+//     (4 taps) ahead of their FFMAs;
+//   * 121 scoring threads at 48 kHz: 4 warps, one per SM sub-partition,
+//     each issuing 6 independent FFMA chains (the FFMA latency needs 4);
+//     the CTA has 512 threads, so the copies, the emit and the tail carry
+//     are spread wide, and those loops divide nothing (per-element integer
+//     divisions there would cost more than the scoring, with only 4 warps
+//     to hide them);
+//   * score = corr * inv[k][b]; a block-wide argmax keeps the lowest index
+//     on ties (and ranks NaN above every number, as np.argmax and
+//     torch.argmax do);
 //   * bs[k] and the frame's [C, stride] output are written straight to
 //     device memory (the fused assembly).
 //
-// What bounds it: 2*C*overlap*(seek+1) multiply-adds per frame (1.1M at
-// 48 kHz stereo, correlation and energy), all on ONE SM, with one shared
-// load per multiply-add (the tail value is a broadcast). A chunk launch is
-// the same serial chain over one step's ready frames: at most k_cap, 633 and
-// 405 at config 4's two stages with 16 s chunks. The whole card would do the
-// same work ~132x faster; splitting a frame's candidates over a
-// thread-block cluster and computing every frame's energies in a parallel
-// prologue (they do not depend on the chain) are later work.
+// What bounds it: the frame loop is serial and runs on ONE SM. Per frame
+// C*overlap*(seek+1) FFMAs (553 k at 48 kHz stereo), 4.6 k cycles of FFMA
+// issue on the SM's four sub-partitions, with the window loads taking most
+// of the SM's shared-memory bandwidth; each candidate's sum is a chain of
+// C*overlap dependent FFMAs (768, ~3 k cycles at 4 cycles each), a latency
+// floor per frame. Around the scoring, each frame pays its 4-byte copies'
+// issue, a 64-bit frame_pos division, two argmax levels and four barriers.
+// Splitting a frame's candidates over a thread-block cluster would divide
+// the issue time, not that floor.
 //
-// Numbers. The score is corr * (1 / sqrtf(energy + 1e-9f)) with IEEE sqrtf
-// and IEEE division, not rsqrtf: rsqrtf is approximate (2 ulp), while this
-// form is what torch.rsqrt computes for float32 on the CPU, so a score
-// differs from the plain version's only by the order of its sums. The fade
-// and blend use __fdiv_rn / __fmul_rn / __fadd_rn (no contraction into FMA),
-// the plain version's separate roundings, so given equal decisions the
-// emitted audio is bitwise the plain version's.
+// Numbers: the bitwise invariant. Every candidate's score keeps one exact
+// arithmetic: the correlation summed channel by channel, in tap order,
+// with fmaf into one float; the energy in the same order with
+// __fmul_rn / __fadd_rn (no contraction); score = corr * (1.0f / sqrtf(energy
+// + 1e-9f)) with IEEE sqrtf and IEEE division, never rsqrtf (approximate);
+// the build must not use --use_fast_math. No candidate's sum is split over
+// threads, taps or channels. So the splices do not depend on the register
+// tile, and equal those of the score-table kernel
+// (csrc/wsola_score_table.cu), which sums in the same order. The fade and
+// blend use __fdiv_rn / __fmul_rn / __fadd_rn, the plain version's separate
+// roundings, so given equal decisions the emitted audio is bitwise the plain
+// version's.
 //
-// C interface (loaded with ctypes): nodey_wsola_chain, the one entry of
-// both, launches on the given stream and returns cudaGetLastError(); it
-// never synchronizes and allocates nothing.
+// C interface (loaded with ctypes): nodey_wsola_energy and nodey_wsola_chain
+// launch on the given stream and return cudaGetLastError(); they never
+// synchronize and allocate nothing.
 
 #include <cuda_runtime.h>
 
@@ -69,8 +100,32 @@
 
 namespace {
 
-constexpr int kThreads = 768;
-constexpr int kWarps = kThreads / 32;
+constexpr int kCand = 6;        // candidates per thread (register tile)
+constexpr int kRing = 8;        // ring of window values: kCand + 2
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+// Threads of the chain's CTA: the scoring threads (cand_threads) do the
+// per-candidate sums; all of them copy, emit and carry the tail.
+constexpr int kChainThreads = 512;
+
+__host__ __device__ __forceinline__ int round_up(int n, int q) {
+  return (n + q - 1) / q * q;
+}
+
+// Threads of either kernel: one per kCand candidates, whole warps.
+__host__ __device__ __forceinline__ int cand_threads(int n_cand) {
+  return round_up((n_cand + kCand - 1) / kCand, 32);
+}
+
+// Columns `slide` may read past the last candidate's last tap (its
+// prefetch); values there are never used.
+constexpr int kPrefetch = kCand + 6;
+
+// Row stride of a staged window of `cols` columns: a multiple of 4 floats,
+// with room for the prefetch past the last candidate's taps.
+__host__ __device__ __forceinline__ int staged_ld(int cols) {
+  return round_up(cols + kPrefetch, 4);
+}
 
 __device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -104,73 +159,239 @@ __device__ __forceinline__ bool ranks_before(float a, int ia, float b,
   return ia < ib;
 }
 
-// Copy the window [channels][win] at column `pos` of x (row stride `ld`)
-// into `buf` (no wait).
-__device__ __forceinline__ void stage_window(float* buf, const float* x,
-                                             long long ld, int channels,
-                                             long long pos, int win) {
-  for (int i = threadIdx.x; i < channels * win; i += kThreads) {
-    const int c = i / win;
-    const int j = i - c * win;
-    cp_async_f32(buf + i, x + c * ld + pos + j);
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// The correlation's per-tap step: acc = fmaf(tail[v], w, acc).
+struct Corr {
+  const float* tail;
+  __device__ __forceinline__ float value(float s) const { return s; }
+  // The tail values of taps v and v + 1.
+  __device__ __forceinline__ float2 taps(int v) const { return ld2(tail + v); }
+  __device__ __forceinline__ float apply(float acc, float t, float s) const {
+    return fmaf(t, s, acc);
+  }
+  __device__ __forceinline__ float apply_at(float acc, int v, float s) const {
+    return fmaf(tail[v], s, acc);
+  }
+};
+
+// The energy's per-tap step: acc = acc + s*s, two separate roundings.
+struct Energy {
+  __device__ __forceinline__ float value(float s) const {
+    return __fmul_rn(s, s);
+  }
+  __device__ __forceinline__ float2 taps(int) const {
+    return make_float2(0.0f, 0.0f);
+  }
+  __device__ __forceinline__ float apply(float acc, float, float q) const {
+    return __fadd_rn(acc, q);
+  }
+  __device__ __forceinline__ float apply_at(float acc, int, float q) const {
+    return __fadd_rn(acc, q);
+  }
+};
+
+// One step of two taps (tap and tap + 1) of `slide`. Its two new window
+// values w[tap + 6 .. tap + 7] and its tail values were loaded two steps
+// earlier (pw[0], pt[0]); it puts the window values in the ring (slot =
+// column mod 8), loads those of the step two ahead, and for each tap and
+// candidate r folds w[tap + j + r] into acc[r].
+template <int S, class Op>
+__device__ __forceinline__ void slide_step(const float* w, int tap,
+                                           float (&q)[kRing],
+                                           float (&acc)[kCand], const Op& op,
+                                           float2 (&pw)[2], float2 (&pt)[2]) {
+  q[(2 * S + 6) % kRing] = op.value(pw[0].x);
+  q[(2 * S + 7) % kRing] = op.value(pw[0].y);
+  const float2 t = pt[0];
+  pw[0] = pw[1];
+  pt[0] = pt[1];
+  pw[1] = ld2(w + tap + 4 + kCand);
+  pt[1] = op.taps(tap + 4);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int r = 0; r < kCand; ++r) {
+      acc[r] = op.apply(acc[r], j == 0 ? t.x : t.y,
+                        q[(2 * S + j + r) % kRing]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
-                   int* __restrict__ bs, float* __restrict__ body,
-                   float* __restrict__ tail_out, int channels, long long ld,
-                   int frames, long long k0, long long base, long long num,
-                   long long den, int seq, int seek, int overlap) {
-  extern __shared__ float smem[];
-  const int win = seek + seq;
+// acc[r] folds, for taps v = 0 .. n-1 in order, the value w[v + r] (w: this
+// thread's first candidate's column of one staged row, 8-byte aligned, with
+// kPrefetch readable columns past the last candidate's last tap). Shared
+// loads run two steps (4 taps) ahead of the FFMAs that use them: with one
+// warp per SM sub-partition nothing else hides their latency.
+template <class Op>
+__device__ __forceinline__ void slide(const float* w, int n,
+                                      float (&acc)[kCand], const Op& op) {
+  float q[kRing];
+#pragma unroll
+  for (int i = 0; i < kCand; i += 2) {
+    const float2 a = ld2(w + i);
+    q[i] = op.value(a.x);
+    q[i + 1] = op.value(a.y);
+  }
+  int v = 0;
+  if (n >= kRing) {
+    float2 pw[2] = {ld2(w + kCand), ld2(w + 2 + kCand)};
+    float2 pt[2] = {op.taps(0), op.taps(2)};
+    for (; v + kRing <= n; v += kRing) {
+      slide_step<0>(w, v, q, acc, op, pw, pt);
+      slide_step<1>(w, v + 2, q, acc, op, pw, pt);
+      slide_step<2>(w, v + 4, q, acc, op, pw, pt);
+      slide_step<3>(w, v + 6, q, acc, op, pw, pt);
+    }
+  }
+  for (; v < n; ++v) {
+#pragma unroll
+    for (int r = 0; r < kCand; ++r) {
+      acc[r] = op.apply_at(acc[r], v, op.value(w[v + r]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+wsola_energy_kernel(const float* __restrict__ x, long long ld, int channels,
+                    long long k0, long long base, long long num,
+                    long long den, int seek, int overlap,
+                    float* __restrict__ inv) {
+  extern __shared__ float4 smem4[];
+  float* rows = reinterpret_cast<float*>(smem4);   // [channels][row_ld]
+  const int n_cand = seek + 1;
+  const int span = seek + overlap;
+  const int row_ld = staged_ld(span);
+  const int i = blockIdx.x;
+  const long long pos = frame_pos(k0 + i, num, den) - base;
+  for (int c = 0; c < channels; ++c) {
+    for (int j = threadIdx.x; j < row_ld; j += blockDim.x) {
+      rows[c * row_ld + j] = j < span ? x[c * ld + pos + j] : 0.0f;
+    }
+  }
+  __syncthreads();
+  const int b0 = kCand * threadIdx.x;
+  if (b0 >= n_cand) return;
+  float energy[kCand];
+#pragma unroll
+  for (int r = 0; r < kCand; ++r) energy[r] = 0.0f;
+  for (int c = 0; c < channels; ++c) {
+    slide(rows + c * row_ld + b0, overlap, energy, Energy{});
+  }
+  float* out = inv + static_cast<long long>(i) * n_cand;
+#pragma unroll
+  for (int r = 0; r < kCand; ++r) {
+    if (b0 + r < n_cand) out[b0 + r] = 1.0f / sqrtf(energy[r] + 1e-9f);
+  }
+}
+
+struct ChainLayout {
+  int win, win_ld, tail_ld;
+  __host__ __device__ ChainLayout(int seq, int seek, int overlap)
+      : win(seek + seq), win_ld(staged_ld(seek + seq)),
+        tail_ld(round_up(overlap, 4)) {}
+};
+
+__host__ __device__ __forceinline__ int chain_threads(int n_cand) {
+  const int scoring = cand_threads(n_cand);
+  return scoring > kChainThreads ? scoring : kChainThreads;
+}
+
+// Copy frame i's window [channels][win] (at column pos of x, row stride ld)
+// and its inv row into `buf` / `inv_buf` (no wait).
+__device__ __forceinline__ void stage_frame(float* buf, float* inv_buf,
+                                            const float* x, long long ld,
+                                            const float* inv_row, int channels,
+                                            long long pos, int win,
+                                            int win_ld, int n_cand) {
+  for (int c = 0; c < channels; ++c) {
+    for (int j = threadIdx.x; j < win; j += blockDim.x) {
+      cp_async_f32(buf + c * win_ld + j, x + c * ld + pos + j);
+    }
+  }
+  for (int b = threadIdx.x; b < n_cand; b += blockDim.x) {
+    cp_async_f32(inv_buf + b, inv_row + b);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+wsola_chain_kernel(const float* __restrict__ x, const float* head,
+                   const float* __restrict__ inv, int* __restrict__ bs,
+                   float* __restrict__ body, long long body_ld,
+                   float* tail_out, int channels, long long ld, int frames,
+                   long long k0, long long base, long long num, long long den,
+                   int seq, int seek, int overlap) {
+  // head may alias tail_out (a block walk passes the previous block's tail
+  // as its head): it is read once before the frame loop, written after it.
+  extern __shared__ float4 smem4[];
+  const ChainLayout lay(seq, seek, overlap);
   const int stride = seq - overlap;
   const int n_cand = seek + 1;
-  float* tail = smem;                              // [channels][overlap]
-  float* windows = tail + channels * overlap;      // 2 x [channels][win]
-  float* red_score = windows + 2 * channels * win; // [kWarps]
-  int* red_idx = reinterpret_cast<int*>(red_score + kWarps);  // [kWarps]
-  int* chosen = red_idx + kWarps;                              // [1]
-  const long long body_ld = static_cast<long long>(frames) * stride;
+  const int inv_ld = round_up(n_cand, 4);
+  float* tail = reinterpret_cast<float*>(smem4);          // [C][tail_ld]
+  float* fade_in = tail + channels * lay.tail_ld;          // [tail_ld]
+  float* fade_out = fade_in + lay.tail_ld;                 // [tail_ld]
+  float* windows = fade_out + lay.tail_ld;                 // 2 x [C][win_ld]
+  float* invs = windows + 2 * channels * lay.win_ld;       // 2 x [inv_ld]
+  float* red_score = invs + 2 * inv_ld;                    // [kMaxWarps]
+  int* red_idx = reinterpret_cast<int*>(red_score + kMaxWarps);
+  int* chosen = red_idx + kMaxWarps;                       // [1]
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  const int b0 = kCand * threadIdx.x;
 
-  for (int i = threadIdx.x; i < channels * overlap; i += kThreads) {
-    tail[i] = head[i];
+  for (int c = 0; c < channels; ++c) {
+    for (int j = threadIdx.x; j < overlap; j += blockDim.x) {
+      tail[c * lay.tail_ld + j] = head[c * overlap + j];
+    }
   }
-  stage_window(windows, x, ld, channels, frame_pos(k0, num, den) - base, win);
+  for (int j = threadIdx.x; j < overlap; j += blockDim.x) {
+    fade_in[j] = __fdiv_rn(__fadd_rn(static_cast<float>(j), 0.5f),
+                           static_cast<float>(overlap));
+    fade_out[j] = __fsub_rn(1.0f, fade_in[j]);
+  }
+  stage_frame(windows, invs, x, ld, inv, channels,
+              frame_pos(k0, num, den) - base, lay.win, lay.win_ld, n_cand);
   cp_async_commit();
 
   for (int k = 0; k < frames; ++k) {
-    float* w = windows + (k & 1) * channels * win;
+    float* w = windows + (k & 1) * channels * lay.win_ld;
+    const float* iv = invs + (k & 1) * inv_ld;
     if (k + 1 < frames) {
-      stage_window(windows + ((k + 1) & 1) * channels * win, x, ld, channels,
-                   frame_pos(k0 + k + 1, num, den) - base, win);
+      stage_frame(windows + ((k + 1) & 1) * channels * lay.win_ld,
+                  invs + ((k + 1) & 1) * inv_ld, x, ld,
+                  inv + static_cast<long long>(k + 1) * n_cand, channels,
+                  frame_pos(k0 + k + 1, num, den) - base, lay.win,
+                  lay.win_ld, n_cand);
     }
     cp_async_commit();  // possibly empty: keeps the group count uniform
     cp_async_wait_one();
-    __syncthreads();  // window k and the tail are visible to every thread
+    __syncthreads();  // window k, its inv row and the tail are visible
 
     // Score this thread's candidates; keep the best.
     float best_score = -INFINITY;
     int best_idx = INT_MAX;
-    for (int b = threadIdx.x; b < n_cand; b += kThreads) {
-      float corr = 0.0f;
-      float energy = 0.0f;
+    if (b0 < n_cand) {
+      float corr[kCand];
+#pragma unroll
+      for (int r = 0; r < kCand; ++r) corr[r] = 0.0f;
       for (int c = 0; c < channels; ++c) {
-        const float* wc = w + c * win + b;
-        const float* tc = tail + c * overlap;
-#pragma unroll 8
-        for (int v = 0; v < overlap; ++v) {
-          const float s = wc[v];
-          corr = fmaf(tc[v], s, corr);
-          energy = __fadd_rn(energy, __fmul_rn(s, s));
-        }
+        slide(w + c * lay.win_ld + b0, overlap, corr,
+              Corr{tail + c * lay.tail_ld});
       }
-      const float score = corr * (1.0f / sqrtf(energy + 1e-9f));
-      if (ranks_before(score, b, best_score, best_idx)) {
-        best_score = score;
-        best_idx = b;
+#pragma unroll
+      for (int r = 0; r < kCand; ++r) {
+        const int b = b0 + r;
+        if (b < n_cand) {
+          const float score = corr[r] * iv[b];
+          if (ranks_before(score, b, best_score, best_idx)) {
+            best_score = score;
+            best_idx = b;
+          }
+        }
       }
     }
     // Block-wide argmax: within each warp, then across warps.
@@ -189,8 +410,8 @@ wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
     }
     __syncthreads();
     if (warp == 0) {
-      best_score = lane < kWarps ? red_score[lane] : -INFINITY;
-      best_idx = lane < kWarps ? red_idx[lane] : INT_MAX;
+      best_score = lane < n_warps ? red_score[lane] : -INFINITY;
+      best_idx = lane < n_warps ? red_idx[lane] : INT_MAX;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         const float s = __shfl_down_sync(0xffffffffu, best_score, off);
@@ -209,70 +430,105 @@ wsola_chain_kernel(const float* __restrict__ x, const float* __restrict__ head,
     const int b = *chosen;
 
     // Emit this frame's stride of audio from the chosen segment.
-    for (int i = threadIdx.x; i < channels * stride; i += kThreads) {
-      const int c = i / stride;
-      const int j = i - c * stride;
-      const float s = w[c * win + b + j];
-      float out = s;
-      if (j < overlap) {
-        const float fade_in =
-            __fdiv_rn(__fadd_rn(static_cast<float>(j), 0.5f),
-                      static_cast<float>(overlap));
-        const float fade_out = __fsub_rn(1.0f, fade_in);
-        out = __fadd_rn(__fmul_rn(tail[c * overlap + j], fade_out),
-                        __fmul_rn(s, fade_in));
+    for (int c = 0; c < channels; ++c) {
+      const float* seg = w + c * lay.win_ld + b;
+      const float* tc = tail + c * lay.tail_ld;
+      float* out = body + c * body_ld + static_cast<long long>(k) * stride;
+      for (int j = threadIdx.x; j < stride; j += blockDim.x) {
+        const float s = seg[j];
+        out[j] = j < overlap ? __fadd_rn(__fmul_rn(tc[j], fade_out[j]),
+                                         __fmul_rn(s, fade_in[j]))
+                             : s;
       }
-      body[c * body_ld + static_cast<long long>(k) * stride + j] = out;
     }
     __syncthreads();  // every read of the old tail is done
-    for (int i = threadIdx.x; i < channels * overlap; i += kThreads) {
-      const int c = i / overlap;
-      const int j = i - c * overlap;
-      tail[i] = w[c * win + b + stride + j];
+    for (int c = 0; c < channels; ++c) {
+      for (int j = threadIdx.x; j < overlap; j += blockDim.x) {
+        tail[c * lay.tail_ld + j] = w[c * lay.win_ld + b + stride + j];
+      }
     }
     __syncthreads();  // the new tail is set; buffer k&1 may be refilled
   }
-  for (int i = threadIdx.x; i < channels * overlap; i += kThreads) {
-    tail_out[i] = tail[i];
+  for (int c = 0; c < channels; ++c) {
+    for (int j = threadIdx.x; j < overlap; j += blockDim.x) {
+      tail_out[c * overlap + j] = tail[c * lay.tail_ld + j];
+    }
   }
 }
 
-long long smem_bytes(int channels, int win, int overlap) {
+long long chain_smem_bytes(int channels, int seq, int seek, int overlap) {
+  const ChainLayout lay(seq, seek, overlap);
   return static_cast<long long>(sizeof(float)) *
-             (static_cast<long long>(channels) * overlap +
-              2LL * channels * win + kWarps) +
-         static_cast<long long>(sizeof(int)) * (kWarps + 1);
+             (static_cast<long long>(channels + 2) * lay.tail_ld +
+              2LL * channels * lay.win_ld + 2LL * round_up(seek + 1, 4) +
+              kMaxWarps) +
+         static_cast<long long>(sizeof(int)) * (kMaxWarps + 1);
+}
+
+long long energy_smem_bytes(int channels, int seek, int overlap) {
+  return static_cast<long long>(sizeof(float)) * channels *
+         staged_ld(seek + overlap);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory bytes of one CTA: the tail, two windows, the argmax scratch.
-long long nodey_wsola_smem_bytes(int channels, int win, int overlap) {
-  return smem_bytes(channels, win, overlap);
+// Shared memory bytes of one CTA: the chain's (the tail, two windows, two
+// inv rows, the argmax scratch) or the prologue's (one frame's rows).
+long long nodey_wsola_smem_bytes(int channels, int seq, int seek,
+                                 int overlap) {
+  return chain_smem_bytes(channels, seq, seek, overlap);
+}
+
+long long nodey_wsola_energy_smem_bytes(int channels, int seek, int overlap) {
+  return energy_smem_bytes(channels, seek, overlap);
+}
+
+// Threads of one CTA of the chain kernel for seek + 1 candidates.
+int nodey_wsola_threads(int seek) { return chain_threads(seek + 1); }
+
+// inv [frames, seek + 1]: row i of frame k0 + i, read from x's columns from
+// frame_pos(k0 + i) - base (x's rows `ld` floats apart, each window inside
+// its row). One CTA per frame. Returns a cudaError_t.
+int nodey_wsola_energy(const float* x, long long ld, int channels, int frames,
+                       long long k0, long long base, long long num,
+                       long long den, int seek, int overlap, float* inv,
+                       void* stream) {
+  const long long smem = energy_smem_bytes(channels, seek, overlap);
+  cudaError_t err = cudaFuncSetAttribute(
+      wsola_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wsola_energy_kernel<<<frames, cand_threads(seek + 1),
+                        static_cast<size_t>(smem),
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, ld, channels, k0, base, num, den, seek, overlap, inv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Frame i reads x's columns from frame_pos(k0 + i) - base (every window
-// inside the row); x's rows are `ld` floats apart, each row's samples
-// contiguous. head and tail_out [channels, overlap], bs [frames] int32,
-// body [channels, frames * (seq - overlap)], all on the current device.
-// Offline: k0 = base = 0, ld = nx. Returns a cudaError_t (0 on a clean
-// launch).
-int nodey_wsola_chain(const float* x, const float* head, int* bs, float* body,
+// inside the row) and inv's row i (nodey_wsola_energy's output for the same
+// frames); x's rows are `ld` floats apart, each row's samples contiguous.
+// head and tail_out [channels, overlap] (they may be one buffer), bs
+// [frames] int32, body rows `body_ld` floats apart, frame i's stride at
+// column i * (seq - overlap); all on the current device. Offline: k0 = base
+// = 0, ld = nx. Returns a cudaError_t (0 on a clean launch).
+int nodey_wsola_chain(const float* x, const float* head, const float* inv,
+                      int* bs, float* body, long long body_ld,
                       float* tail_out, int channels, long long ld, int frames,
                       long long k0, long long base, long long num,
                       long long den, int seq, int seek, int overlap,
                       void* stream) {
-  const long long smem = smem_bytes(channels, seek + seq, overlap);
+  const long long smem = chain_smem_bytes(channels, seq, seek, overlap);
   cudaError_t err = cudaFuncSetAttribute(
       wsola_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  wsola_chain_kernel<<<1, kThreads, static_cast<size_t>(smem),
+  wsola_chain_kernel<<<1, chain_threads(seek + 1), static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(
-      x, head, bs, body, tail_out, channels, ld, frames, k0, base, num, den,
-      seq, seek, overlap);
+      x, head, inv, bs, body, body_ld, tail_out, channels, ld, frames, k0,
+      base, num, den, seq, seek, overlap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -95,19 +95,28 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "polyphase_resample":
         lib.nodey_polyphase_resample.argtypes = [
-            vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp,
+            vp, vp, vp, vp, i32, i32, i64, i32, i32, i32, i32, i32, i32, i32,
+            vp,
         ]
         lib.nodey_polyphase_resample.restype = i32
         lib.nodey_polyphase_smem_bytes.argtypes = [i32, i32, i32]
         lib.nodey_polyphase_smem_bytes.restype = i64
     elif name == "wsola_chain":
         lib.nodey_wsola_chain.argtypes = [
-            vp, vp, vp, vp, vp, i32, i64, i32, i64, i64, i64, i64, i32, i32,
-            i32, vp,
+            vp, vp, vp, vp, vp, i64, vp, i32, i64, i32, i64, i64, i64, i64,
+            i32, i32, i32, vp,
         ]
         lib.nodey_wsola_chain.restype = i32
-        lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32]
+        lib.nodey_wsola_energy.argtypes = [
+            vp, i64, i32, i32, i64, i64, i64, i64, i32, i32, vp, vp,
+        ]
+        lib.nodey_wsola_energy.restype = i32
+        lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32, i32]
         lib.nodey_wsola_smem_bytes.restype = i64
+        lib.nodey_wsola_energy_smem_bytes.argtypes = [i32, i32, i32]
+        lib.nodey_wsola_energy_smem_bytes.restype = i64
+        lib.nodey_wsola_threads.argtypes = [i32]
+        lib.nodey_wsola_threads.restype = i32
     elif name == "pv_phase_path":
         lib.nodey_pv_phase_path.argtypes = [
             vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,

@@ -111,8 +111,8 @@ def round_up(n: int, q: int) -> int:
 
 class ResamplePlan(NamedTuple):
     """Static geometry of one streaming rational resampler, and its filter
-    bank on the device (put there at plan time, so no step copies from the
-    host)."""
+    bank and the bank's tap support on the device (put there at plan time,
+    so no step copies from the host)."""
 
     L: int
     M: int
@@ -126,6 +126,7 @@ class ResamplePlan(NamedTuple):
     quant: int         # consumption quantum M * group_factor (phase unit)
     W: int             # window width of one output group
     bank: torch.Tensor  # [L, W] float32 on the stage's device
+    support: resample_ops.BankSupport  # what the CUDA kernel reads
     in_rate: int
     out_rate: int
 
@@ -141,14 +142,14 @@ def resample_plan(in_rate: int, out_rate: int, push_cap: int,
     quant = M * resample_ops.group_factor(L, M)
     take_cap = round_up(push_cap, quant) + quant
     right_ctx = W - M
+    bank, support = resample_ops._device_bank(in_rate, out_rate,
+                                              torch.device(device))
     return ResamplePlan(
         L=L, M=M, taps=taps, left_ctx=left_ctx, right_ctx=right_ctx,
         push_cap=push_cap, take_cap=take_cap,
         cap=left_ctx + right_ctx + quant + push_cap + take_cap,
-        out_cap=take_cap * L // M, quant=quant, W=W,
-        bank=resample_ops._device_bank(in_rate, out_rate,
-                                       torch.device(device)),
-        in_rate=in_rate, out_rate=out_rate,
+        out_cap=take_cap * L // M, quant=quant, W=W, bank=bank,
+        support=support, in_rate=in_rate, out_rate=out_rate,
     )
 
 
@@ -182,7 +183,7 @@ def resample_stream_step(plan: ResamplePlan, state: FifoState,
     window = fifo_window(state, plan.left_ctx + plan.take_cap + plan.W)
     out = resample_ops.apply_filter_bank(window.contiguous(),
                                          plan.take_cap // M, M, plan.W,
-                                         plan.bank)  # [C, out_cap], fresh
+                                         plan.bank, plan.support)  # fresh
     out[:, out_n:] = 0.0
     state = fifo_advance(state, take)
     out_done = done and state.level - plan.left_ctx <= 0

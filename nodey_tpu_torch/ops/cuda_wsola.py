@@ -1,19 +1,25 @@
-"""Wrapper of the CUDA WSOLA splice-chain kernel (``csrc/wsola_chain.cu``).
+"""Wrapper of the CUDA WSOLA splice-chain kernel and its energy prologue
+(``csrc/wsola_chain.cu``).
 
 Replaces ``nodey_tpu/ops/pallas_wsola.py::_wsola_chain_pallas_impl`` on
 the card through both of its entries: the offline one
 (``wsola_chain_assemble_pallas``, ``wsola_chain_cuda`` here) and the chunk
 one of the streaming WSOLA step (``wsola_chunk_chain_pallas``,
 ``wsola_chunk_chain_cuda`` here). The chain is serial over frames, so the
-kernel is one CTA that loops over the frames it is given; its source says
-what bounds it and what its design does about that. Its plain PyTorch
-versions are ``nodey_tpu_torch.ops.wsola.wsola_chain_plain`` and
-``wsola_chunk_chain_plain``, which the CPU path and ``chip_smoke.py`` use;
-on a CUDA tensor nothing else runs.
+chain kernel is one CTA that loops over the frames it is given; the
+candidates' energies do not depend on the chain, so a parallel prologue
+kernel computes their normalizers first (``wsola_energy_cuda``). The
+source says what bounds each and what the design does about it. Their
+plain PyTorch versions are ``nodey_tpu_torch.ops.wsola.wsola_chain_plain``,
+``wsola_chunk_chain_plain`` and ``wsola_energy_plain``, which the CPU path
+and ``chip_smoke.py`` use; on a CUDA tensor nothing else runs.
 
-The offline entry is the chunk entry at ``k0 = base = 0``: both go
-through the library's one C entry, and ``launches`` counts the kernel's
-launches made through either.
+The offline entry is the chunk entry at ``k0 = base = 0``. Either walks its
+frames in blocks of ``BLOCK_FRAMES``: the prologue over the block, then the
+chain over it from the previous block's tail, so the prologue's scratch
+stays bounded whatever the clip's length and nothing synchronizes.
+``launches`` counts the chain kernel's launches made through either entry,
+``energy_launches`` the prologue's.
 """
 
 from __future__ import annotations
@@ -23,29 +29,27 @@ import torch
 from nodey_tpu_torch.ops import _build
 from nodey_tpu_torch.ops.wsola import check_window
 
-# Launches of the kernel, offline and in streaming chunk steps.
+# Launches of the chain kernel, offline and in streaming chunk steps, and of
+# the energy prologue.
 launches = 0
+energy_launches = 0
+
+# Frames of one prologue + chain launch pair: bounds the prologue's table to
+# BLOCK_FRAMES x (seek + 1) floats (11.8 MB at 48 kHz).
+BLOCK_FRAMES = 4096
 
 
-def _check(x: torch.Tensor, head: torch.Tensor, K: int, num: int, den: int,
-           seq: int, seek: int, overlap: int, k0: int, base: int):
-    """Refuse what the kernel does not take; returns the library."""
-    if not (x.is_cuda and head.is_cuda and x.device == head.device):
-        raise ValueError(
-            f"WSOLA kernel needs x and head on one CUDA device, got "
-            f"{x.device} and {head.device}"
-        )
-    if x.dtype != torch.float32 or head.dtype != torch.float32:
-        raise ValueError(
-            f"WSOLA kernel takes float32, got {x.dtype} and {head.dtype}"
-        )
-    if x.dim() != 2 or tuple(head.shape) != (x.shape[0], overlap):
-        raise ValueError(
-            f"WSOLA kernel needs x [C, N] and head [C, {overlap}], got "
-            f"{tuple(x.shape)} and {tuple(head.shape)}"
-        )
+def _check(x: torch.Tensor, K: int, num: int, den: int, seq: int, seek: int,
+           overlap: int, k0: int, base: int):
+    """Refuse what the kernels do not take; returns the library."""
+    if not x.is_cuda:
+        raise ValueError(f"WSOLA kernels need x on a CUDA device, got {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"WSOLA kernels take float32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"WSOLA kernels need x [C, N], got {tuple(x.shape)}")
     if x.shape[1] > 1 and x.stride(1) != 1:
-        raise ValueError("WSOLA kernel needs x's rows contiguous")
+        raise ValueError("WSOLA kernels need x's rows contiguous")
     if not (0 < overlap < seq and seek >= 0 and num > 0 and den > 0 and K >= 0
             and k0 >= 0):
         raise ValueError(
@@ -56,7 +60,11 @@ def _check(x: torch.Tensor, head: torch.Tensor, K: int, num: int, den: int,
     if K >= 2**31:
         raise ValueError(f"WSOLA kernel: {K} frames, more than an int32 holds")
     lib = _build.load_library("wsola_chain")
-    smem = lib.nodey_wsola_smem_bytes(x.shape[0], seek + seq, overlap)
+    if lib.nodey_wsola_threads(seek) > 1024:
+        raise ValueError(f"WSOLA kernel: {seek + 1} candidates need more than "
+                         f"1024 threads")
+    smem = max(lib.nodey_wsola_smem_bytes(x.shape[0], seq, seek, overlap),
+               lib.nodey_wsola_energy_smem_bytes(x.shape[0], seek, overlap))
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"WSOLA kernel: {x.shape[0]} channels of a {seek + seq}-sample "
@@ -64,6 +72,33 @@ def _check(x: torch.Tensor, head: torch.Tensor, K: int, num: int, den: int,
             f"{_build.SMEM_LIMIT})"
         )
     return lib
+
+
+def _energy(lib, x: torch.Tensor, k0: int, base: int, K: int, num: int,
+            den: int, seek: int, overlap: int, out: torch.Tensor) -> None:
+    """Launch the prologue for frames k0 .. k0+K-1 into ``out`` [K, seek+1]."""
+    global energy_launches
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.nodey_wsola_energy(
+            x.data_ptr(), x.stride(0), x.shape[0], K, k0, base, num, den,
+            seek, overlap, out.data_ptr(), stream)
+    _build.check_launch(lib, rc, "WSOLA energy prologue")
+    energy_launches += 1
+
+
+def wsola_energy_cuda(x: torch.Tensor, k0: int, base: int, K: int, num: int,
+                      den: int, seq: int, seek: int,
+                      overlap: int) -> torch.Tensor:
+    """float32 [K, seek+1]: ``1 / sqrtf(energy + 1e-9)`` of every candidate
+    of frames k0 .. k0+K-1, each frame reading ``x`` from column
+    ``frame_pos(k0 + i) - base`` (one prologue launch; what the chain kernel
+    reads in place of summing energies itself)."""
+    lib = _check(x, K, num, den, seq, seek, overlap, k0, base)
+    inv = torch.empty((K, seek + 1), dtype=torch.float32, device=x.device)
+    if K and x.shape[0]:
+        _energy(lib, x, k0, base, K, num, den, seek, overlap, inv)
+    return inv
 
 
 def wsola_chunk_chain_cuda(x: torch.Tensor, head: torch.Tensor, k0: int,
@@ -77,24 +112,41 @@ def wsola_chunk_chain_cuda(x: torch.Tensor, head: torch.Tensor, k0: int,
     be contiguous) and must cover every frame's window. ``K == 0`` launches
     nothing and returns ``head`` as the tail."""
     global launches
-    lib = _check(x, head, K, num, den, seq, seek, overlap, k0, base)
-    C = x.shape[0]
+    lib = _check(x, K, num, den, seq, seek, overlap, k0, base)
+    if not (head.is_cuda and head.device == x.device
+            and head.dtype == torch.float32):
+        raise ValueError(
+            f"WSOLA kernel needs x and head on one CUDA device in float32, "
+            f"got {x.device} and {head.device} ({head.dtype})"
+        )
+    if tuple(head.shape) != (x.shape[0], overlap):
+        raise ValueError(
+            f"WSOLA kernel needs x [C, N] and head [C, {overlap}], got "
+            f"{tuple(x.shape)} and {tuple(head.shape)}"
+        )
+    C, stride = x.shape[0], seq - overlap
     bs = torch.empty(K, dtype=torch.int32, device=x.device)
-    body = torch.empty((C, K * (seq - overlap)), dtype=torch.float32,
-                       device=x.device)
+    body = torch.empty((C, K * stride), dtype=torch.float32, device=x.device)
     if K == 0 or C == 0:
         return bs, body, head
     head = head.contiguous()
     tail_out = torch.empty_like(head)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.nodey_wsola_chain(
-            x.data_ptr(), head.data_ptr(), bs.data_ptr(), body.data_ptr(),
-            tail_out.data_ptr(), C, x.stride(0), K, k0, base, num, den, seq,
-            seek, overlap, stream,
-        )
-    _build.check_launch(lib, rc, "WSOLA kernel")
-    launches += 1
+    inv = torch.empty((min(K, BLOCK_FRAMES), seek + 1), dtype=torch.float32,
+                      device=x.device)
+    for start in range(0, K, BLOCK_FRAMES):
+        n = min(BLOCK_FRAMES, K - start)
+        _energy(lib, x, k0 + start, base, n, num, den, seek, overlap, inv)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.nodey_wsola_chain(
+                x.data_ptr(), (head if start == 0 else tail_out).data_ptr(),
+                inv.data_ptr(), bs[start:].data_ptr(),
+                body[:, start * stride :].data_ptr(), body.stride(0),
+                tail_out.data_ptr(), C, x.stride(0), n, k0 + start, base, num,
+                den, seq, seek, overlap, stream,
+            )
+        _build.check_launch(lib, rc, "WSOLA kernel")
+        launches += 1
     return bs, body, tail_out
 
 

@@ -7,16 +7,20 @@ window of width W = M + taps - 1 against an embedded [L, W] filter bank:
 
 The bank is the same Kaiser-windowed sinc as the JAX package's, designed
 on the host in float64 and cast once to float32, so both packages hold the
-same numbers; it is cached on the device per (L, M, taps).
+same numbers; it is cached on the device per rate pair, beside its tap
+support (``bank_support``): each block of ``SUPPORT_BLOCK`` consecutive
+phases reads only ``T`` of the W window columns, from its own offset, and
+the kernel sums only those.
 
 Dispatch (``apply_filter_bank``): a CUDA tensor goes to the hand-written
 kernel in :mod:`nodey_tpu_torch.ops.cuda_resample` for every rate pair,
 R > 1 and R == 1 alike; a CPU tensor takes the plain PyTorch versions
-below, ported from the JAX package's XLA branches. There is no fallback
-from one to the other.
+below, ported from the JAX package's XLA branches (the dense bank; they
+ignore the support). There is no fallback from one to the other.
 
 Not ported yet: the relay-era formulation switch (``resolve_form``,
-``form_override``, the ``transposed`` form), ``compat="swr"`` banks and
+``form_override``, the ``transposed`` form), ``compat="swr"`` banks (a set
+``NODEY_RESAMPLE_COMPAT`` raises, ``bank_spec``) and
 ``to_rate_and_stereo_many``.
 """
 
@@ -24,6 +28,8 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +48,13 @@ DEFAULT_TAPS = 32
 DEFAULT_BETA = 9.0
 DEFAULT_CUTOFF = 0.97
 MAX_PHASES = 8192
+# Consecutive phases that share one tap window in the CUDA kernel's
+# register tile (kBlock in csrc/polyphase_resample.cu): one input value it
+# loads feeds this many phases.
+SUPPORT_BLOCK = 4
+# Phases one CTA of that kernel takes (its kTilePhases): a group's staged
+# input row spans the widest offset spread of such a tile.
+TILE_PHASES = 32
 
 
 @functools.lru_cache(maxsize=64)
@@ -116,7 +129,27 @@ def group_factor(L: int, M: int) -> int:
 
 def bank_spec(in_rate: int, out_rate: int):
     """(bank ndarray [L, W], left, W) of the analytic design: the window
-    of output group g reads input [g*M - left, g*M - left + W)."""
+    of output group g reads input [g*M - left, g*M - left + W).
+
+    ``NODEY_RESAMPLE_COMPAT`` selects the JAX package's measured
+    libswresample banks ("swr"), which are not ported yet: a non-empty
+    value raises instead of rendering the analytic bank."""
+    compat = os.environ.get("NODEY_RESAMPLE_COMPAT") or None
+    if compat == "swr":
+        raise ProcessorRuntimeError(
+            "Unsupported resampler compatibility mode",
+            "Measured libswresample banks (NODEY_RESAMPLE_COMPAT=swr) are not "
+            "ported to nodey_tpu_torch yet (ROADMAP 1.6); unset the variable "
+            "to render with the analytic bank.",
+            f"NODEY_RESAMPLE_COMPAT={compat!r}, resample {in_rate}->"
+            f"{out_rate} Hz",
+        )
+    if compat is not None:
+        raise ProcessorRuntimeError(
+            "Unknown resampler compatibility mode",
+            "Supported: 'swr' (measured libswresample-equivalent banks).",
+            f"compat={compat!r}",
+        )
     L, M = _rational(in_rate, out_rate)
     taps = _effective_taps(L, M, DEFAULT_TAPS)
     W = M + taps - 1
@@ -124,17 +157,73 @@ def bank_spec(in_rate: int, out_rate: int):
     return bank, taps // 2 - 1, W
 
 
+def bank_support(bank: np.ndarray):
+    """``(compact [nb, T, block], offsets int32 [nb], T)``: the tap support
+    of the dense float32 bank [L, W], read from its own zeros, for blocks
+    of ``block = SUPPORT_BLOCK`` consecutive phases (nb = ceil(L / block)).
+
+    Block b's non-zero columns lie in [first_b, last_b] (over its phases);
+    T is the widest last_b - first_b + 1, offsets[b] = min(first_b, W - T)
+    and ``compact[b, t, r] = bank[b*block + r, offsets[b] + t]`` (zero for
+    phases past L). Re-embedding the compact bank at its offsets gives the
+    bank back bitwise: only exact zeros are left out."""
+    L, W = bank.shape
+    block = SUPPORT_BLOCK
+    nb = -(-L // block)
+    rows = np.zeros((nb * block, W), dtype=bank.dtype)
+    rows[:L] = bank
+    live = (rows != 0).reshape(nb, block, W).any(axis=1)        # [nb, W]
+    has = live.any(axis=1)
+    first = np.where(has, live.argmax(axis=1), 0)
+    last = np.where(has, W - 1 - live[:, ::-1].argmax(axis=1), 0)
+    T = max(1, int((last - first + 1).max()))
+    offsets = np.minimum(first, W - T).astype(np.int32)
+    cols = offsets[:, None] + np.arange(T)                       # [nb, T]
+    compact = np.take_along_axis(rows.reshape(nb, block, W),
+                                 cols[:, None, :], axis=2)        # [nb, blk, T]
+    return np.ascontiguousarray(compact.transpose(0, 2, 1)), offsets, T
+
+
+class BankSupport(NamedTuple):
+    """A bank's tap support on a device (see ``bank_support``): what the
+    kernel reads in place of the dense bank."""
+
+    compact: torch.Tensor      # [nb, T, SUPPORT_BLOCK] float32
+    offsets: torch.Tensor      # [nb] int32
+    taps: int                  # T
+    phases: int                # L
+    width: int                 # W
+    row_used: int              # input columns a group's staged row needs
+
+
+def support_on(bank: np.ndarray, device) -> BankSupport:
+    """``bank_support`` of ``bank`` with its tensors on ``device``, and the
+    width of the input row the kernel stages per output group: the widest
+    offset spread over its ``TILE_PHASES``-phase tiles, plus T."""
+    compact, offsets, T = bank_support(bank)
+    tile = TILE_PHASES // SUPPORT_BLOCK
+    tiles = np.pad(offsets, (0, -len(offsets) % tile), mode="edge")
+    tiles = tiles.reshape(-1, tile)
+    row_used = int((tiles.max(axis=1) - tiles.min(axis=1)).max()) + T
+    return BankSupport(torch.from_numpy(compact).to(device),
+                       torch.from_numpy(offsets).to(device), T, *bank.shape,
+                       row_used)
+
+
 @functools.lru_cache(maxsize=32)
-def _device_bank(in_rate: int, out_rate: int,
-                 device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(bank_spec(in_rate, out_rate)[0]).to(device)
+def _device_bank(in_rate: int, out_rate: int, device: torch.device):
+    """``(bank [L, W], BankSupport)`` of the rate pair on ``device``,
+    derived once per bank and cached, so no step copies from the host."""
+    bank = bank_spec(in_rate, out_rate)[0]
+    return (torch.from_numpy(bank).to(device),
+            support_on(bank, device))
 
 
 def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
-    """``(x, G, M, W, bank)`` that ``resample_data`` hands
+    """``(x, G, M, W, bank, support)`` that ``resample_data`` hands
     ``apply_filter_bank`` for ``data`` [C, N]: the padded input, the number
-    of output groups, the input stride, the window width and the bank on
-    ``data``'s device."""
+    of output groups, the input stride, the window width, and the bank and
+    its tap support on ``data``'s device."""
     L, M = _rational(in_rate, out_rate)
     if L > MAX_PHASES:
         raise ProcessorRuntimeError(
@@ -146,11 +235,11 @@ def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
     N = data.shape[1]
     G = -(-(-(-N * L // M)) // L)  # groups of L outputs
     _, left, W = bank_spec(in_rate, out_rate)
-    bank = _device_bank(in_rate, out_rate, data.device)
+    bank, support = _device_bank(in_rate, out_rate, data.device)
     # Input index 0 of the window is original sample -left; the right pad
     # covers the last group's window.
     right = max(0, (G + -(-W // M)) * M - left - N)
-    return F.pad(data, (left, right)), G, M, W, bank
+    return F.pad(data, (left, right)), G, M, W, bank, support
 
 
 def resample_data(data: torch.Tensor, in_rate: int,
@@ -164,21 +253,23 @@ def resample_data(data: torch.Tensor, in_rate: int,
     entry needs no code path of its own."""
     if in_rate == out_rate:
         return data
-    x, G, M, W, bank = bank_operands(data, in_rate, out_rate)
+    x, G, M, W, bank, support = bank_operands(data, in_rate, out_rate)
     n_out = -(-data.shape[1] * bank.shape[0] // M)
-    return apply_filter_bank(x, G, M, W, bank)[:, :n_out]
+    return apply_filter_bank(x, G, M, W, bank, support)[:, :n_out]
 
 
 def apply_filter_bank(x: torch.Tensor, G: int, M: int, W: int,
-                      bank: torch.Tensor) -> torch.Tensor:
+                      bank: torch.Tensor,
+                      support: BankSupport) -> torch.Tensor:
     """``y[c, g*L + p] = sum_w x[c, g*M + w] * bank[p, w]`` -> [C, G*L].
 
-    A CUDA tensor launches the polyphase kernel (or raises); a CPU tensor
-    takes the plain version."""
+    A CUDA tensor launches the polyphase kernel on ``support``, the bank's
+    tap support (or raises); a CPU tensor takes the plain version on the
+    dense ``bank``."""
     if x.is_cuda:
         from nodey_tpu_torch.ops import cuda_resample
 
-        return cuda_resample.apply_filter_bank_cuda(x, G, M, W, bank)
+        return cuda_resample.apply_filter_bank_cuda(x, G, M, W, support)
     if x.device.type != "cpu":
         raise ProcessorRuntimeError(
             "Unsupported device for resampling",

@@ -24,7 +24,10 @@ is input sample ``base``, seeded from a carried tail: that is
 after its last frame (the JAX step slices it out of the snapshot itself).
 ``wsola_chain`` and ``wsola_chunk_chain`` send a CUDA tensor to the
 hand-written kernel (:mod:`nodey_tpu_torch.ops.cuda_wsola`) and a CPU
-tensor to the plain versions; neither falls back to the other.
+tensor to the plain versions; neither falls back to the other. On the card
+the normalizers ``rsqrt(energy + 1e-9)`` come from a parallel prologue
+kernel before the serial chain runs; ``wsola_energy_plain`` is its plain
+version.
 
 The same chain has a parallel formulation, the score table of
 ``nodey_tpu/ops/pallas_wsola.py::wsola_score_table``: F[k, p] is the first
@@ -93,6 +96,33 @@ def best_offset(cand: torch.Tensor, tail: torch.Tensor,
     corr = F.conv1d(cand[None], tail[None])[0, 0]
     energy = F.conv1d((cand * cand)[None], ones)[0, 0]
     return torch.argmax(corr * torch.rsqrt(energy + 1e-9))
+
+
+# Frames whose energies the plain prologue sums in one conv1d call (bounds
+# its operand to ~9 MB at 48 kHz stereo).
+ENERGY_CHUNK_FRAMES = 1024
+
+
+def wsola_energy_plain(x: torch.Tensor, k0: int, base: int, K: int, num: int,
+                       den: int, seq: int, seek: int,
+                       overlap: int) -> torch.Tensor:
+    """float32 [K, seek+1]: ``rsqrt(energy[b] + 1e-9)`` of every candidate
+    b of frames k0 .. k0+K-1 (frames and columns as in
+    ``wsola_chunk_chain_plain``), ``best_offset``'s energy formulation (one
+    conv1d of the squared window with ones) batched over frames: the plain
+    version of the chain kernel's energy prologue."""
+    check_window(x, K, num, den, seq, seek, k0=k0, base=base)
+    C, span = x.shape[0], seek + overlap
+    ones = torch.ones((1, C, overlap), dtype=x.dtype, device=x.device)
+    cols = torch.arange(span, device=x.device)
+    inv = torch.empty((K, seek + 1), dtype=x.dtype, device=x.device)
+    for f0 in range(0, K, ENERGY_CHUNK_FRAMES):
+        f1 = min(K, f0 + ENERGY_CHUNK_FRAMES)
+        pos = torch.tensor([frame_pos(k0 + i, num, den) - base
+                            for i in range(f0, f1)], device=x.device)
+        cand = x[:, pos[:, None] + cols].transpose(0, 1)   # [F, C, span]
+        inv[f0:f1] = torch.rsqrt(F.conv1d(cand * cand, ones)[:, 0] + 1e-9)
+    return inv
 
 
 def _blend(tail, seg, fade_in, fade_out, overlap: int, stride: int):

@@ -88,7 +88,7 @@ def resample_ab(rate_in: int, rate_out: int, seconds: float, iters: int = 10,
     rng = np.random.default_rng(0)
     data = torch.from_numpy(
         (0.3 * rng.standard_normal((2, n))).astype(np.float32)).to(device)
-    x, G, M, W, bank = resample_ops.bank_operands(data, rate_in, rate_out)
+    x, G, M, W, bank, _ = resample_ops.bank_operands(data, rate_in, rate_out)
     L = bank.shape[0]
     n_out = -(-n * L // M)
     fns = {

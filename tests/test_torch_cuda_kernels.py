@@ -9,11 +9,15 @@ on the card's machine it runs alone:
 Tolerance 2e-6 for the resampler: the kernel sums each window in tap
 order with FFMA, the plain version through a GEMM in another order; the
 bank sums to 1 per phase and the inputs are within +/-1.5 (~30 float32
-ulps at that scale). The WSOLA kernel must choose the plain version's
-splice offsets exactly on these tone-plus-noise signals (no near ties),
-and its audio, blended with the same roundings, within the same 2e-6;
-through its chunk entry too, whose returned tail is a copy of samples
-(bitwise).
+ulps at that scale). The kernel's two register tiles (4-phase blocks, the
+main path's, and single phases) sum the same non-zero taps in the same
+order, so their outputs are bitwise equal. The WSOLA kernel must choose
+the plain version's splice offsets exactly on these tone-plus-noise
+signals (no near ties), and its audio, blended with the same roundings,
+within the same 2e-6; through its chunk entry too, whose returned tail is
+a copy of samples (bitwise), and across its walk's frame blocks. Its
+energy prologue within rtol 1e-5 of the plain conv1d energies, rsqrt-ed:
+two float32 sums of C*overlap squares in different orders.
 
 The phase-vocoder kernels: the phase path's synthesis planes >= 100 dB
 against the plain version fed the same re and im, and every bin with
@@ -43,18 +47,28 @@ from nodey_tpu_torch.ops.wsola import frame_pos
 
 TOL = 2e-6
 
-# (in_rate, out_rate, samples): the grouped (R > 1) pairs chip_smoke.py
-# checks, R == 1 pairs (up, down, many phases), a window wide enough to
-# shrink the CTA's group tile, a lone group, and a mono clip.
+# (in_rate, out_rate, samples, channels): the main paths' pairs (44.1 -> 48
+# kHz, the 635/504 pitch transposition, 48 -> 44.1 kHz, M = 160), the
+# grouped (R > 1) pairs chip_smoke.py checks, R == 1 pairs (up, down, many
+# phases), strong downsampling (a 154-tap block window: wide staged rows;
+# L = 1 with 384 taps: 32 groups per CTA), a lone group; mono and stereo,
+# ragged last group and phase tiles.
 CASES = [
-    (44_100, 48_000, 100_003),
-    (22_050, 48_000, 50_021),
-    (44_100, 32_000, 77_777),
-    (44_100, 22_050, 30_001),
-    (8_000, 48_000, 9_999),
-    (48_000, 44_100, 40_000),
-    (192_000, 44_100, 60_013),
-    (44_100, 48_000, 1),
+    (44_100, 48_000, 100_003, 2),
+    (44_100, 48_000, 77_001, 1),
+    (635, 504, 90_017, 2),
+    (635, 504, 50_003, 1),
+    (48_000, 44_100, 40_000, 2),
+    (48_000, 44_100, 33_333, 1),
+    (22_050, 48_000, 50_021, 2),
+    (22_050, 48_000, 20_011, 1),
+    (44_100, 32_000, 77_777, 2),
+    (44_100, 32_000, 40_009, 1),
+    (44_100, 22_050, 30_001, 2),
+    (8_000, 48_000, 9_999, 2),
+    (192_000, 44_100, 60_013, 2),
+    (96_000, 8_000, 50_000, 1),
+    (44_100, 48_000, 1, 2),
 ]
 
 
@@ -72,16 +86,16 @@ def _data(device, n, channels=2, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_rate,out_rate,n", CASES)
-def test_kernel_matches_plain(cuda_device, in_rate, out_rate, n):
-    x, G, M, W, bank = tr.bank_operands(_data(cuda_device, n), in_rate,
-                                        out_rate)
+@pytest.mark.parametrize("in_rate,out_rate,n,channels", CASES)
+def test_kernel_matches_plain(cuda_device, in_rate, out_rate, n, channels):
+    x, G, M, W, bank, support = tr.bank_operands(
+        _data(cuda_device, n, channels), in_rate, out_rate)
     before = cuda_resample.launches
-    got = cuda_resample.apply_filter_bank_cuda(x, G, M, W, bank)
+    got = cuda_resample.apply_filter_bank_cuda(x, G, M, W, support)
     torch.cuda.synchronize()
     assert cuda_resample.launches == before + 1
     want = tr.apply_filter_bank_plain(x, G, M, W, bank)
-    assert got.shape == want.shape == (2, G * bank.shape[0])
+    assert got.shape == want.shape == (channels, G * bank.shape[0])
     assert (got - want).abs().max().item() <= TOL
 
 
@@ -98,31 +112,46 @@ def test_resample_data_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    x, G, M, W, bank = tr.bank_operands(_data(cuda_device, 5_000), 44_100,
-                                        48_000)
+    x, G, M, W, _, sup = tr.bank_operands(_data(cuda_device, 5_000),
+                                          44_100, 48_000)
     before = cuda_resample.launches
     with pytest.raises(ValueError, match="float32"):
-        cuda_resample.apply_filter_bank_cuda(x.double(), G, M, W, bank)
+        cuda_resample.apply_filter_bank_cuda(x.double(), G, M, W, sup)
     with pytest.raises(ValueError, match="contiguous"):
-        cuda_resample.apply_filter_bank_cuda(x[:, ::2], G // 2, M, W, bank)
+        cuda_resample.apply_filter_bank_cuda(x[:, ::2], G // 2, M, W, sup)
     with pytest.raises(ValueError, match="samples"):
         cuda_resample.apply_filter_bank_cuda(x[:, :100].contiguous(), G, M,
-                                             W, bank)
+                                             W, sup)
     with pytest.raises(ValueError, match="one CUDA device"):
-        cuda_resample.apply_filter_bank_cuda(x, G, M, W, bank.cpu())
+        cuda_resample.apply_filter_bank_cuda(
+            x, G, M, W, sup._replace(compact=sup.compact.cpu()))
+    with pytest.raises(ValueError, match="support"):
+        cuda_resample.apply_filter_bank_cuda(
+            x, G, M, W, sup._replace(compact=sup.compact[:-1]))
+    with pytest.raises(ValueError, match="support"):
+        cuda_resample.apply_filter_bank_cuda(x, G, M, W + 1, sup)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_resample.apply_filter_bank_cuda(
+            x, G, M, W, sup._replace(offsets=sup.offsets.long()))
+    with pytest.raises(ValueError, match="leaves"):
+        cuda_resample.apply_filter_bank_cuda(
+            x, G, M, W, sup._replace(row_used=W + 1))
     assert cuda_resample.launches == before
 
 
 # -- the WSOLA splice-chain kernel --------------------------------------------
 
 # (rate, tempo, frames, channels): ragged frame counts, a lone frame, mono,
-# and the 44.1 kHz geometry (stride 1412, overlap 352).
+# the 44.1 kHz geometry (stride 1412, overlap 352, 661 candidates), and
+# 8 kHz (121 candidates: not a multiple of the 6-candidate register tile;
+# overlap 64), stereo and mono.
 WSOLA_CASES = [
     (48_000, 0.7937005259840998, 37, 2),
     (48_000, 1.25, 1, 2),
     (48_000, 1.25, 29, 1),
     (44_100, 0.8, 23, 2),
     (8_000, 2.0, 61, 2),
+    (8_000, 1.25, 40, 1),
 ]
 
 
@@ -142,10 +171,11 @@ def _wsola_operands(device, rate, tempo, K, channels, seed=0):
 @pytest.mark.parametrize("rate,tempo,K,channels", WSOLA_CASES)
 def test_wsola_kernel_matches_plain(cuda_device, rate, tempo, K, channels):
     x, head, args = _wsola_operands(cuda_device, rate, tempo, K, channels)
-    before = cuda_wsola.launches
+    before = (cuda_wsola.launches, cuda_wsola.energy_launches)
     bs, body = cuda_wsola.wsola_chain_cuda(x, head, *args)
     torch.cuda.synchronize()
-    assert cuda_wsola.launches == before + 1
+    assert (cuda_wsola.launches, cuda_wsola.energy_launches) == (
+        before[0] + 1, before[1] + 1)
     pbs, pbody = wsola.wsola_chain_plain(x, head, *args)
     assert bs.dtype == torch.int32 and bs.shape == (K,)
     assert body.shape == pbody.shape == (channels, K * (args[3] - args[5]))
@@ -192,6 +222,52 @@ def test_wsola_chunk_kernel_matches_plain(cuda_device, rate, tempo, K, channels)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate,tempo,K,channels", WSOLA_CASES[:5])
+def test_wsola_energy_prologue_matches_plain(cuda_device, rate, tempo, K,
+                                             channels):
+    """The prologue's table for frames k0 .. k0+K-1 read from column
+    frame_pos(k) - base of a column slice, against the plain conv1d
+    energies (rtol 1e-5: two float32 summation orders)."""
+    x, _, (n_frames, num, den, seq, seek, overlap) = _wsola_operands(
+        cuda_device, rate, tempo, K + 4, channels, seed=2)
+    k0 = 4
+    base = frame_pos(k0, num) - 3
+    window = x[:, base:]
+    before = cuda_wsola.energy_launches
+    inv = cuda_wsola.wsola_energy_cuda(window, k0, base, K, num, den, seq,
+                                       seek, overlap)
+    torch.cuda.synchronize()
+    assert cuda_wsola.energy_launches == before + 1
+    want = wsola.wsola_energy_plain(window, k0, base, K, num, den, seq, seek,
+                                    overlap)
+    assert inv.shape == want.shape == (K, seek + 1)
+    assert ((inv - want).abs() / want).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,block", [(4095, None), (4096, None),
+                                     (4097, None), (37, 16), (33, 16)])
+def test_wsola_block_walk_equals_the_plain_chain(cuda_device, monkeypatch, K,
+                                                 block):
+    """The wrapper walks the chain in blocks of BLOCK_FRAMES frames (a
+    prologue and a chain launch each, the next block's head the previous
+    tail_out): across a block boundary it is the single plain chain."""
+    if block is not None:
+        monkeypatch.setattr(cuda_wsola, "BLOCK_FRAMES", block)
+    blocks = -(-K // cuda_wsola.BLOCK_FRAMES)
+    x, head, args = _wsola_operands(cuda_device, 8_000, 1.25, K, 2, seed=6)
+    before = (cuda_wsola.launches, cuda_wsola.energy_launches)
+    bs, body, tail = cuda_wsola.wsola_chunk_chain_cuda(x, head, 0, 0, *args)
+    torch.cuda.synchronize()
+    assert (cuda_wsola.launches, cuda_wsola.energy_launches) == (
+        before[0] + blocks, before[1] + blocks)
+    pbs, pbody, ptail = wsola.wsola_chunk_chain_plain(x, head, 0, 0, *args)
+    assert torch.equal(bs, pbs)
+    assert (body - pbody).abs().max().item() <= TOL
+    assert torch.equal(tail, ptail)
+
+
+@pytest.mark.cuda
 def test_wsola_stretch_on_card_matches_cpu(cuda_device):
     rng = np.random.default_rng(8)
     data = (0.3 * rng.standard_normal((2, 30_000))).astype(np.float32)
@@ -208,7 +284,7 @@ def test_wsola_stretch_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_wsola_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     x, head, args = _wsola_operands(cuda_device, 8_000, 1.25, 5, 2)
-    before = cuda_wsola.launches
+    before, energy_before = cuda_wsola.launches, cuda_wsola.energy_launches
     with pytest.raises(ValueError, match="float32"):
         cuda_wsola.wsola_chain_cuda(x.double(), head.double(), *args)
     with pytest.raises(ValueError, match="window reads"):
@@ -217,7 +293,14 @@ def test_wsola_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         cuda_wsola.wsola_chain_cuda(x, head.cpu(), *args)
     with pytest.raises(ValueError, match="head"):
         cuda_wsola.wsola_chain_cuda(x, head[:1], *args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_wsola.wsola_energy_cuda(x.cpu(), 0, 0, *args)
+    with pytest.raises(ValueError, match="window reads"):
+        cuda_wsola.wsola_energy_cuda(x[:, :-3].contiguous(), 0, 0, *args)
+    with pytest.raises(ValueError, match="rows contiguous"):
+        cuda_wsola.wsola_energy_cuda(x.t().contiguous().t(), 0, 0, *args)
     assert cuda_wsola.launches == before
+    assert cuda_wsola.energy_launches == energy_before
 
 
 # -- the WSOLA score table, its walk, the step probes --------------------------

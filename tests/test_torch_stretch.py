@@ -218,3 +218,35 @@ def test_chain_dispatch_takes_the_plain_version_on_the_cpu():
     got = wsola.wsola_chain(*args)
     want = wsola.wsola_chain_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("rate", [8_000, 48_000])
+def test_plain_energy_prologue_matches_float64(rate, channels, monkeypatch):
+    """``wsola_energy_plain`` (the plain version of the chain kernel's energy
+    prologue) against a float64 NumPy sliding sum, frames k0 .. k0+K-1 read
+    from column frame_pos(k) - base, in several conv1d chunks. rtol 2e-6:
+    each energy is a float32 sum of C*overlap positive squares (relative
+    error ~ sqrt(C*overlap) ulps in conv1d's order), halved by the rsqrt."""
+    monkeypatch.setattr(wsola, "ENERGY_CHUNK_FRAMES", 4)
+    seq, seek, overlap = stretch._params(rate)
+    num = int(round((seq - overlap) * 1.25 * 65536))
+    k0, K = 3, 9
+    base = wsola.frame_pos(k0, num) - 7
+    n = wsola.frame_pos(k0 + K - 1, num) - base + seek + seq
+    rng = np.random.default_rng(rate + channels)
+    x = (0.3 * rng.standard_normal((channels, n))).astype(np.float32)
+    x[:, 40:300] = 0.0     # silence: energy 0 reads the 1e-9 floor
+    got = wsola.wsola_energy_plain(torch.from_numpy(x), k0, base, K, num,
+                                   65536, seq, seek, overlap).numpy()
+    assert got.shape == (K, seek + 1) and got.dtype == np.float32
+    x64 = x.astype(np.float64)
+    for i in range(K):
+        pos = wsola.frame_pos(k0 + i, num) - base
+        cand = x64[:, pos : pos + seek + overlap] ** 2
+        win = np.lib.stride_tricks.sliding_window_view(cand, overlap, axis=1)
+        want = 1.0 / np.sqrt(win.sum(axis=(0, 2)) + 1e-9)
+        np.testing.assert_allclose(got[i], want, rtol=2e-6, atol=0)
+    with pytest.raises(ValueError, match="window reads"):
+        wsola.wsola_energy_plain(torch.from_numpy(x[:, :-1]), k0, base, K,
+                                 num, 65536, seq, seek, overlap)
