@@ -46,8 +46,11 @@ Phases, in order; the first failure exits non-zero:
                the main path's own data) and on the 7 golden signals: the
                phase path's synthesis planes >= 100 dB, with and without
                lock, and every bin with mag > 0 within a phasor error
-               |kernel - plain| / mag <= 1e-3; the lock kernel, fed the plain
-               path's unlocked planes, within 2e-6 of the plain lock;
+               |kernel - plain| / mag <= 1e-3 (with the count of plane
+               elements that are not bitwise the plain version's, as the
+               prefix is associated otherwise, and a digest of the kernel's
+               planes to hold two builds of it to each other); the lock kernel, fed the
+               plain path's unlocked planes, within 2e-6 of the plain lock;
  10. config4-pv — config 4 with both tempo nodes on algorithm "pv" through
                the CLI on the 300 s track, exported to WAV: length
                11,519,994, finite, >= 2 launches of the phase-path kernel, 0
@@ -61,9 +64,11 @@ Phases, in order; the first failure exits non-zero:
                >= 2 launches of the lock kernel, 0 of the phase-path kernel,
                the length, finite;
  12. times   — CUDA events: both PV kernels and their plain versions at both
-               shapes beside their bounds; the PV config-4 render as
-               audio-seconds per device-second (rtf_config4_pv), and one
-               render under torch.profiler.
+               shapes beside their bounds; the phase kernel's three passes
+               (totals, carry, apply) by torch.profiler device time beside
+               its whole call; the PV config-4 render as audio-seconds per
+               device-second (rtf_config4_pv), and one render under
+               torch.profiler.
  13. stream-kernel — config 4 streamed at 16 s chunks on phase 6's track
                (the graph's chunk steps driven by hand): every launch of the
                WSOLA kernel's chunk entry against the plain chunk chain on
@@ -121,6 +126,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import math
@@ -148,6 +154,7 @@ CONFIG4_PV_FRAMES = (35_460, 22_520)   # the phase vocoder's K, both stages
 PV_PLANE_DB = 100.0
 PV_PHASOR_TOL = 1e-3
 PV_EXCERPT_DB = 90.0
+PV_PASSES = ("totals", "carry", "apply")  # the phase-path kernel's launches
 # Card vs CPU on the PV excerpt. The two differ in the analysis GEMMs and in
 # atan2/cos/sin by ulps, and a steady tone's sidelobe bins sit where the
 # phase wrap is decided by such ulps, so the PV output itself moves by tens
@@ -505,10 +512,15 @@ def check_pv(tag: str, operands, card: str):
         snr = min(plane_snr_db(pry, ry), plane_snr_db(piy, iy))
         phasor = (torch.hypot(ry - pry, iy - piy)[live] / mag[live]).max().item()
         err = max((ry - pry).abs().max().item(), (iy - piy).abs().max().item())
+        differ = int((ry != pry).sum()) + int((iy != piy).sum())
+        digest = hashlib.sha256(
+            torch.stack([ry, iy]).cpu().numpy().tobytes()).hexdigest()[:16]
         print(f"[9 pv-kernels] {tag}: phase path, lock {lock}: planes SNR "
               f"{snr:.1f} dB (min {PV_PLANE_DB:.0f}), max phasor error "
               f"{phasor:.3e} (max {PV_PHASOR_TOL:g}), max|kernel - plain| "
-              f"{err:.3e} ({card})")
+              f"{err:.3e}, {differ} of {2 * ry.numel()} plane elements not "
+              f"bitwise the plain version's, kernel planes' sha256 "
+              f"{digest} ({card})")
         check(snr >= PV_PLANE_DB, f"{tag}: phase-path planes below the bar")
         check(phasor <= PV_PHASOR_TOL, f"{tag}: a bin's phasor disagrees")
         worst = max(worst, err)
@@ -1165,6 +1177,27 @@ def profile_render(render, card: str, tag: str = "8 times",
           f"{max(0.0, 1.0 - busy_ms / span_ms):.2%} ({card})")
 
 
+def pass_ms(fn, iters: int) -> dict:
+    """Device ms per call of each phase-path pass (its kernel's name holds
+    pv_phase_<pass>), from torch.profiler over ``iters`` calls of ``fn``;
+    {} if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total",
+                     getattr(event, "self_cuda_time_total", 0))
+        for name in PV_PASSES:
+            if f"pv_phase_{name}" in event.key and us > 0:
+                out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1695,6 +1728,17 @@ def main() -> int:
                 print(f"[12 times] PV {tag} stage {what} bound: {ms:.4f} ms by "
                       f"{by}; kernel at {ms / pv_times[tag][what + ' kernel']:.2%}"
                       f" of it ({card})")
+            # The phase kernel's three passes, by the profiler's device time.
+            passes = pass_ms(fns["phase kernel"], 5)
+            pv_times[tag]["passes"] = passes
+            parts = ", ".join(f"{name} {passes[name]:.4f} ms"
+                              for name in PV_PASSES if name in passes)
+            print(f"[12 times] PV {tag} stage, phase kernel by pass "
+                  f"(torch.profiler, 5 calls): "
+                  f"{parts or 'not measured (no device time seen)'}; sum "
+                  f"{sum(passes.values()):.4f} ms beside the call's "
+                  f"{pv_times[tag]['phase kernel']:.4f} ms and the bound "
+                  f"{pv_times[tag]['phase bound'][0]:.4f} ms ({card})")
         del pv_ops, lock_inputs, fns
 
         runner = Runner(config4_graph(track_path, algorithm="pv"), device=CARD)
@@ -2022,6 +2066,7 @@ def main() -> int:
             "bound_ms": pv_pitch["phase bound"][0],
             "bound_by": pv_pitch["phase bound"][1],
             "library_ms": None,
+            "passes_ms": pv_pitch["passes"],
         },
         {
             "name": "pv_lock",

@@ -119,12 +119,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.nodey_wsola_threads.restype = i32
     elif name == "pv_phase_path":
         lib.nodey_pv_phase_path.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-            ctypes.c_float, ctypes.c_double, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+            ctypes.c_float, vp,
         ]
         lib.nodey_pv_phase_path.restype = i32
         lib.nodey_pv_phase_scratch_floats.argtypes = [i32, i32, i32]
         lib.nodey_pv_phase_scratch_floats.restype = i64
+        lib.nodey_pv_phase_smem_bytes.argtypes = [i32, i32]
+        lib.nodey_pv_phase_smem_bytes.restype = i64
     elif name == "pv_lock":
         lib.nodey_pv_lock.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
         lib.nodey_pv_lock.restype = i32

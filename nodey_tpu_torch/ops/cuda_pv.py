@@ -16,6 +16,7 @@ made through these wrappers (one phase-path launch runs its three passes).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -45,11 +46,56 @@ def _check_planes(names, planes, what: str):
             raise ValueError(f"{what} needs contiguous planes ({name})")
 
 
+def _check_power_of_two(n_fft: int) -> None:
+    if n_fft <= 0 or n_fft & (n_fft - 1):
+        raise ValueError(f"PV phase-path kernel: n_fft={n_fft} is not a "
+                         f"power of two")
+
+
+def phase_tables(dpos, hop: int, n_fft: int):
+    """``(hop_over_dpos [K], omega_hop [B = n_fft//2 + 1])`` float32: the
+    per-frame and per-bin constants of the phase advance, exactly the values
+    that the plain ``pv._advance`` uses (``float32(hop / dpos)`` in float64,
+    and ``((b*hop) mod n_fft) * 2pi/n_fft`` rounded once), for the kernel to
+    read instead of computing them per element. Entry 0 of ``hop_over_dpos``
+    is unused (1.0). ``n_fft`` must be a power of two: the kernel takes
+    ``(b*dpos) mod n_fft`` as ``& (n_fft - 1)``."""
+    _check_power_of_two(n_fft)
+    dpos = np.asarray(dpos, dtype=np.int64)
+    hop_over_dpos = np.ones(dpos.shape, dtype=np.float32)
+    hop_over_dpos[1:] = float(hop) / dpos[1:]
+    omega_hop = (np.mod(np.arange(n_fft // 2 + 1) * hop, n_fft).astype(
+        np.float64) * (2.0 * math.pi / n_fft)).astype(np.float32)
+    return hop_over_dpos, omega_hop
+
+
+@functools.lru_cache(maxsize=8)
+def _device_tables(device: str, stream: int, dpos: bytes, hop: int,
+                   n_fft: int) -> torch.Tensor:
+    """int32 [2K + B] on ``device``: the hops ``dpos`` (int64 bytes), then
+    the bits of ``phase_tables``; uploaded from pinned memory without
+    waiting for the card, once per geometry and stream (a render calls the
+    kernel with the same geometry at every stage; the kernels only read the
+    tables, on the stream that uploaded them)."""
+    dpos = np.frombuffer(dpos, dtype=np.int64)
+    hop_over_dpos, omega_hop = phase_tables(dpos, hop, n_fft)
+    K = len(dpos)
+    host = torch.empty(2 * K + len(omega_hop), dtype=torch.int32,
+                       pin_memory=True)
+    tables = host.numpy()
+    tables[:K] = dpos
+    tables[K : 2 * K] = hop_over_dpos.view(np.int32)
+    tables[2 * K :] = omega_hop.view(np.int32)
+    return host.to(device, non_blocking=True)
+
+
 def phase_path_cuda(re: torch.Tensor, im: torch.Tensor, dpos, hop: int,
                     n_fft: int, lock: bool = True):
     """``(mag*cos_phi, mag*sin_phi)`` [C, K, B] from the forward-DFT planes
     ``re``, ``im`` [C, K, B = n_fft//2 + 1] and the integer analysis hops
-    ``dpos`` [K] (dpos[0] unused), with or without the identity lock."""
+    ``dpos`` [K] (dpos[0] unused), with or without the identity lock. The
+    hops and ``phase_tables`` go up in one copy from pinned memory, once
+    per geometry, so the call never waits for the card."""
     global phase_path_launches
     what = "PV phase-path kernel"
     _check_planes(("re", "im"), (re, im), what)
@@ -61,27 +107,30 @@ def phase_path_cuda(re: torch.Tensor, im: torch.Tensor, dpos, hop: int,
             f"fit n_fft={n_fft}")
     if not (hop > 0 and n_fft > 0 and (K == 0 or dpos[1:].min(initial=1) > 0)):
         raise ValueError(f"{what}: bad geometry hop={hop} n_fft={n_fft}")
-    # (b * dpos) and (b * hop) are formed in int32.
-    if (B - 1) * max(int(dpos.max(initial=0)), hop) >= 2**31:
+    _check_power_of_two(n_fft)
+    # (b * dpos) is formed in int32.
+    if (B - 1) * int(dpos.max(initial=0)) >= 2**31:
         raise ValueError(f"{what}: hops too long for int32 bin products")
-    if 9 * 4 * B > _build.SMEM_LIMIT:  # seven float rows and two int rows
-        raise ValueError(f"{what}: {B} bins need more shared memory than a "
-                         f"block has")
+    lib = _build.load_library("pv_phase_path")
+    smem = lib.nodey_pv_phase_smem_bytes(B, int(bool(lock)))
+    if not 0 <= smem <= _build.SMEM_LIMIT:
+        raise ValueError(f"{what}: takes rows of 257 to 4097 bins (n_fft "
+                         f"512 to 8192, those of pv_params), got {B}")
     ry = torch.empty_like(re)
     iy = torch.empty_like(re)
     if ry.numel() == 0:
         return ry, iy
-    lib = _build.load_library("pv_phase_path")
-    dpos_t = torch.from_numpy(dpos.astype(np.int32)).to(re.device)
-    scratch = torch.empty(lib.nodey_pv_phase_scratch_floats(C, K, B),
-                          dtype=torch.float32, device=re.device)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
+        tables_d = _device_tables(str(re.device), stream, dpos.tobytes(), hop,
+                                  n_fft)
+        scratch = torch.empty(lib.nodey_pv_phase_scratch_floats(C, K, B),
+                              dtype=torch.float32, device=re.device)
+        base = tables_d.data_ptr()
         rc = lib.nodey_pv_phase_path(
-            re.data_ptr(), im.data_ptr(), dpos_t.data_ptr(), ry.data_ptr(),
-            iy.data_ptr(), scratch.data_ptr(), C, K, B, hop, n_fft,
-            int(bool(lock)), float(np.float32(2.0 * math.pi / n_fft)),
-            2.0 * math.pi / n_fft, stream)
+            re.data_ptr(), im.data_ptr(), base, base + 4 * K, base + 8 * K,
+            ry.data_ptr(), iy.data_ptr(), scratch.data_ptr(), C, K, B, n_fft,
+            int(bool(lock)), float(np.float32(2.0 * math.pi / n_fft)), stream)
     _build.check_launch(lib, rc, what)
     phase_path_launches += 1
     return ry, iy

@@ -452,13 +452,67 @@ def _pv_planes(device, rate, tempo, seconds, channels, seed=0):
     return re, im, dpos, hop, n_fft
 
 
+# (C, K, n_fft, rows): planes made directly. K around the 64-frame tile
+# (1, 63, 64, 65; 100 and 130 are not whole tiles) and grids of more than
+# one wave of apply CTAs (K = 8,500: 2 x 133 CTAs, 264 a wave), B = 1025
+# (its odd top bin) and 257 (pv_params' smallest row); "special" rows at frames 3, 5, 7 and 9 of every 64 (see
+# _special_planes), noise elsewhere.
+PV_SYNTHETIC = [
+    (2, 1, 2048, "noise"), (1, 63, 2048, "noise"), (2, 64, 2048, "noise"),
+    (2, 65, 2048, "noise"), (2, 100, 512, "noise"), (2, 130, 2048, "special"),
+    (1, 130, 512, "special"), (2, 8500, 512, "special"),
+    (2, 8500, 2048, "special"),
+]
+
+
+def _special_planes(device, C, K, n_fft, rows, seed=1):
+    """Noise planes [C, K, n_fft//2 + 1] with, where ``rows`` is "special",
+    an all-zero frame (atan2(0, 0) = 0), a frame whose magnitudes rise to
+    the top bin (its one peak: no bin has a peak before it), a frame of
+    equal magnitudes (bin 0 its one peak: ties in magnitude) and a comb
+    with a peak every 10 bins (the bins half way between two take the
+    earlier one), at frames 3, 5, 7 and 9 of every 64."""
+    rng = np.random.default_rng(seed)
+    B = n_fft // 2 + 1
+    mag = np.abs(rng.standard_normal((C, K, B))).cumsum(-1) / B
+    mag *= rng.uniform(0.5, 1.5, (C, K, B))
+    phase = rng.uniform(-np.pi, np.pi, (C, K, B))
+    re, im = mag * np.cos(phase), mag * np.sin(phase)
+    if rows == "special":
+        quarter = np.array([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]])
+        for k0 in range(0, K, 64):
+            for k, kind in zip(range(k0 + 3, k0 + 10, 2),
+                               ("zero", "rise", "equal", "comb")):
+                if k >= K:
+                    continue
+                if kind == "zero":
+                    re[:, k], im[:, k] = 0.0, 0.0
+                elif kind == "rise":
+                    re[:, k] = np.arange(1, B + 1) / B
+                    im[:, k] = 0.0
+                elif kind == "equal":
+                    unit = quarter[rng.integers(0, 4, (C, B))]
+                    re[:, k], im[:, k] = unit[..., 0], unit[..., 1]
+                else:
+                    re[:, k] = np.where(np.arange(B) % 10 == 0, 1.0, 0.5)
+                    im[:, k] = 0.0
+    hop = n_fft // 4
+    dpos = hop + rng.integers(-1, 2, K)
+    dpos[0] = hop
+    planes = [torch.from_numpy(a.astype(np.float32)).to(device)
+              for a in (re, im)]
+    return (*planes, dpos, hop, n_fft)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lock", [True, False])
-@pytest.mark.parametrize("rate,tempo,seconds,channels", PV_CASES)
-def test_pv_phase_kernel_matches_plain(cuda_device, rate, tempo, seconds,
-                                       channels, lock):
-    re, im, dpos, hop, n_fft = _pv_planes(cuda_device, rate, tempo, seconds,
-                                          channels)
+@pytest.mark.parametrize("case", PV_CASES + PV_SYNTHETIC,
+                         ids=lambda case: "-".join(map(str, case)))
+def test_pv_phase_kernel_matches_plain(cuda_device, case, lock):
+    if len(case) == 4 and isinstance(case[3], str):
+        re, im, dpos, hop, n_fft = _special_planes(cuda_device, *case)
+    else:
+        re, im, dpos, hop, n_fft = _pv_planes(cuda_device, *case)
     before = cuda_pv.phase_path_launches
     ry, iy = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
     torch.cuda.synchronize()
@@ -470,6 +524,29 @@ def test_pv_phase_kernel_matches_plain(cuda_device, rate, tempo, seconds,
     live = mag > 0
     err = torch.hypot(ry - pry, iy - piy)[live] / mag[live]
     assert err.max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lock", [True, False])
+def test_pv_phase_kernel_makes_no_stream_sync(cuda_device, lock):
+    """The wrapper uploads the hops and its tables from pinned memory, once
+    per geometry: calls under set_sync_debug_mode("error"), one that
+    uploads and one that finds them, raise on any sync."""
+    re, im, dpos, hop, n_fft = _pv_planes(cuda_device, 48_000, 1.25, 0.9, 2)
+    want = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
+    torch.cuda.synchronize()
+    cuda_pv._device_tables.cache_clear()
+    before = cuda_pv.phase_path_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
+               for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cuda_pv.phase_path_launches == before + 2
+    for ry, iy in got:
+        assert torch.equal(ry, want[0]) and torch.equal(iy, want[1])
 
 
 @pytest.mark.cuda
@@ -558,6 +635,11 @@ def test_pv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         cuda_pv.phase_path_cuda(re, im, dpos[:-1], hop, n_fft)
     with pytest.raises(ValueError, match="do not fit"):
         cuda_pv.phase_path_cuda(re, im, dpos, hop, 2 * n_fft)
+    with pytest.raises(ValueError, match="power of two"):  # B = 513//2 + 1
+        cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft + 1)
+    small = re[..., :129].contiguous()  # n_fft 256: below pv_params' rows
+    with pytest.raises(ValueError, match="rows of 257"):
+        cuda_pv.phase_path_cuda(small, small, dpos, hop // 2, 256)
     with pytest.raises(ValueError, match="one shape"):
         cuda_pv.lock_to_peaks_cuda(re, im, re, im[:, :-1].contiguous())
     assert (cuda_pv.phase_path_launches, cuda_pv.lock_launches) == before
