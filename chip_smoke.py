@@ -115,9 +115,37 @@ Phases, in order; the first failure exits non-zero:
                tools.probes.resample_ab at 48->44.1 and 44.1->48 kHz (kernel,
                plain, F.conv1d, 300 s stereo); the kernel alone at 48->44.1
                kHz in both register tiles beside its bound.
+ 19. stream-pv — config 4 with both tempo nodes on "pv", streamed at 16 s
+               chunks on phase 6's track: driven by hand, every launch of the
+               lock kernel and of the resampler inside every step within 2e-6
+               of its plain version on its operands, and the master through
+               the kernels >= 90 dB against the same steps with the plain lock
+               (the resampler is held launch by launch only: the PV turns on
+               the ulps by which its inputs move); then `run --stream --export`, every
+               step under torch.cuda.set_sync_debug_mode("error"), plain and
+               with pv_transient and preserve_formants: length 11,519,994,
+               finite, one lock launch per PV stage step with frames, no
+               phase-path launch; streamed vs offline on the 10 s excerpt at
+               2 s chunks >= 40 dB on the card (the CPU's figure and the 300 s
+               exports' printed beside it); a witness at 300 s by 30 s of
+               output, printed: offline on the card vs on the CPU, and
+               streamed vs offline on the CPU; whole-export device peaks at 100 s
+               and 300 s within 2 MiB, below the offline PV render's; the lock
+               per launch at both chunk shapes beside its bound and the plain
+               lock, and the export's wall RTF (median of 3) and stage budget;
+ 20. realtime — `run --realtime` on a 10 s 5-node project: wall >= 0.98x the
+               audio; the default (streamed) session's blocks >= 120 dB against
+               Runner.preview() on the card, the whole-clip session's bitwise
+               equal; first-block latency and underruns;
+ 21. chunked — render_chunked on the 300 s 5-node graph: master >= 130 dB
+               against the offline render, the same length, its spectrum's
+               frames the clip's and >= 100 dB against the offline spectrum's;
+               resampler launches per chunk; peak device memory below the
+               offline render's.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
-the resampler's A/B). The line before the last is one JSON object
+the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
+preview, the chunked render). The line before the last is one JSON object
 describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -191,6 +219,11 @@ STREAM_MIX_TOL = 3e-7
 SHORT_SECONDS = 100
 STREAM_SLACK_BYTES = 2 * 2**20
 STREAM_TIMED_RUNS = 3
+# Phase 19: the streamed PV's 10 s excerpt against its offline render at 2 s
+# chunks (so the carries cross chunk boundaries), and the lock's inputs of
+# which launch per chunk shape are timed (a mid-clip step of 19).
+STREAM_EXCERPT_CHUNK_SECONDS = 2
+STREAM_LOCK_TIMED_STEP = 9
 # Phases 16-18: the A/B tool's arguments (python -m
 # nodey_tpu_torch.tools.ab_wsola_fps 30 8), the probes' step count for their
 # checks and times (bench.py's larger K), tests/test_pallas.py's rate pairs.
@@ -1198,6 +1231,454 @@ def pass_ms(fn, iters: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_pv_steps(steps):
+    """Every streaming PV step run inside this block appends (its plan,
+    its frames: the next frame's index minus the one it started from) to
+    ``steps``."""
+    from nodey_tpu_torch.ops import pv
+
+    step = pv.pv_stream_step
+
+    def recording(plan, state, *args):
+        out = step(plan, state, *args)
+        steps.append((plan, out[0].k - state.k))
+        return out
+
+    pv.pv_stream_step = recording
+    try:
+        yield
+    finally:
+        pv.pv_stream_step = step
+
+
+def streamed_master(graph, device: str, chunk_seconds: float):
+    """The export master of ``graph`` through the streaming executor on
+    ``device`` (float32 wire), [C, n] on the host."""
+    import numpy as np
+
+    from nodey_tpu_torch.core.stream_executor import StreamExecutor
+
+    blocks = []
+    StreamExecutor(graph, mode="export", chunk_seconds=chunk_seconds,
+                   device=device).run(sink=lambda b: blocks.append(np.array(b)))
+    return np.concatenate(blocks, axis=1)
+
+
+def snr_by_window(reference, test, seconds: int = 30, rate: int = 48_000):
+    """The SNR of each ``seconds`` of two [C, n] masters (config 4's
+    output is 48 kHz)."""
+    window = seconds * rate
+    return [snr_db(reference[:, i : i + window], test[:, i : i + window])
+            for i in range(0, reference.shape[1], window)]
+
+
+def lock_work_bound(shape):
+    """The lock's bound on [C, K, B] planes: four read and two written once;
+    ~15 operations per element, each transcendental counted as one."""
+    n = math.prod(shape)
+    return bound(4 * 6 * n, 15 * n)
+
+
+def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
+                    excerpt4: str, short_track: str):
+    """Phase 19 (see the module docstring). ``track1``: phase 6's 300 s
+    track [2, n] float32 on the host; ``track_path``: the config-4 track
+    whose offline PV renders phases 10 and 11 exported
+    (``config4_pv*.json`` and ``.wav`` in ``tmp``); ``excerpt4``: its 10 s
+    excerpt; ``short_track``: a 100 s track. Returns (launch counts by path,
+    the lock's figures at both chunk shapes, its worst max|kernel - plain|
+    in the steps)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core import chunkflow
+    from nodey_tpu_torch.core.compiler import SourceSpec
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import decode_file
+    from nodey_tpu_torch.ops import cuda_pv, pv
+    from nodey_tpu_torch.ops import resample as tr
+
+    tag = "19 stream-pv"
+    chunk = STREAM_CHUNK_SECONDS * RATE
+    kernel_lock, kernel_resampler = pv.lock_phases, tr.apply_filter_bank
+    lock_errs, lock_in, seen, resample_errs = [], {}, {}, []
+
+    def checked_lock(cos_phi, sin_phi, ph, mag):
+        """The lock kernel, held against the plain lock on its inputs."""
+        got = kernel_lock(cos_phi, sin_phi, ph, mag)
+        want = pv._lock_to_peaks(cos_phi, sin_phi, ph, mag)
+        lock_errs.append(max((got[0] - want[0]).abs().max().item(),
+                             (got[1] - want[1]).abs().max().item()))
+        check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+              f"{tag}: the lock kernel gave a value that is not finite")
+        K = mag.shape[1]
+        seen[K] = seen.get(K, 0) + 1
+        if seen[K] == STREAM_LOCK_TIMED_STEP:
+            lock_in[K] = tuple(t.clone() for t in (cos_phi, sin_phi, ph, mag))
+        return got
+
+    def checked_resampler(x, G, M, W, bank, support):
+        """The resampler kernel, held against the plain resampler on its
+        operands."""
+        got = kernel_resampler(x, G, M, W, bank, support)
+        want = tr.apply_filter_bank_plain(x, G, M, W, bank)
+        resample_errs.append((list(x.shape), M, bank.shape[0],
+                              (got - want).abs().max().item()))
+        check(bool(torch.isfinite(got).all()),
+              f"{tag}: the resampler kernel gave a value that is not finite")
+        return got
+
+    def drive(lock, resampler=None):
+        """Config 4 on the PV streamed at 16 s chunks on track1, the graph's
+        chunk steps driven by hand with ``lock`` (and ``resampler``) in
+        place of the dispatchers; returns (master on the host, steps, the
+        PV stage steps that had frames)."""
+        graph = config4_graph(track_path, algorithm="pv")
+        compiled = chunkflow.compile_stream_graph(
+            graph, {(0, "output_0"): SourceSpec(
+                rate=RATE, channels=2, fmt="flt", capacity=chunk)},
+            device=CARD)
+        saved = pv.lock_phases, tr.apply_filter_bank
+        pv.lock_phases, tr.apply_filter_bank = lock, resampler or saved[1]
+        parts, pos, steps, pv_steps = [], 0, 0, []
+        try:
+            with recorded_pv_steps(pv_steps):
+                states = compiled.init_states
+                while True:
+                    n = max(0, min(chunk, track1.shape[1] - pos))
+                    block = torch.zeros((2, chunk), device=dev)
+                    block[:, :n] = torch.from_numpy(
+                        track1[:, pos : pos + n]).to(dev)
+                    pos += chunk
+                    states, outs = compiled.step(states, {"n0:output_0": (
+                        block, n, pos >= track1.shape[1])})
+                    steps += 1
+                    data, n_out, finished = outs["master"]
+                    parts.append(data[:, :n_out].clone())
+                    if finished:
+                        break
+        finally:
+            pv.lock_phases, tr.apply_filter_bank = saved
+        check(len(pv_steps) == 2 * steps, f"{tag}: {len(pv_steps)} PV stage "
+              f"steps in {steps} graph steps")
+        with_frames = [(plan.k_cap, frames) for plan, frames in pv_steps
+                       if frames]
+        return torch.cat(parts, dim=1).cpu().numpy(), steps, with_frames
+
+    # Every launch of both kernels inside the steps is held against its
+    # plain version on its own operands. The master bar swaps the lock
+    # only, as phase 10 swaps only the phase path: with the plain resampler
+    # as well, the first PV stage reads inputs that differ by ulps, and the
+    # PV turns on the last bits of its analysis (a wrap decided otherwise
+    # rotates a bin for the rest of the clip), so for the resampler the
+    # per-launch check is the bar.
+    zero_counts()
+    kernels, steps, with_frames = drive(checked_lock, checked_resampler)
+    hand = read_counts()
+    plain_lock, _, _ = drive(pv._lock_to_peaks)
+    check(kernels.shape == plain_lock.shape,
+          f"{tag}: masters {kernels.shape}, {plain_lock.shape}")
+    lock_err = max(lock_errs)
+    resample_err = max(err for *_, err in resample_errs)
+    lock_db = snr_db(plain_lock, kernels)
+    print(f"[{tag}] config 4 on the PV, {SECONDS} s at {STREAM_CHUNK_SECONDS} s "
+          f"chunks, driven by hand: {steps} steps, {len(with_frames)} PV stage "
+          f"steps with frames (k_cap {sorted(set(k for k, _ in with_frames))},"
+          f" frames {min(f for _, f in with_frames)}.."
+          f"{max(f for _, f in with_frames)} a step), {hand['pv_lock']} lock "
+          f"launches at K {sorted(seen)}; every "
+          f"launch against the plain lock on its inputs: max|kernel - plain| "
+          f"{lock_err:.3e} (tol {TOL:.0e}); {hand['polyphase_resample']} "
+          f"resampler launches (x, M, L: "
+          f"{sorted(set((tuple(x), M, L) for x, M, L, _ in resample_errs))}), "
+          f"every one against the plain resampler on its operands: "
+          f"max|kernel - plain| {resample_err:.3e} (tol {TOL:.0e}); master "
+          f"{list(kernels.shape)} through the kernels vs the same steps with "
+          f"the plain lock: SNR {lock_db:.1f} dB (min {PV_EXCERPT_DB:.0f}) "
+          f"({card})")
+    check(hand["pv_lock"] == len(lock_errs) == len(with_frames) > 0,
+          f"{tag}: {hand['pv_lock']} lock launches, {len(with_frames)} stage "
+          "steps with frames")
+    check(hand["polyphase_resample"] == len(resample_errs) >= steps,
+          f"{tag}: {hand['polyphase_resample']} resampler launches, "
+          f"{len(resample_errs)} checked, in {steps} steps")
+    check(hand["pv_phase_path"] == 0,
+          f"{tag}: the phase-path kernel launched in a hand-driven step")
+    check(lock_err <= TOL, f"{tag}: the lock kernel disagrees inside a step")
+    check(resample_err <= TOL,
+          f"{tag}: the resampler kernel disagrees inside a step")
+    check(lock_db >= PV_EXCERPT_DB,
+          f"{tag}: the streamed PV through the lock kernel disagrees with the "
+          f"plain lock")
+    check(bool(np.isfinite(kernels).all()), f"{tag}: master not finite")
+    del kernels, plain_lock
+
+    # `run --stream --export`, every step under the sync debug mode, plain
+    # and with both options; the PV's lock runs once in every stage step
+    # that has frames.
+    offline = {}
+    streamed = {}
+    for name, suffix in (("plain", ""), ("options", "_options")):
+        proj = os.path.join(tmp, f"config4_pv{suffix}.json")
+        out_wav = os.path.join(tmp, f"config4_pv{suffix}_streamed.wav")
+        spans, pv_steps = [], []
+        zero_counts()
+        with checked_steps(spans), recorded_pv_steps(pv_steps):
+            rc, text, metrics = stream_export(cli, proj, out_wav)
+        counts = read_counts()
+        print("\n".join(f"[{tag}] {name} cli: {line}"
+                        for line in text.splitlines()))
+        check(rc == 0 and metrics is not None,
+              f"{tag}: {name}: run --stream exited {rc} or did not stream")
+        got = decode_file(out_wav).data
+        with_frames = sum(frames > 0 for _, frames in pv_steps)
+        print(f"[{tag}] {name}: streamed master {list(got.shape)}, finite "
+              f"{bool(np.isfinite(got).all())}; {metrics.steps} steps under "
+              f"sync debug mode 'error' ({len(spans)} checked), {len(pv_steps)} "
+              f"PV stage steps of which {with_frames} with frames; launches "
+              f"{counts} ({card})")
+        check(got.shape == (2, CONFIG4_LENGTH),
+              f"{tag}: {name}: master {got.shape}, want (2, {CONFIG4_LENGTH})")
+        check(bool(np.isfinite(got).all()), f"{tag}: {name}: master not finite")
+        check(len(spans) == metrics.steps >= 4 and len(pv_steps) == 2 * len(spans),
+              f"{tag}: {name}: {len(spans)} checked steps of {metrics.steps}")
+        check(counts["pv_lock"] == with_frames > 0,
+              f"{tag}: {name}: {counts['pv_lock']} lock launches, "
+              f"{with_frames} stage steps with frames")
+        check(counts["pv_phase_path"] == 0,
+              f"{tag}: {name}: the phase-path kernel launched")
+        offline[name] = decode_file(os.path.join(tmp, f"config4_pv{suffix}.wav")).data
+        streamed[name] = dict(counts=counts, device_ms=sum(
+            a.elapsed_time(b) for a, b in spans), master=got)
+    full_db = {name: snr_db(offline[name], streamed[name]["master"])
+               for name in offline}
+    # Where the 300 s export departs from the offline render: the SNR of
+    # each 30 s of output (a wrap decided otherwise shows as a step).
+    got, want = streamed["plain"]["master"], offline["plain"]
+    by_window = snr_by_window(want, got)
+    for record in streamed.values():
+        del record["master"]
+    del offline, got, want
+
+    # Streamed against offline: the 10 s excerpt on the card and on the CPU
+    # (at 2 s chunks, so the carries cross chunks), and the 300 s exports.
+    excerpt_db = {}
+    for device in (CARD, "cpu"):
+        graph = config4_graph(excerpt4, algorithm="pv")
+        want = Runner(graph, device=device).render("export").master
+        got = streamed_master(config4_graph(excerpt4, algorithm="pv"), device,
+                              STREAM_EXCERPT_CHUNK_SECONDS)
+        check(got.shape == want.shape,
+              f"{tag}: {device}: excerpt streamed {got.shape}, offline "
+              f"{want.shape}")
+        excerpt_db[device] = snr_db(want, got)
+    print(f"[{tag}] streamed vs offline: {EXCERPT_SECONDS} s excerpt at "
+          f"{STREAM_EXCERPT_CHUNK_SECONDS} s chunks on the card SNR "
+          f"{excerpt_db[CARD]:.1f} dB (min {PV_DEVICE_DB:.0f}), on the CPU "
+          f"{excerpt_db['cpu']:.1f} dB; {SECONDS} s exports at "
+          f"{STREAM_CHUNK_SECONDS} s chunks on the card: {full_db['plain']:.1f} "
+          f"dB, with both options {full_db['options']:.1f} dB; the plain "
+          f"export by 30 s of output: "
+          f"{', '.join(f'{db:.1f}' for db in by_window)} dB ({card})")
+    check(excerpt_db[CARD] >= PV_DEVICE_DB,
+          f"{tag}: the streamed PV excerpt disagrees with the offline render")
+
+    # A witness at length for the 300 s figure's fall: the same clip where
+    # only ulps differ and no chunk carry runs (offline on the card against
+    # offline on the CPU), and where the same plain math runs chunked and
+    # whole (streamed against offline on the CPU), by 30 s of output.
+    cpu_offline = Runner(config4_graph(track_path, algorithm="pv"),
+                         device="cpu").render("export").master
+    card_offline = Runner(config4_graph(track_path, algorithm="pv"),
+                          device=CARD).render("export").master
+    cpu_streamed = streamed_master(config4_graph(track_path, algorithm="pv"),
+                                   "cpu", STREAM_CHUNK_SECONDS)
+    check(cpu_offline.shape == card_offline.shape == cpu_streamed.shape,
+          f"{tag}: {SECONDS} s masters {cpu_offline.shape}, "
+          f"{card_offline.shape}, {cpu_streamed.shape}")
+    witness = {
+        "card offline vs CPU offline": (cpu_offline, card_offline),
+        "CPU streamed vs CPU offline": (cpu_offline, cpu_streamed),
+    }
+    for name, (want, got) in witness.items():
+        print(f"[{tag}] witness, {SECONDS} s, {name}: SNR "
+              f"{snr_db(want, got):.1f} dB; by 30 s of output: "
+              f"{', '.join(f'{db:.1f}' for db in snr_by_window(want, got))} "
+              f"dB ({card})")
+    del cpu_offline, card_offline, cpu_streamed, witness
+
+    # Device memory over a whole export at 100 s and at 300 s (after the
+    # exports above, so the one-time bases are in place), and the offline
+    # render's.
+    proj = os.path.join(tmp, "config4_pv.json")
+    short_proj = project_with_tracks(
+        proj, [short_track], os.path.join(tmp, f"config4_pv_{SHORT_SECONDS}s.json"))
+    out_wav = os.path.join(tmp, "config4_pv_memory.wav")
+    peaks = {}
+    for seconds, project in ((SHORT_SECONDS, short_proj), (SECONDS, proj)):
+        result = []
+        peaks[seconds] = device_peak(lambda: result.append(
+            stream_export(cli, project, out_wav)))
+        check(result[0][0] == 0 and result[0][2] is not None,
+              f"{tag}: the {seconds} s streamed export failed")
+    offline_peak = device_peak(lambda: Runner(
+        cli._load_graph(proj), device=CARD).render("export"))
+    print(f"[{tag}] peak device memory of a whole streamed export "
+          f"{peaks[SHORT_SECONDS] / 2**20:.1f} MiB at {SHORT_SECONDS} s, "
+          f"{peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
+          f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB); offline PV render "
+          f"{offline_peak / 2**20:.1f} MiB ({card})")
+    check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
+          f"{tag}: streamed device memory grows with clip length")
+    check(peaks[SECONDS] < offline_peak,
+          f"{tag}: streaming took more memory than the offline render")
+
+    # Times: the lock per launch at both chunk shapes (a mid-clip step's
+    # inputs), and the export's wall RTF.
+    lock_times = {}
+    for K, planes in sorted(lock_in.items(), reverse=True):
+        fns = {"kernel": lambda: cuda_pv.lock_to_peaks_cuda(*planes),
+               "plain": lambda: pv._lock_to_peaks(*planes)}
+        runs = {name: [] for name in fns}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            runs[name] += cuda_ms(fns[name], 5, warmup=1)
+        lock_times[K] = {name: summary(runs[name])[0] for name in fns}
+        lock_times[K]["bound"] = lock_work_bound(planes[3].shape)
+        lock_times[K]["shape"] = list(planes[3].shape)
+        for name in fns:
+            med, lo, hi, count = summary(runs[name])
+            print(f"[{tag}] times: lock at {list(planes[3].shape)}, {name}: "
+                  f"median {med:.4f} ms per launch (min {lo:.4f}, max {hi:.4f}, "
+                  f"n={count}) ({card})")
+        ms, by = lock_times[K]["bound"]
+        print(f"[{tag}] times: lock bound at {list(planes[3].shape)}: {ms:.4f} "
+              f"ms by {by}; kernel at {ms / lock_times[K]['kernel']:.2%} of it "
+              f"({card})")
+    runs = []
+    for _ in range(STREAM_TIMED_RUNS):
+        rc, _text, m = stream_export(cli, proj, out_wav)
+        check(rc == 0 and m is not None, f"{tag}: a timed streamed export failed")
+        runs.append(m)
+    runs.sort(key=lambda r: r.rtf)
+    m = runs[len(runs) // 2]
+    print(f"[{tag}] times: config 4 on the PV streamed ({SECONDS} s, "
+          f"{STREAM_CHUNK_SECONDS} s chunks, WAV sink, nothing instrumented): "
+          f"wall RTF median {m.rtf:.1f} (min {runs[0].rtf:.1f}, max "
+          f"{runs[-1].rtf:.1f}, n={len(runs)}); the median export: "
+          f"{m.audio_seconds:.3f} audio-s in {m.wall_seconds:.4f} s wall, "
+          f"{m.steps} steps, plan {m.compile_seconds:.4f} s, decode wait "
+          f"{m.decode_wait_seconds:.4f} s, egress wait "
+          f"{m.egress_wait_seconds:.4f} s, d2h busy {m.d2h_busy_seconds:.4f} "
+          f"s, sink busy {m.sink_busy_seconds:.4f} s; the steps' device span "
+          f"(CUDA events around each step of the checked export) "
+          f"{streamed['plain']['device_ms']:.4f} ms, with both options "
+          f"{streamed['options']['device_ms']:.4f} ms ({card})")
+    paths = {"config4_pv_streamed": streamed["plain"]["counts"],
+             "config4_pv_options_streamed": streamed["options"]["counts"]}
+    return paths, lock_times, lock_err
+
+
+def realtime_and_chunked_phases(cli, card: str, tmp: str, proj_5node: str,
+                                excerpt_tracks):
+    """Phases 20 and 21 (see the module docstring). ``proj_5node``: phase
+    4's 300 s project; ``excerpt_tracks``: its 10 s tracks. Returns the
+    launch counts of both paths, by path."""
+    import numpy as np
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.core.streaming import StreamingSession, render_chunked
+    from nodey_tpu_torch.host import playback
+    from nodey_tpu_torch.host.decode import decode_file
+
+    # -- 20. realtime ------------------------------------------------------------
+    tag = "20 realtime"
+    proj = project_with_tracks(proj_5node, excerpt_tracks,
+                               os.path.join(tmp, "two_track_mix_10s.json"))
+    out_wav = os.path.join(tmp, "realtime.wav")
+    stdout = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["run", proj, "--realtime", "--preview", out_wav,
+                       "--device", CARD])
+    counts_rt = read_counts()
+    text = stdout.getvalue()
+    print("\n".join(f"[{tag}] cli: {line}" for line in text.splitlines()))
+    check(rc == 0, f"{tag}: run --realtime exited {rc}")
+    words = text.split()
+    audio_s, wall = float(words[1]), float(words[4])
+    sdl = playback.device_available()
+    print(f"[{tag}] {audio_s:.2f} audio-s in {wall:.2f} s wall "
+          f"({wall / audio_s:.4f}x the audio, min 0.98); SDL device "
+          f"{'present' if sdl else 'absent: paced by the wall clock'}; "
+          f"launches {counts_rt} ({card})")
+    check(wall >= 0.98 * audio_s, f"{tag}: the realtime preview ran ahead")
+    check(counts_rt["polyphase_resample"] >= 1,
+          f"{tag}: the resampler did not run")
+    reference = Runner(cli._load_graph(proj), device=CARD).preview().master
+    check(decode_file(out_wav).data.shape == reference.shape,
+          f"{tag}: the preview WAV's shape")
+    got = {}
+    for streamed in (True, False):
+        session = StreamingSession(cli._load_graph(proj), device=CARD).start(
+            streamed=streamed)
+        blocks = list(session.blocks())
+        session.stop()
+        got[streamed] = (np.concatenate(blocks, axis=1), session.stats)
+    streamed_db = snr_db(reference, got[True][0])
+    whole_same = np.array_equal(reference, got[False][0])
+    print(f"[{tag}] sessions vs Runner.preview() {list(reference.shape)}: "
+          f"streamed {list(got[True][0].shape)} SNR {streamed_db:.1f} dB (min "
+          f"120), first block after {got[True][1].first_block_seconds:.4f} s, "
+          f"{got[True][1].underruns} underruns; whole-clip "
+          f"{'bitwise equal' if whole_same else 'DIFFERS'}, first block after "
+          f"{got[False][1].first_block_seconds:.4f} s ({card})")
+    check(got[True][0].shape == reference.shape and streamed_db >= 120.0,
+          f"{tag}: the streamed session disagrees with the preview render")
+    check(whole_same, f"{tag}: the whole-clip session is not the preview")
+    del reference, got
+
+    # -- 21. chunked ------------------------------------------------------------
+    tag = "21 chunked"
+    graph = cli._load_graph(proj_5node)
+    whole = Runner(graph, device=CARD).render("export")
+    progress = []
+    result = []
+    zero_counts()
+    chunked_peak = device_peak(lambda: result.append(render_chunked(
+        graph, progress=progress.append, device=CARD)))
+    counts_chunked = read_counts()
+    master, rate, _fmt, spectra = result[0]
+    offline_peak = device_peak(lambda: Runner(graph, device=CARD).render(
+        "export"))
+    db = snr_db(whole.master, master)
+    [key] = whole.spectra
+    frames = (master.shape[1] - 1024) // 512 + 1
+    spec = spectra.get(key)
+    spec_db = (snr_db(whole.spectra[key][:, :frames], spec)
+               if spec is not None and spec.shape[1] == frames else -math.inf)
+    print(f"[{tag}] render_chunked, {SECONDS} s 5-node graph, {len(progress)} "
+          f"chunks of 30 s: master {list(master.shape)} at {rate} Hz vs the offline "
+          f"render {list(whole.master.shape)}: SNR {db:.1f} dB (min 130); "
+          f"spectrum {list(spec.shape) if spec is not None else None}, "
+          f"{frames} frames in the clip, SNR {spec_db:.1f} dB against the "
+          f"offline spectrum's first {frames} frames of "
+          f"{whole.spectra[key].shape[1]}; resampler launches "
+          f"{counts_chunked['polyphase_resample']} "
+          f"({counts_chunked['polyphase_resample'] / len(progress):g} per "
+          f"chunk); peak device memory {chunked_peak / 2**20:.1f} MiB, "
+          f"offline render {offline_peak / 2**20:.1f} MiB ({card})")
+    check(master.shape == whole.master.shape and db >= 130.0,
+          f"{tag}: the chunked master disagrees with the offline render")
+    check(spec is not None and spec.shape[1] == frames and spec_db >= SNR_DB,
+          f"{tag}: the chunked spectrum disagrees with the offline render")
+    check(counts_chunked["polyphase_resample"] >= 2 * len(progress),
+          f"{tag}: resampler launched {counts_chunked['polyphase_resample']}")
+    check(chunked_peak < offline_peak,
+          f"{tag}: chunked rendering took more memory than the offline one")
+    return {"realtime": counts_rt, "5node_chunked": counts_chunked}
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1711,13 +2192,12 @@ def main() -> int:
                 runs[name] += cuda_ms(fns[name], 3, warmup=1)
             n = re.numel()
             # Least work: the phase path reads re, im and writes two planes;
-            # the lock reads four and writes two. Operations per element,
-            # each transcendental counted as one: ~33 for the phase path
-            # (magnitude, phase, wrap, advance, rotation, lock, products),
-            # ~15 for the lock.
+            # ~33 operations per element, each transcendental counted as
+            # one (magnitude, phase, wrap, advance, rotation, lock,
+            # products). The lock: lock_work_bound.
             pv_times[tag] = {name: summary(runs[name])[0] for name in fns}
             pv_times[tag]["phase bound"] = bound(4 * 4 * n, 33 * n)
-            pv_times[tag]["lock bound"] = bound(4 * 6 * n, 15 * n)
+            pv_times[tag]["lock bound"] = lock_work_bound(re.shape)
             for name in fns:
                 med, lo, hi, count = summary(runs[name])
                 print(f"[12 times] PV {tag} stage, planes {list(re.shape)}, "
@@ -1823,7 +2303,6 @@ def main() -> int:
                   f"kernel's first {streamed_bs.numel()} of K={geo['K']} "
                   f"({card})")
             check(same, f"{tag}: streamed splices differ from offline")
-        del track1
 
         # -- 14. streamed export -----------------------------------------------
         # Both graphs at 300 s through `run --stream`, every step under the
@@ -1956,14 +2435,23 @@ def main() -> int:
                   f"ms ({card})")
         del calls
 
-    # -- 16-18. wsola-table, probes, resample-data --------------------------
-    stages = [("pitch", x1, head1, geo1, bs1, body1),
-              ("velocity", x2, head2, geo2, bs2, body2)]
-    del x1, x2, head1, head2, body1, body2
-    chain_us = wsola_times["pitch"]["kernel"] * 1e3 / geo1["K"]
-    tool_paths, tool_entries = table_and_probe_phases(card, dev, stages,
-                                                      chain_us)
-    del stages
+        # -- 16-18. wsola-table, probes, resample-data ----------------------
+        stages = [("pitch", x1, head1, geo1, bs1, body1),
+                  ("velocity", x2, head2, geo2, bs2, body2)]
+        del x1, x2, head1, head2, body1, body2
+        chain_us = wsola_times["pitch"]["kernel"] * 1e3 / geo1["K"]
+        tool_paths, tool_entries = table_and_probe_phases(card, dev, stages,
+                                                          chain_us)
+        del stages
+
+        # -- 19. stream-pv --------------------------------------------------
+        pv_stream_paths, lock_chunk, stream_lock_err = stream_pv_phase(
+            cli, card, dev, tmp, track1, track_path, excerpt4, short_paths[0])
+        del track1
+
+        # -- 20-21. realtime, chunked --------------------------------------
+        session_paths = realtime_and_chunked_phases(cli, card, tmp, proj_5node,
+                                                    excerpt)
 
     def by_path(name):
         return {path: counts[name] for path, counts in (
@@ -1971,6 +2459,7 @@ def main() -> int:
             ("config4_pv", counts_pv), ("config4_pv_options", counts_opt),
             ("5node_streamed", streamed["5node"]["counts"]),
             ("config4_streamed", streamed["config4"]["counts"]),
+            *pv_stream_paths.items(), *session_paths.items(),
             *tool_paths.items())}
 
     def with_launches(entry):
@@ -2069,18 +2558,32 @@ def main() -> int:
             "passes_ms": pv_pitch["passes"],
         },
         {
+            # The main path is the streamed PV: its launches, and its times at
+            # the pitch stage's chunk shape; the velocity stage's chunk shape
+            # and the offline render's shape beside them.
             "name": "pv_lock",
             "route": "cuda",
             "source": "nodey_tpu_torch/csrc/pv_lock.cu",
             "replaces": "nodey_tpu/ops/pallas_lock.py:126",
-            "launches": counts_opt["pv_lock"],
+            "launches": pv_stream_paths["config4_pv_streamed"]["pv_lock"],
             "launches_by_path": by_path("pv_lock"),
-            "max_abs_err": pv_worst["lock"],
-            "ms": pv_pitch["lock kernel"],
-            "plain_ms": pv_pitch["lock plain"],
-            "bound_ms": pv_pitch["lock bound"][0],
-            "bound_by": pv_pitch["lock bound"][1],
+            "max_abs_err": max(pv_worst["lock"], stream_lock_err),
+            "shape": lock_chunk[max(lock_chunk)]["shape"],
+            "ms": lock_chunk[max(lock_chunk)]["kernel"],
+            "plain_ms": lock_chunk[max(lock_chunk)]["plain"],
+            "bound_ms": lock_chunk[max(lock_chunk)]["bound"][0],
+            "bound_by": lock_chunk[max(lock_chunk)]["bound"][1],
             "library_ms": None,
+            "velocity_chunk": {
+                "shape": lock_chunk[min(lock_chunk)]["shape"],
+                "ms": lock_chunk[min(lock_chunk)]["kernel"],
+                "plain_ms": lock_chunk[min(lock_chunk)]["plain"],
+                "bound_ms": lock_chunk[min(lock_chunk)]["bound"][0]},
+            "offline": {
+                "shape": [2, CONFIG4_PV_FRAMES[0], 1025],
+                "ms": pv_pitch["lock kernel"],
+                "plain_ms": pv_pitch["lock plain"],
+                "bound_ms": pv_pitch["lock bound"][0]},
         },
         *map(with_launches, tool_entries),
     ]}))

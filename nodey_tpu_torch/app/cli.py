@@ -4,11 +4,16 @@ Usage:
     python -m nodey_tpu_torch validate project.json
     python -m nodey_tpu_torch run project.json --export out.wav|out.mp3 \
         [--stream] [--preview preview.wav] [--kbps 320] [--device cuda|cpu]
+    python -m nodey_tpu_torch run project.json --realtime \
+        [--preview preview.wav] [--device cuda|cpu]
 
 ``run`` without ``--export`` renders the preview to ``preview.wav``.
 ``--stream`` exports chunk by chunk through the streaming executor, with
-bounded memory. The default device is ``cuda``; with no card it fails
-rather than run on the CPU (pass ``--device cpu`` for that).
+bounded memory. ``--realtime`` (without ``--export``) streams the preview
+chunk by chunk at 1.0x: through the SDL audio device where there is one,
+else paced by the wall clock, and writes the blocks to the preview WAV.
+The default device is ``cuda``; with no card it fails rather than run on
+the CPU (pass ``--device cpu`` for that).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 from nodey_tpu_torch import __version__
 from nodey_tpu_torch.core.errors import NodeyError, ProcessorRuntimeError
@@ -69,8 +75,59 @@ def _report_streamed(path: str, runner: Runner, metrics) -> None:
         )
 
 
+def _run_realtime(args, graph: Graph) -> int:
+    """The streaming preview paced at 1.0x: the blocks go to the SDL audio
+    device where one opens (its queue paces them), else the pacer does;
+    either way they are written to the preview WAV."""
+    import numpy as np
+
+    from nodey_tpu_torch import config as cfg
+    from nodey_tpu_torch.core.streaming import StreamingSession
+    from nodey_tpu_torch.host import playback
+
+    device = None
+    if playback.device_available():
+        try:
+            device = playback.SdlPlaybackSink()
+            print("playing through SDL audio device", file=sys.stderr)
+        except NodeyError:
+            device = None
+
+    session = StreamingSession(graph, device=args.device).start()
+    received = []
+    t0 = time.perf_counter()
+    try:
+        for block in session.blocks(realtime=device is None):
+            if device is not None:
+                device.write(block)
+            received.append(block)
+            if len(received) % 32 == 0:
+                print(f"  queue fill {session.queue.stats.fill_ratio:5.0%} "
+                      f"underruns {session.queue.stats.consumer_waits}",
+                      file=sys.stderr)
+    finally:
+        session.stop()
+        if device is not None:
+            device.drain()
+            device.close()
+    wall = time.perf_counter() - t0
+    out = args.preview or "preview.wav"
+    host_decode.write_wav(out, np.concatenate(received, axis=1),
+                          cfg.SAMPLE_RATE)
+    stats = session.stats
+    print(
+        f"streamed {session.duration_seconds:.2f} audio-s in {wall:.2f} s "
+        f"wall (compute RTF {stats.rtf_compute:.1f}x, {stats.blocks} "
+        f"blocks, {stats.underruns} underruns, first block after "
+        f"{stats.first_block_seconds:.3f} s) -> {out}"
+    )
+    return 0
+
+
 def cmd_run(args) -> int:
     graph = _load_graph(args.project)
+    if args.realtime and not args.export:
+        return _run_realtime(args, graph)
     runner = Runner(graph, device=args.device)
     if args.export and args.stream:
         _report_streamed(args.export, runner, runner.export_streamed(
@@ -107,6 +164,8 @@ def main(argv=None) -> int:
     p_run.add_argument("--stream", action="store_true",
                        help="pipelined streaming export (bounded memory)")
     p_run.add_argument("--preview", help="preview WAV output path")
+    p_run.add_argument("--realtime", action="store_true",
+                       help="stream the preview at 1x wall-clock")
     p_run.add_argument("--kbps", type=int, default=320,
                        help="MP3 bitrate (default 320)")
     p_run.add_argument("--device", default="cuda",

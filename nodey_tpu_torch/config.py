@@ -1,8 +1,8 @@
 """Static configuration constants the port reads.
 
 The values of ``nodey_tpu.config`` (reference: include/config.hpp:13-77)
-that the ported nodes, the runner and the encoders use; a test pins them
-equal to the JAX package's. The TPU-only knobs (``block_size``,
+that the ported nodes, the runner, the encoders and the preview playback
+use; a test pins them equal to the JAX package's. The TPU-only knobs (``block_size``,
 ``precision``, ``interpret``, platform selection, the XLA compile cache)
 have no counterpart here.
 """
@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 SAMPLE_RATE = 48_000          # canonical output sample rate
+BUFFER_SIZE = 2_048           # playback packet size (samples per packet)
+MAX_BUFFER_ITEMS = 3          # max queued playback packets (~128 ms ceiling)
 
 AUDIO_INPUT_NODE_NAME = "audio_input"
 

@@ -1,5 +1,5 @@
-"""Bounded staging queues with occupancy metrics (port of
-nodey_tpu.host.streamio, without the realtime pacer).
+"""Bounded staging queues with occupancy metrics, and the realtime pacer
+(port of nodey_tpu.host.streamio).
 
 The host-side form of the reference's per-edge channel semantics
 (reference: include/processor/audio-stream.hpp:46-83): bounded capacity 16,
@@ -7,7 +7,8 @@ blocking waits with backpressure, an EOF flag, and
 the buffered-frames gauge the diagnostics overlay renders as a fill-ratio
 bar (reference: src/frontend/app.cpp:1574-1595). The streaming executor's
 stages hand blocks to each other through these queues: decode -> pump,
-pump -> egress, egress -> sink.
+pump -> egress, egress -> sink; the preview session's producer hands its
+blocks to the consumer through one, which ``RealtimePacer`` paces at 1.0x.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 from typing import Any, Optional
 
 from nodey_tpu_torch import config
@@ -96,3 +98,24 @@ class BoundedBlockQueue:
     def eof(self) -> bool:
         with self._lock:
             return self._eof and not self._deque
+
+
+class RealtimePacer:
+    """Paces a consumer at 1.0x wall-clock against the audio timeline, the
+    role SDL's queued-audio backpressure plays in the reference preview
+    (src/processor/audio-io.cpp:620-624): ``wait(n)`` returns once the
+    blocks before this one have had their time; ``wait(0)`` after the last
+    block waits out its time too, as a device drains its queue."""
+
+    def __init__(self, rate: int = config.SAMPLE_RATE):
+        self.rate = rate
+        self._start: Optional[float] = None
+        self._samples = 0
+
+    def wait(self, block_samples: int) -> None:
+        if self._start is None:
+            self._start = time.perf_counter()
+        target = self._samples / self.rate
+        while time.perf_counter() - self._start < target:
+            time.sleep(0.001)
+        self._samples += block_samples

@@ -24,14 +24,22 @@ lock kernel on the card, ``_lock_to_peaks`` on the CPU. This routes by
 option, as the JAX package does; nothing falls back.
 
 Bases are float64 host designs cast to float32 (the JAX package's host
-branch). Lengths are host ints. Not ported here: the streaming step
-(``pv_stream_*``) and the sp-sharded path.
+branch). Lengths are host ints.
+
+The streaming step (``pv_stream_plan``, ``pv_stream_init``,
+``pv_stream_step``) runs the same passes on each chunk's ready frames with
+the plain phase math in torch, locks through ``lock_phases`` (the lock
+kernel on the card, in every step with frames; no phase-path launch: the
+JAX step does its recursion in XLA too) and carries the phasor, the last
+frame's phase and magnitudes and the overlap-add tail on the device. Not
+ported here: the sp-sharded path.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -150,31 +158,47 @@ def _magnitude_phase(re: torch.Tensor, im: torch.Tensor):
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
 
+def _omega_hop(hop: int, n_fft: int) -> np.ndarray:
+    """[bins] float32: the deterministic advance ``(b*hop) mod n_fft`` in
+    radians, exact on the host and rounded once."""
+    return (np.mod(np.arange(n_fft // 2 + 1) * hop, n_fft).astype(np.float64)
+            * (_TWO_PI / n_fft)).astype(np.float32)
+
+
 def _advance(ph: torch.Tensor, dpos: np.ndarray, hop: int, n_fft: int):
-    """[C, K-1, bins] phase advance of frames 1..K-1, kept O(1) for
-    float32: the deterministic term ``(b*hop) mod n_fft`` is exact on the
-    host, and the measured deviation (the wrapped phase delta over the
-    frame's actual hop ``dpos``, scaled by hop/dpos) stays within ~pi.
+    """[C, K-1, bins] phase advance of frames 1..K-1 (``_advance_on`` with
+    the geometry's tables uploaded)."""
+    device = ph.device
+    dpos_i = torch.from_numpy(dpos[1:].astype(np.int32)).to(device)
+    hop_over_dpos = torch.from_numpy(
+        (float(hop) / dpos[1:, None]).astype(np.float32)).to(device)
+    omega_hop = torch.from_numpy(_omega_hop(hop, n_fft)).to(device)
+    return _advance_on(ph[:, 1:] - ph[:, :-1], dpos_i, hop_over_dpos,
+                       omega_hop, n_fft)
+
+
+def _advance_on(dph: torch.Tensor, dpos_i: torch.Tensor,
+                hop_over_dpos: torch.Tensor, omega_hop: torch.Tensor,
+                n_fft: int):
+    """Phase advance of frames whose analysis phase moved by ``dph`` [C, K,
+    bins] over their actual integer hops ``dpos_i`` [K] (int32), kept O(1)
+    for float32: the deterministic term ``omega_hop`` [bins] is exact on
+    the host, and the measured deviation (the wrapped phase delta over
+    ``dpos``, scaled by ``hop_over_dpos`` [K, 1] = float32(hop/dpos)) stays
+    within ~pi. Makes no copy between host and device.
 
     A steady tone repeats the same advance every frame, so a rounding
     bias here grows linearly along the prefix; the multiply-adds are
     therefore fused (``_fma``), as the compiled JAX path fuses them."""
-    device = ph.device
-    bins = ph.shape[-1]
-    b_i = torch.arange(bins, dtype=torch.int32, device=device)
-    dpos_i = torch.from_numpy(dpos[1:].astype(np.int32)).to(device)
+    device = dph.device
+    b_i = torch.arange(dph.shape[-1], dtype=torch.int32, device=device)
     omega_dpos = ((b_i[None, :] * dpos_i[:, None]) % n_fft).float()
-    dphi = _fma(omega_dpos, -float(np.float32(_TWO_PI / n_fft)),
-                ph[:, 1:] - ph[:, :-1])
+    dphi = _fma(omega_dpos, -float(np.float32(_TWO_PI / n_fft)), dph)
     # A device tensor, so the quotient is an IEEE division on every device
     # (a CUDA tensor divided by a Python scalar is multiplied by its
     # reciprocal).
-    two_pi = torch.tensor(_TWO_PI_F32, device=device)
+    two_pi = torch.full((), _TWO_PI_F32, device=device)
     wrapped = _fma(torch.round(dphi / two_pi), -_TWO_PI_F32, dphi)
-    hop_over_dpos = torch.from_numpy(
-        (float(hop) / dpos[1:, None]).astype(np.float32)).to(device)
-    omega_hop = torch.from_numpy((np.mod(np.arange(bins) * hop, n_fft).astype(
-        np.float64) * (_TWO_PI / n_fft)).astype(np.float32)).to(device)
     return _fma(wrapped, hop_over_dpos, omega_hop)
 
 
@@ -379,21 +403,30 @@ def _cepstral_matrices(n_fft: int):
     return analysis.astype(np.float32), synthesis.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _formant_tables(n_fft: int, ratio: float, device: torch.device):
+    """(analysis [Q, B], synthesis [B, Q], lo [B], hi [B], frac [B]) on
+    ``device``: the lifter's matrices and the envelope warp's linear
+    interpolation at ``w*ratio`` (frequencies past Nyquist/ratio clamp to
+    the top bin). Cached, so a streaming plan puts them on the device once
+    and no chunk step copies from the host."""
+    B = n_fft // 2 + 1
+    pos = np.minimum(np.arange(B, dtype=np.float64) * ratio, B - 1)
+    lo = pos.astype(np.int64)
+    hi = np.minimum(lo + 1, B - 1)
+    frac = (pos - lo).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        *_cepstral_matrices(n_fft), lo, hi, frac))
+
+
 def _formant_correction(mag: torch.Tensor, n_fft: int, ratio: float):
     """Pre-warp magnitudes so a downstream resample by ``ratio`` keeps the
     spectral envelope: mag * exp(E(w*ratio) - E(w)), E the liftered log
-    envelope; frequencies past Nyquist/ratio clamp to the top bin."""
-    B = mag.shape[-1]
-    ana, syn = (torch.from_numpy(a).to(mag.device)
-                for a in _cepstral_matrices(n_fft))
+    envelope."""
+    ana, syn, lo, hi, frac = _formant_tables(n_fft, float(ratio), mag.device)
     log_mag = torch.log(mag + float(np.float32(1e-8)))
     env = torch.matmul(torch.matmul(log_mag, ana.T), syn.T)
-    pos = np.minimum(np.arange(B, dtype=np.float64) * float(ratio), B - 1)
-    lo = pos.astype(np.int64)
-    hi = np.minimum(lo + 1, B - 1)
-    frac = torch.from_numpy((pos - lo).astype(np.float32)).to(mag.device)
-    env_w = (env[..., torch.from_numpy(lo).to(mag.device)] * (1.0 - frac)
-             + env[..., torch.from_numpy(hi).to(mag.device)] * frac)
+    env_w = env[..., lo] * (1.0 - frac) + env[..., hi] * frac
     return mag * torch.exp(env_w - env)
 
 
@@ -487,3 +520,249 @@ def pv_stretch_at_rate(data: torch.Tensor, length: int, tempo: float,
     out_length = min(_scale_length_exact(length, float(tempo)), out.shape[1])
     out[:, out_length:] = 0.0  # a fresh tensor: zero in place
     return out, out_length
+
+
+# -- streaming (chunked) phase vocoder -------------------------------------------
+#
+# A chunk is a batch of frames: the passes above run on the frames that the
+# input so far makes ready, and the only cross-chunk state is the input FIFO,
+# the previous frame's analysis phase and raw magnitudes, the accumulated
+# synthesis phasor (the prefix product factorizes across chunk boundaries)
+# and the 3*hop overlap-add tail. The geometry is the offline 16.16 law, so
+# the streamed output equals the offline render up to float32 association
+# of the phasor products (offline one prefix over the clip, here one per
+# chunk and the carry), on which the PV's last bits turn (the JAX package's
+# streamed == offline bars).
+
+
+class PvStreamPlan(NamedTuple):
+    """Static geometry of one streaming PV stage (the JAX package's plan,
+    field for field)."""
+
+    n_fft: int
+    hop: int           # synthesis hop (n_fft // 4)
+    num: int           # analysis-hop numerator, den 65536 (pv_hop_num)
+    num_t: int         # round(tempo * 65536), the output-length law
+    push_cap: int
+    k_cap: int         # frames processed per step
+    window: int        # input window needed by k_cap frames
+    cap: int           # FIFO capacity
+    out_cap: int       # k_cap * hop
+    lock: bool
+    transient: bool = False
+    formant_ratio: float = 1.0
+
+
+def pv_stream_plan(tempo: float, rate: int, push_cap: int, lock: bool = True,
+                   transient: bool = False,
+                   formant_ratio: float = 1.0) -> PvStreamPlan:
+    n_fft, hop = pv_params(rate)
+    num = pv_hop_num(hop, tempo)
+    k_cap = max(1, -(-push_cap * 65536 // num) + 2)
+    window = (k_cap - 1) * num // 65536 + n_fft + 2
+    return PvStreamPlan(
+        n_fft=n_fft, hop=hop, num=num, num_t=int(round(tempo * 65536)),
+        push_cap=push_cap, k_cap=k_cap, window=window,
+        cap=window + push_cap + num // 65536 + 2, out_cap=k_cap * hop,
+        lock=lock, transient=transient, formant_ratio=float(formant_ratio),
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _stream_tables(n_fft: int, device: torch.device):
+    """(omega_hop [bins], P1 [4, hop]) float32 on ``device``. P1[r] is the
+    window-squared coverage of overlap-add row r < 3 and of every later
+    row (the offline denominator's first rows: the trimmed output never
+    reaches the end ramp)."""
+    hop = n_fft // 4
+    P1 = _ola_denominator(4, n_fft).reshape(7, hop)[:4].copy()
+    return (torch.from_numpy(_omega_hop(hop, n_fft)).to(device),
+            torch.from_numpy(P1).to(device))
+
+
+class PvStreamState(NamedTuple):
+    """The carry of one streaming PV stage: on the device the FIFO, the
+    synthesis phasor (cc, cs) [C, bins] and the analysis phase and raw
+    magnitudes [C, bins] of the last frame synthesized, and the overlap-add
+    tail [C, 3*hop]; on the host the counts (next frame ``k``, input
+    samples ``consumed`` from the FIFO's front and ``in_len`` pushed)."""
+
+    fifo: Any
+    cc: torch.Tensor
+    cs: torch.Tensor
+    ph_prev: torch.Tensor
+    mag_prev: torch.Tensor
+    tail: torch.Tensor
+    k: int
+    consumed: int
+    in_len: int
+
+
+def pv_stream_init(plan: PvStreamPlan, channels: int, device) -> PvStreamState:
+    """An empty stage on ``device``, the phasor at identity. Puts the DFT
+    bases and the step's constant tables on the device, so no step copies
+    from the host."""
+    from nodey_tpu_torch.ops.chunkops import fifo_init
+
+    fifo = fifo_init(channels, plan.cap, device)
+    # The tensors' own device ("cuda" becomes "cuda:0"): the step looks the
+    # tables up by it.
+    device = fifo.buf.device
+    _bases(plan.n_fft, device)
+    _stream_tables(plan.n_fft, device)
+    if plan.formant_ratio != 1.0:
+        _formant_tables(plan.n_fft, plan.formant_ratio, device)
+    bins = plan.n_fft // 2 + 1
+
+    def zeros(width):
+        return torch.zeros((channels, width), dtype=torch.float32,
+                           device=device)
+
+    return PvStreamState(
+        fifo=fifo,
+        cc=torch.ones((channels, bins), dtype=torch.float32, device=device),
+        cs=zeros(bins), ph_prev=zeros(bins), mag_prev=zeros(bins),
+        tail=zeros(3 * plan.hop), k=0, consumed=0, in_len=0,
+    )
+
+
+def _frame_tables(rel: np.ndarray, dpos: np.ndarray, hop: int,
+                  device: torch.device):
+    """(rel [K] int64, dpos [K] int32, hop/dpos [K, 1] float32) of a step's
+    frames on ``device``, in one copy: from pinned memory without waiting
+    on a card, from the array itself on the CPU."""
+    K = len(rel)
+    host = torch.empty((3, K), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    table = host.numpy()
+    table[0] = rel
+    table[1] = dpos
+    table[2] = (float(hop) / dpos).astype(np.float32).view(np.int32)
+    dev = host.to(device, non_blocking=True)
+    return dev[0].long(), dev[1], dev[2].view(torch.float32)[:, None]
+
+
+def pv_stream_step(plan: PvStreamPlan, state: PvStreamState,
+                   data: torch.Tensor, n: int, done: bool):
+    """Push ``data[:, :n]``, analyze and synthesize every frame that is
+    ready, emit the final overlap-add rows.
+
+    Frame k reads [pos(k), pos(k) + n_fft); output row k (hop samples at
+    k*hop) is final once frame k is synthesized. A frame runs once its
+    window is buffered and its row lies inside the output-length bound of
+    the input so far (so a live emission is never taken back); once
+    ``done`` the FIFO's zero tail stands in for the offline right pad and
+    the last chunk is clamped to the exact stretched length. The ready
+    frames are a prefix of the step's k_cap, counted on the host; every
+    pass runs on all k_cap frames (the frames past the prefix read the
+    FIFO's zeros, rotate by identity and are masked, as in the JAX step),
+    and a step with no ready frame runs none of them. The carries come from
+    the last ready frame, unlocked; only synthesis is locked
+    (``lock_phases``: the lock kernel on the card). Every emitted row has
+    coverage P1[min(3, k)]. No step copies from the device to the host.
+
+    Returns ``(state, out [C, out_cap], out_n, out_done)``."""
+    from nodey_tpu_torch.ops.chunkops import (fifo_advance, fifo_push,
+                                              fifo_window)
+    from nodey_tpu_torch.ops.stretch import scale_length_by_num
+    from nodey_tpu_torch.ops.wsola import frame_pos
+
+    n_fft, hop, K = plan.n_fft, plan.hop, plan.k_cap
+    fifo, cc, cs, ph_prev, mag_prev, tail, k0, consumed, in_len = state
+    fifo = fifo_push(fifo, data, n)
+    in_len += n
+    out_total = scale_length_by_num(in_len, plan.num_t)
+    k_fin = max(-(-out_total // hop), 0)
+    k_bound = k_fin if done else out_total // hop
+    buffered = consumed + fifo.level
+    k_done = 0
+    while (k_done < K and k0 + k_done < k_bound
+           and (done or frame_pos(k0 + k_done, plan.num) + n_fft <= buffered)):
+        k_done += 1
+
+    C, device = fifo.buf.shape[0], fifo.buf.device
+    if k_done:
+        ks = np.arange(k0, k0 + K, dtype=np.int64)
+        pos = (ks * plan.num + 32768) >> 16
+        pos_prev = np.where(ks >= 1, ((ks - 1) * plan.num + 32768) >> 16, 0)
+        x = fifo_window(fifo, plan.window + plan.push_cap)
+        rel, dpos, hop_over_dpos = _frame_tables(
+            np.clip(pos - consumed, 0, x.shape[1] - n_fft),
+            np.maximum(pos - pos_prev, 1), hop, device)
+        w, cos_m, sin_m, icos, isin = _bases(n_fft, device)
+        omega_hop, P1 = _stream_tables(n_fft, device)
+
+        frames = x.unfold(1, n_fft, 1)[:, rel] * w          # [C, K, n_fft]
+        re, im = torch.matmul(frames, cos_m), torch.matmul(frames, sin_m)
+        del frames
+        mag, ph = _magnitude_phase(re, im)
+        del re, im
+        raw_mag = mag
+        if plan.formant_ratio != 1.0:
+            # Detection and the mag_prev carry read the input's magnitudes;
+            # locking and synthesis the pre-warped ones.
+            mag = _formant_correction(mag, n_fft, plan.formant_ratio)
+        dph = ph - torch.cat([ph_prev[:, None], ph[:, :-1]], dim=1)
+        adv = _advance_on(dph, dpos, hop_over_dpos, omega_hop, n_fft)
+        if k0 == 0:
+            adv[:, 0] = ph[:, 0]  # frame 0 seeds the phasor at its phase
+        reset = None
+        if plan.transient:
+            # Onsets against each frame's predecessor (the carry for the
+            # first); frame 0 and the frames past the prefix never reset.
+            reset = transient_resets(
+                torch.cat([mag_prev[:, None], raw_mag[:, :-1]], dim=1),
+                raw_mag)
+            if k0 == 0:
+                reset[:, 0] = False
+            reset[:, k_done:] = False
+            reset = reset[..., None]
+            adv = torch.where(reset, ph, adv)
+        ca, sa = torch.cos(adv), torch.sin(adv)
+        ca[:, k_done:] = 1.0
+        sa[:, k_done:] = 0.0
+        ccb, csb = cc[:, None], cs[:, None]
+        if reset is None:
+            pc, ps = _prefix_product(ca, sa)
+            cos_phi, sin_phi = ccb * pc - csb * ps, ccb * ps + csb * pc
+        else:
+            pc, ps, pr = _prefix_product(ca, sa, reset)
+            cos_phi = torch.where(pr, pc, ccb * pc - csb * ps)
+            sin_phi = torch.where(pr, ps, ccb * ps + csb * pc)
+        j = k_done - 1
+        cc, cs = cos_phi[:, j].clone(), sin_phi[:, j].clone()
+        ph_prev, mag_prev = ph[:, j].clone(), raw_mag[:, j].clone()
+        if plan.lock:
+            cos_phi, sin_phi = lock_phases(cos_phi, sin_phi, ph, mag)
+
+        y = torch.matmul(mag * cos_phi, icos) + torch.matmul(mag * sin_phi,
+                                                             isin)
+        y = y * w
+        y[:, k_done:] = 0.0
+        # Overlap-add over rows k0 .. k0+K+2: four shifted adds, then the
+        # carried tail on the first three rows.
+        y4 = y.reshape(C, K, 4, hop)
+        acc = None
+        for i in range(4):
+            part = F.pad(y4[:, :, i, :], (0, 0, i, 3 - i))
+            acc = part if acc is None else acc + part       # [C, K+3, hop]
+        acc[:, :3] += tail.view(C, 3, hop)
+        tail = acc[:, k_done : k_done + 3].reshape(C, 3 * hop).clone()
+        rows = acc[:, :K] / P1[3]
+        if k0 < 3:
+            rows[:, : 3 - k0] = acc[:, : 3 - k0] / P1[k0:3]
+        out = rows.reshape(C, K * hop)
+        out_n = min(max(min(k_done * hop, out_total - k0 * hop), 0),
+                    plan.out_cap)
+        out[:, out_n:] = 0.0
+    else:
+        out = torch.zeros((C, plan.out_cap), dtype=torch.float32,
+                          device=device)
+        out_n = 0
+
+    k_next = k0 + k_done
+    advance = max(frame_pos(k_next, plan.num) - consumed, 0)
+    fifo = fifo_advance(fifo, advance)
+    state = PvStreamState(fifo, cc, cs, ph_prev, mag_prev, tail, k_next,
+                          consumed + advance, in_len)
+    return state, out, out_n, done and k_next >= k_fin

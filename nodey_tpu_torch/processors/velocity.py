@@ -15,9 +15,9 @@ resampling rate ``r * p`` and a WSOLA tempo ``1 / p``:
 Both stages are in :mod:`nodey_tpu_torch.ops.stretch`; the tempo stage is
 WSOLA or, with ``algorithm="pv"``, the phase vocoder
 (:mod:`nodey_tpu_torch.ops.pv`). Streamed, the same two stages run as a
-streaming WSOLA stage chained into a streaming resampler
-(:mod:`nodey_tpu_torch.ops.chunkops`). The phase vocoder's streaming step
-(``pv_stream_*``) is not ported yet: streaming a node on ``"pv"`` raises.
+streaming tempo stage (WSOLA, :mod:`nodey_tpu_torch.ops.chunkops`, or the
+phase vocoder's chunk step, ``pv.pv_stream_step``) chained into a streaming
+resampler.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.registry import PinAttribute, Processor, ProcessorInfo
 from nodey_tpu_torch.core.stream import AudioStreamType
 from nodey_tpu_torch.ops import chunkops
+from nodey_tpu_torch.ops import pv as pv_ops
 from nodey_tpu_torch.ops import stretch as stretch_ops
 
 _ALGORITHMS = ("wsola", "pv")
@@ -128,7 +129,7 @@ class _SoundTouchBase(Processor):
         )
         return {"output": out}
 
-    # -- chunk streaming: the (rate, pitch) pair as a streaming WSOLA stage
+    # -- chunk streaming: the (rate, pitch) pair as a streaming tempo stage
     #    chained into a streaming transposition resampler ----------------------
 
     def plan_stream(self, ctx, in_specs):
@@ -140,20 +141,26 @@ class _SoundTouchBase(Processor):
         states = {}
         width = spec.width
         self._wsola_plan = None
+        self._pv_plan = None
         if abs(eff_tempo - 1.0) > 1e-9:
             if self.algorithm == "pv":
-                raise ProcessorRuntimeError(
-                    "Streaming on the phase vocoder is not supported yet",
-                    "Chunk streaming runs the WSOLA tempo stage; the phase "
-                    "vocoder's streaming step comes in a later slice of the "
-                    "port. Export without --stream, or set the node's "
-                    "algorithm to 'wsola'.",
-                    f"algorithm={self.algorithm!r} tempo={eff_tempo:g}",
+                # A chunk is a batch of frames; the carries are the FIFO,
+                # the synthesis phasor, the last frame's phase and
+                # magnitudes, and the overlap-add tail.
+                plan = pv_ops.pv_stream_plan(
+                    eff_tempo, spec.rate, width,
+                    transient=self.pv_transient,
+                    formant_ratio=(eff_rate if self.preserve_formants
+                                   else 1.0),
                 )
-            plan = chunkops.wsola_plan(eff_tempo, spec.rate, width)
-            self._wsola_plan = plan
-            states["w"] = chunkops.wsola_stream_init(plan, spec.channels,
-                                                     ctx.device)
+                self._pv_plan = plan
+                states["w"] = pv_ops.pv_stream_init(plan, spec.channels,
+                                                    ctx.device)
+            else:
+                plan = chunkops.wsola_plan(eff_tempo, spec.rate, width)
+                self._wsola_plan = plan
+                states["w"] = chunkops.wsola_stream_init(plan, spec.channels,
+                                                         ctx.device)
             width = plan.out_cap
 
         self._rs_plan = None
@@ -180,6 +187,9 @@ class _SoundTouchBase(Processor):
         if self._wsola_plan is not None:
             new_state["w"], data, n, done = chunkops.wsola_stream_step(
                 self._wsola_plan, state["w"], data, n, done)
+        elif self._pv_plan is not None:
+            new_state["w"], data, n, done = pv_ops.pv_stream_step(
+                self._pv_plan, state["w"], data, n, done)
         if self._rs_plan is not None:
             new_state["r"], data, n, done = chunkops.resample_stream_step(
                 self._rs_plan, state["r"], data, n, done)

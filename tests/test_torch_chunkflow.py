@@ -20,8 +20,7 @@ from nodey_tpu.core import chunkflow as jchunkflow
 from nodey_tpu.core import compiler as jcompiler
 from nodey_tpu_torch.convert import graph_from_jax
 from nodey_tpu_torch.core import chunkflow, compiler
-from nodey_tpu_torch.core.errors import (ProcessorRuntimeError,
-                                         UnstreamableGraphError)
+from nodey_tpu_torch.core.errors import UnstreamableGraphError
 from nodey_tpu_torch.core.runner import Runner
 from nodey_tpu_torch.host.decode import write_wav_s16
 
@@ -187,15 +186,17 @@ def test_mismatched_cadence_is_unstreamable_and_names_the_mixer(tmp_path):
 
 
 def test_phase_vocoder_under_streaming_raises_naming_the_node(tmp_path):
-    g, _, vel = _velocity_mix_graph(_tracks(tmp_path, 0.2), velocity=1.0,
-                                    algorithm="pv")
+    """A velocity node on the phase vocoder streams (its chunk step plans);
+    mixed with an unstretched branch its cadence differs, so the plan
+    refuses the mixer, naming it, as the JAX package does."""
+    g, amix, vel = _velocity_mix_graph(_tracks(tmp_path, 0.2), velocity=1.0,
+                                       algorithm="pv")
     g.nodes[vel].processor.keep_pitch = True
     g.nodes[vel].processor.set_velocity(1.25)
     sources = {(0, f"output_{i}"): compiler.SourceSpec(
         rate=44_100, channels=2, fmt="s16", capacity=4_410) for i in range(2)}
-    with pytest.raises(ProcessorRuntimeError,
-                       match="phase vocoder is not supported") as info:
+    with pytest.raises(UnstreamableGraphError,
+                       match="different rates") as info:
         chunkflow.compile_stream_graph(g, sources, device="cpu")
-    assert not isinstance(info.value, UnstreamableGraphError)
-    assert "later slice" in info.value.explanation
-    assert f"[node {vel}: velocity_modifier]" in info.value.detail
+    assert f"[node {amix}: audio_amix]" in info.value.detail
+    assert g.nodes[vel].processor._pv_plan is not None

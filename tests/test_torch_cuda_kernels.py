@@ -620,6 +620,50 @@ def test_pv_formant_path_locks_through_the_kernel(cuda_device, monkeypatch):
     assert _snr_db(want[:, :n], out[:, :n]) >= 100.0
 
 
+def _pv_stream(x, plan, device):
+    """The streaming PV over ``x`` [C, n] on ``device``, each step under
+    set_sync_debug_mode("error"): (output, steps with frames)."""
+    state = pv.pv_stream_init(plan, x.shape[0], device)
+    pieces, with_frames, fed = [], 0, 0
+    while True:
+        n = min(plan.push_cap, x.shape[1] - fed)
+        block = torch.zeros((x.shape[0], plan.push_cap), device=device)
+        block[:, :n] = x[:, fed : fed + n]
+        fed += n
+        k0 = state.k
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out, out_n, done = pv.pv_stream_step(
+                plan, state, block, n, fed >= x.shape[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        with_frames += state.k > k0
+        pieces.append(out[:, :out_n])
+        if done:
+            return torch.cat(pieces, dim=1), with_frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [{}, {"transient": True,
+                                          "formant_ratio": 2 ** (4 / 12)}])
+def test_pv_stream_step_locks_through_the_kernel_without_a_sync(
+        cuda_device, monkeypatch, options):
+    """Every chunk step with frames launches the lock kernel once, none the
+    phase-path kernel, and no step syncs; the output is the same steps'
+    with the plain lock (>= 100 dB)."""
+    x = torch.from_numpy(_stretch_input()).to(cuda_device)
+    plan = pv.pv_stream_plan(1.25, 48_000, 4_800, **options)
+    before = (cuda_pv.phase_path_launches, cuda_pv.lock_launches)
+    got, with_frames = _pv_stream(x, plan, cuda_device)
+    after = (cuda_pv.phase_path_launches, cuda_pv.lock_launches)
+    assert with_frames >= 8
+    assert [a - b for a, b in zip(after, before)] == [0, with_frames]
+    monkeypatch.setattr(cuda_pv, "lock_to_peaks_cuda", pv._lock_to_peaks)
+    want, _ = _pv_stream(x, plan, cuda_device)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _snr_db(want, got) >= 100.0
+
+
 @pytest.mark.cuda
 def test_pv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     re, im, dpos, hop, n_fft = _pv_planes(cuda_device, 8_000, 1.25, 0.5, 2)

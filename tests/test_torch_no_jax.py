@@ -3,8 +3,8 @@
 A fresh interpreter whose ``sys.meta_path`` refuses jax and the JAX
 package imports every module of ``nodey_tpu_torch`` and renders a tiny
 WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``, once
-offline and once streamed (``--stream``); afterwards ``sys.modules`` holds
-neither. ``chip_smoke.py`` and the A/B tool (``python -m
+offline, once streamed (``--stream``) and once as the realtime preview
+(``--realtime``); afterwards ``sys.modules`` holds neither. ``chip_smoke.py`` and the A/B tool (``python -m
 nodey_tpu_torch.tools.ab_wsola_fps``) are held to the same, and no source
 file of the port (``tools/`` included) names either in an import.
 """
@@ -74,8 +74,7 @@ def _run(code, *args, cwd):
     )
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_cli_runs_with_jax_blocked(tmp_path, stream):
+def _project(tmp_path):
     rng = np.random.default_rng(3)
     paths = []
     for i in range(2):
@@ -87,6 +86,12 @@ def test_cli_runs_with_jax_blocked(tmp_path, stream):
     project["nodes"]["0"]["info"]["file_path"] = paths
     proj = tmp_path / "p.json"
     proj.write_text(json.dumps(project))
+    return proj
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_cli_runs_with_jax_blocked(tmp_path, stream):
+    proj = _project(tmp_path)
     out = tmp_path / "out.wav"
 
     proc = _run(_CLI_DRIVER, "run", str(proj), "--export", str(out),
@@ -99,6 +104,16 @@ def test_cli_runs_with_jax_blocked(tmp_path, stream):
     else:
         assert "spectrum 'spectrum_4'" in proc.stdout
     assert out.stat().st_size > 44 + 2 * 4 * 4410
+
+
+def test_realtime_preview_runs_with_jax_blocked(tmp_path):
+    out = tmp_path / "preview.wav"
+    proc = _run(_CLI_DRIVER, "run", str(_project(tmp_path)), "--realtime",
+                "--preview", str(out), "--device", "cpu", cwd=tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout
+    assert "streamed 0.10 audio-s" in proc.stdout, proc.stdout
+    assert out.stat().st_size == 44 + 2 * 4 * 4800
 
 
 def test_chip_smoke_loads_nothing_of_jax_and_fails_without_a_card(tmp_path):
