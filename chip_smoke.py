@@ -50,7 +50,12 @@ Phases, in order; the first failure exits non-zero:
                elements that are not bitwise the plain version's, as the
                prefix is associated otherwise, and a digest of the kernel's
                planes to hold two builds of it to each other); the lock kernel, fed the
-               plain path's unlocked planes, within 2e-6 of the plain lock;
+               plain path's unlocked planes, within 2e-6 of the plain lock
+               and bitwise it on finite inputs, there, at the streamed PV's
+               two chunk shapes (the frames a step of each stage's stream
+               plan at 16 s chunks, from the middle of its planes) and at
+               the pitch stage's shape with silent, rising, flat and comb
+               frames;
  10. config4-pv — config 4 with both tempo nodes on algorithm "pv" through
                the CLI on the 300 s track, exported to WAV: length
                11,519,994, finite, >= 2 launches of the phase-path kernel, 0
@@ -118,8 +123,11 @@ Phases, in order; the first failure exits non-zero:
  19. stream-pv — config 4 with both tempo nodes on "pv", streamed at 16 s
                chunks on phase 6's track: driven by hand, every launch of the
                lock kernel and of the resampler inside every step within 2e-6
-               of its plain version on its operands, and the master through
-               the kernels >= 90 dB against the same steps with the plain lock
+               of its plain version on its operands (the lock's launches
+               bitwise it on finite inputs, and at the plans' frames a step,
+               phase 9's chunk shapes), and the master through the kernels
+               >= 90 dB against the same steps with the plain lock, and
+               bitwise it where every lock launch had finite inputs
                (the resampler is held launch by launch only: the PV turns on
                the ulps by which its inputs move); then `run --stream --export`, every
                step under torch.cuda.set_sync_debug_mode("error"), plain and
@@ -224,6 +232,9 @@ STREAM_TIMED_RUNS = 3
 # which launch per chunk shape are timed (a mid-clip step of 19).
 STREAM_EXCERPT_CHUNK_SECONDS = 2
 STREAM_LOCK_TIMED_STEP = 9
+# Launches of the lock kernel timed at each chunk shape (queued behind a spin
+# of the card: its wrapper's host time exceeds the kernel's there).
+LOCK_TIMED_LAUNCHES = 200
 # Phases 16-18: the A/B tool's arguments (python -m
 # nodey_tpu_torch.tools.ab_wsola_fps 30 8), the probes' step count for their
 # checks and times (bench.py's larger K), tests/test_pallas.py's rate pairs.
@@ -245,9 +256,12 @@ def check(ok: bool, message: str) -> None:
         fail(message)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2):
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = False):
     """Milliseconds of each of ``iters`` back-to-back calls by CUDA events,
-    after ``warmup`` calls."""
+    after ``warmup`` calls. ``queued``: the card first spins for ~0.1 ms a
+    call (torch.cuda._sleep), so the calls queue up behind it and the events
+    time the device work alone, where a call's host time (a wrapper's tens
+    of us) would exceed it."""
     import torch
 
     for _ in range(warmup):
@@ -255,6 +269,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2):
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    if queued:
+        torch.cuda._sleep(max(10**7, 200_000 * iters))
     for start, end in events:
         start.record()
         fn()
@@ -560,14 +576,74 @@ def check_pv(tag: str, operands, card: str):
         del ry, iy, pry, piy
     cos_phi, sin_phi = pv._synthesis_phasors(ph, dpos, hop, n_fft)
     lock_in = (cos_phi, sin_phi, ph, mag)
-    oc, os_ = cuda_pv.lock_to_peaks_cuda(*lock_in)
-    poc, pos_ = pv._lock_to_peaks(*lock_in)
-    torch.cuda.synchronize()
-    lock_err = max((oc - poc).abs().max().item(), (os_ - pos_).abs().max().item())
-    print(f"[9 pv-kernels] {tag}: lock, {list(mag.shape)}: max|kernel - plain| "
-          f"= {lock_err:.3e} (tol {TOL:.0e}) ({card})")
-    check(lock_err <= TOL, f"{tag}: the lock kernel disagrees with the plain lock")
+    lock_err = check_lock(f"{tag}: lock", lock_in, card)
     return {"abs": worst, "lock": lock_err}, lock_in
+
+
+def lock_against_plain(got, lock_in):
+    """(max|kernel - plain|, elements not bitwise the plain lock's, whether
+    the inputs are finite) of the lock kernel's planes ``got`` on
+    ``lock_in`` (cos_phi, sin_phi, ph, mag). The kernel must be within TOL
+    of the plain lock, and bitwise it where the inputs are finite (the same
+    decisions and roundings)."""
+    import torch
+
+    from nodey_tpu_torch.ops import pv
+
+    want = pv._lock_to_peaks(*lock_in)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(t).all()) for t in lock_in)
+    return err, differ, finite
+
+
+def check_lock(tag: str, lock_in, card: str) -> float:
+    """The lock kernel against the plain lock on ``lock_in``
+    (``lock_against_plain``). Returns max|kernel - plain|."""
+    from nodey_tpu_torch.ops import cuda_pv
+
+    err, differ, finite = lock_against_plain(
+        cuda_pv.lock_to_peaks_cuda(*lock_in), lock_in)
+    print(f"[9 pv-kernels] {tag}, {list(lock_in[3].shape)}: max|kernel - "
+          f"plain| = {err:.3e} (tol {TOL:.0e}), {differ} of "
+          f"{2 * lock_in[3].numel()} elements not bitwise the plain lock's "
+          f"(inputs finite: {finite}) ({card})")
+    check(err <= TOL, f"{tag}: the lock kernel disagrees with the plain lock")
+    check(differ == 0 or not finite,
+          f"{tag}: the lock kernel is not bitwise the plain lock")
+    return err
+
+
+def lock_cases(lock_inputs, card: str) -> float:
+    """Phase 9's lock cases beyond check_pv's: the streamed PV's two chunk
+    shapes (a step's frames from the middle of each stage's lock inputs),
+    and the pitch stage's whole shape with special frames (silent, rising to
+    the top bin, equal magnitudes, a comb of ties) at frames 3, 5, 7 and 9 of
+    every 64. Returns the worst max|kernel - plain|."""
+    import torch
+
+    from nodey_tpu_torch.tools.pv_phase_ab import chunk_frames
+
+    worst = 0.0
+    for tag, frames in chunk_frames(STREAM_CHUNK_SECONDS, RATE).items():
+        planes = lock_inputs[tag]
+        k0 = (planes[3].shape[1] - frames) // 2
+        step = tuple(t[:, k0 : k0 + frames].contiguous() for t in planes)
+        worst = max(worst, check_lock(
+            f"lock at the {tag} stage's chunk shape, frames {k0} to "
+            f"{k0 + frames - 1}", step, card))
+    cos_phi, sin_phi, ph, mag = (t.clone() for t in lock_inputs["pitch"])
+    B = mag.shape[2]
+    bins = torch.arange(B, device=mag.device, dtype=mag.dtype)
+    special = {3: torch.zeros_like(bins), 5: (bins + 1) / B,
+               7: torch.full_like(bins, 0.5),
+               9: torch.where(bins % 10 == 0, 1.0, 0.5)}
+    for k, row in special.items():
+        mag[:, k::64] = row
+    worst = max(worst, check_lock("lock at the pitch stage's shape with "
+                                  "special frames", (cos_phi, sin_phi, ph,
+                                                     mag), card))
+    return worst
 
 
 def wsola_operands(data, tempo: float, rate: int):
@@ -1298,18 +1374,18 @@ def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
     from nodey_tpu_torch.host.decode import decode_file
     from nodey_tpu_torch.ops import cuda_pv, pv
     from nodey_tpu_torch.ops import resample as tr
+    from nodey_tpu_torch.tools.pv_phase_ab import chunk_frames
 
     tag = "19 stream-pv"
     chunk = STREAM_CHUNK_SECONDS * RATE
     kernel_lock, kernel_resampler = pv.lock_phases, tr.apply_filter_bank
-    lock_errs, lock_in, seen, resample_errs = [], {}, {}, []
+    lock_checks, lock_in, seen, resample_errs = [], {}, {}, []
 
     def checked_lock(cos_phi, sin_phi, ph, mag):
         """The lock kernel, held against the plain lock on its inputs."""
         got = kernel_lock(cos_phi, sin_phi, ph, mag)
-        want = pv._lock_to_peaks(cos_phi, sin_phi, ph, mag)
-        lock_errs.append(max((got[0] - want[0]).abs().max().item(),
-                             (got[1] - want[1]).abs().max().item()))
+        lock_checks.append(lock_against_plain(got, (cos_phi, sin_phi, ph,
+                                                    mag)))
         check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
               f"{tag}: the lock kernel gave a value that is not finite")
         K = mag.shape[1]
@@ -1379,9 +1455,12 @@ def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
     plain_lock, _, _ = drive(pv._lock_to_peaks)
     check(kernels.shape == plain_lock.shape,
           f"{tag}: masters {kernels.shape}, {plain_lock.shape}")
-    lock_err = max(lock_errs)
+    lock_err = max(err for err, _, _ in lock_checks)
+    lock_bitwise = sum(differ == 0 for _, differ, _ in lock_checks)
+    lock_finite = sum(finite for *_, finite in lock_checks)
     resample_err = max(err for *_, err in resample_errs)
     lock_db = snr_db(plain_lock, kernels)
+    master_differ = int(np.count_nonzero(kernels != plain_lock))
     print(f"[{tag}] config 4 on the PV, {SECONDS} s at {STREAM_CHUNK_SECONDS} s "
           f"chunks, driven by hand: {steps} steps, {len(with_frames)} PV stage "
           f"steps with frames (k_cap {sorted(set(k for k, _ in with_frames))},"
@@ -1389,15 +1468,18 @@ def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
           f"{max(f for _, f in with_frames)} a step), {hand['pv_lock']} lock "
           f"launches at K {sorted(seen)}; every "
           f"launch against the plain lock on its inputs: max|kernel - plain| "
-          f"{lock_err:.3e} (tol {TOL:.0e}); {hand['polyphase_resample']} "
+          f"{lock_err:.3e} (tol {TOL:.0e}), {lock_bitwise} of "
+          f"{len(lock_checks)} launches bitwise ({lock_finite} on finite "
+          f"inputs); {hand['polyphase_resample']} "
           f"resampler launches (x, M, L: "
           f"{sorted(set((tuple(x), M, L) for x, M, L, _ in resample_errs))}), "
           f"every one against the plain resampler on its operands: "
           f"max|kernel - plain| {resample_err:.3e} (tol {TOL:.0e}); master "
           f"{list(kernels.shape)} through the kernels vs the same steps with "
-          f"the plain lock: SNR {lock_db:.1f} dB (min {PV_EXCERPT_DB:.0f}) "
+          f"the plain lock: SNR {lock_db:.1f} dB (min {PV_EXCERPT_DB:.0f}), "
+          f"{master_differ} of {kernels.size} samples not bitwise it "
           f"({card})")
-    check(hand["pv_lock"] == len(lock_errs) == len(with_frames) > 0,
+    check(hand["pv_lock"] == len(lock_checks) == len(with_frames) > 0,
           f"{tag}: {hand['pv_lock']} lock launches, {len(with_frames)} stage "
           "steps with frames")
     check(hand["polyphase_resample"] == len(resample_errs) >= steps,
@@ -1405,12 +1487,23 @@ def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
           f"{len(resample_errs)} checked, in {steps} steps")
     check(hand["pv_phase_path"] == 0,
           f"{tag}: the phase-path kernel launched in a hand-driven step")
+    plans = sorted(set(k for k, _ in with_frames))
+    shapes = sorted(chunk_frames(STREAM_CHUNK_SECONDS, RATE).values())
+    check(sorted(seen) == plans == shapes, f"{tag}: the lock saw K "
+          f"{sorted(seen)}, the plans' k_cap {plans}, phase 9's chunk shapes "
+          f"{shapes}")
     check(lock_err <= TOL, f"{tag}: the lock kernel disagrees inside a step")
+    check(all(differ == 0 for _, differ, finite in lock_checks if finite),
+          f"{tag}: the lock kernel is not bitwise the plain lock inside a "
+          "step")
     check(resample_err <= TOL,
           f"{tag}: the resampler kernel disagrees inside a step")
     check(lock_db >= PV_EXCERPT_DB,
           f"{tag}: the streamed PV through the lock kernel disagrees with the "
           f"plain lock")
+    check(master_differ == 0 or lock_finite < len(lock_checks),
+          f"{tag}: the streamed PV through the lock kernel is not bitwise the "
+          "plain lock's")
     check(bool(np.isfinite(kernels).all()), f"{tag}: master not finite")
     del kernels, plain_lock
 
@@ -1542,7 +1635,8 @@ def stream_pv_phase(cli, card: str, dev, tmp: str, track1, track_path: str,
                "plain": lambda: pv._lock_to_peaks(*planes)}
         runs = {name: [] for name in fns}
         for name in ("plain", "kernel", "kernel", "plain"):
-            runs[name] += cuda_ms(fns[name], 5, warmup=1)
+            runs[name] += cuda_ms(fns[name], LOCK_TIMED_LAUNCHES // 2,
+                                  warmup=1, queued=True)
         lock_times[K] = {name: summary(runs[name])[0] for name in fns}
         lock_times[K]["bound"] = lock_work_bound(planes[3].shape)
         lock_times[K]["shape"] = list(planes[3].shape)
@@ -2105,6 +2199,7 @@ def main() -> int:
                 f"config-4 {tag} stage, K={ops[0].shape[1]}, planes "
                 f"{list(ops[0].shape)}", ops, card)
             pv_worst = {k: max(pv_worst[k], worst[k]) for k in pv_worst}
+        pv_worst["lock"] = max(pv_worst["lock"], lock_cases(lock_inputs, card))
 
         # -- 10. config4-pv ----------------------------------------------------
         proj = os.path.join(tmp, "config4_pv.json")
@@ -2187,9 +2282,13 @@ def main() -> int:
             }
             runs = {name: [] for name in fns}
             for name in ("phase plain", "phase kernel", "phase kernel",
-                         "phase plain", "lock plain", "lock kernel",
-                         "lock kernel", "lock plain"):
+                         "phase plain"):
                 runs[name] += cuda_ms(fns[name], 3, warmup=1)
+            for name in ("lock plain", "lock kernel", "lock kernel",
+                         "lock plain"):
+                runs[name] += cuda_ms(
+                    fns[name], 3 if "plain" in name else 50, warmup=1,
+                    queued=True)
             n = re.numel()
             # Least work: the phase path reads re, im and writes two planes;
             # ~33 operations per element, each transcendental counted as

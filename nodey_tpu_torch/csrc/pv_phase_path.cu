@@ -95,7 +95,7 @@ constexpr float kTwoPiF = 6.28318530717958647692f;
 constexpr float kTurn1 = 0x1.921fb8p+1f;  // see turns_of
 constexpr float kTurn2 = 0x1.2d97c8p+3f;
 constexpr float kTurn3 = 0x1.f6a7a6p+3f;
-constexpr unsigned kFull = 0xffffffffu;
+using nodey_pv::kFull;
 
 struct Geometry {
   int channels, frames, bins, tiles;  // tiles: of kTile frames
@@ -251,100 +251,6 @@ __host__ __device__ constexpr int apply_min_ctas(int jm) {
   return jm <= 2 ? 2 : 1;
 }
 
-// Each warp, for every word w of the row's peak flags: the last peak in
-// words [0, w] (last[w], or -1) and the first in words [w, kWords)
-// (first[w], or INT_MAX). Lane i scans words [i*kChunk, (i+1)*kChunk)
-// serially, then the lanes' totals are scanned with shuffles.
-template <int kWords>
-__device__ __forceinline__ void scan_words(const unsigned* words, int* last,
-                                           int* first) {
-  constexpr int kChunk = (kWords + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  unsigned m[kChunk];
-  int lo[kChunk], hi[kChunk];
-  int acc = -1;
-#pragma unroll
-  for (int i = 0; i < kChunk; ++i) {
-    const int w = lane * kChunk + i;
-    m[i] = w < kWords ? words[w] : 0u;
-    if (m[i]) acc = 32 * w + 31 - __clz(m[i]);
-    lo[i] = acc;
-  }
-  int acc_hi = INT_MAX;
-#pragma unroll
-  for (int i = kChunk - 1; i >= 0; --i) {
-    if (m[i]) acc_hi = 32 * (lane * kChunk + i) + __ffs(m[i]) - 1;
-    hi[i] = acc_hi;
-  }
-  int up = acc, down = acc_hi;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(kFull, up, off);
-    const int d = __shfl_down_sync(kFull, down, off);
-    if (lane >= off) up = max(up, u);
-    if (lane + off < 32) down = min(down, d);
-  }
-  int before = __shfl_up_sync(kFull, up, 1);
-  int after = __shfl_down_sync(kFull, down, 1);
-  if (lane == 0) before = -1;
-  if (lane == 31) after = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < kChunk; ++i) {
-    const int w = lane * kChunk + i;
-    if (w < kWords) {
-      last[w] = max(before, lo[i]);
-      first[w] = min(after, hi[i]);
-    }
-  }
-}
-
-// The locked phasor (oc, os) of bin b, whose own phasor is (c_b, s_b) and
-// phase ph_b, given the last peak at or before it (left, or -1) and the
-// first at or after it (right, or INT_MAX): pv_lock.cuh::lock_to's choice
-// (a peak keeps its phasor; the nearer peak, the earlier on a tie; none:
-// the bin's own values) and rotation, without branches, so that a thread's
-// bins interleave. Its |d| <= 2 pi for finite phases, so sincosf takes its
-// fast path; a NaN d comes from a NaN bin at b or p, whose NaN reaches this
-// output through mag or (cp, sp) either way.
-__device__ __forceinline__ void lock_phasor(int b, int left, int right,
-                                            float c_b, float s_b, float ph_b,
-                                            const float* row_c,
-                                            const float* row_s,
-                                            const float* row_ph, float& oc,
-                                            float& os) {
-  const bool has_next = right != INT_MAX;
-  const bool use_prev = left >= 0 && (!has_next || b - left <= right - b);
-  const int p = use_prev ? left : has_next ? right : b;
-  const float cp = row_c[p], sp = row_s[p];
-  const float d = __fsub_rn(ph_b, row_ph[p]);
-  const float x = fabsf(d) < 105615.0f ? d : 0.0f;
-  __builtin_assume(fabsf(x) < 105615.0f);
-  float sd, cd;
-  sincosf(x, &sd, &cd);
-  const float rc = __fsub_rn(__fmul_rn(cp, cd), __fmul_rn(sp, sd));
-  const float rs = __fadd_rn(__fmul_rn(cp, sd), __fmul_rn(sp, cd));
-  oc = left == b ? c_b : rc;
-  os = left == b ? s_b : rs;
-}
-
-// Bin b's nearest peaks from the row's words and this warp's scan of them.
-template <int kWords>
-__device__ __forceinline__ void nearest_peaks(int b, const unsigned* words,
-                                              const int* last,
-                                              const int* first, int& left,
-                                              int& right) {
-  const int w = b >> 5, bit = b & 31;
-  const unsigned m = words[w];
-  const int before = last[max(w - 1, 0)];
-  const int after = first[min(w + 1, kWords - 1)];
-  const unsigned at_or_below = m & (kFull >> (31 - bit));
-  const unsigned at_or_above = m & (kFull << bit);
-  left = at_or_below ? 32 * w + 31 - __clz(at_or_below)
-                     : w > 0 ? before : -1;
-  right = at_or_above ? 32 * w + __ffs(at_or_above) - 1
-                      : w + 1 < kWords ? after : INT_MAX;
-}
-
 // Pass 3: one CTA per (channel, tile) walks the tile's frames in order.
 template <int NT, int JM, bool kLock>
 __global__ void __launch_bounds__(NT + 32, apply_min_ctas(JM))
@@ -465,26 +371,28 @@ pv_phase_apply_kernel(const float* __restrict__ re,
         }
       }
       __syncthreads();  // every word is in
-      scan_words<kWords>(words, last, first);
+      nodey_pv::scan_words<kWords>(words, last, first);
       __syncwarp();
       if (!top_warp) {
 #pragma unroll
         for (int j = 0; j < JM; ++j) {
           const int b = bin_of(j);
           int left, right;
-          nearest_peaks<kWords>(b, words, last, first, left, right);
+          nodey_pv::nearest_peaks<kWords>(b, words, last, first, left,
+                                          right);
           float oc, os;
-          lock_phasor(b, left, right, run_c[j], run_s[j], ph[j], row_c,
-                      row_s, row_ph, oc, os);
+          nodey_pv::lock_phasor(b, left, right, run_c[j], run_s[j], ph[j],
+                                row_c, row_s, row_ph, oc, os);
           ry_c[row + b] = __fmul_rn(mag[j], oc);
           iy_c[row + b] = __fmul_rn(mag[j], os);
         }
       } else if (lane == 0) {
         int left, right;
-        nearest_peaks<kWords>(top, words, last, first, left, right);
+        nodey_pv::nearest_peaks<kWords>(top, words, last, first, left,
+                                        right);
         float oc, os;
-        lock_phasor(top, left, right, run_c[0], run_s[0], ph[0], row_c,
-                    row_s, row_ph, oc, os);
+        nodey_pv::lock_phasor(top, left, right, run_c[0], run_s[0], ph[0],
+                              row_c, row_s, row_ph, oc, os);
         ry_c[row + top] = __fmul_rn(mag[0], oc);
         iy_c[row + top] = __fmul_rn(mag[0], os);
       }

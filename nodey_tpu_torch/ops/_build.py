@@ -130,8 +130,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "pv_lock":
         lib.nodey_pv_lock.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, vp]
         lib.nodey_pv_lock.restype = i32
-        lib.nodey_pv_lock_smem_bytes.argtypes = [i32]
-        lib.nodey_pv_lock_smem_bytes.restype = i64
+        lib.nodey_pv_lock_rows_per_cta.argtypes = [i32]
+        lib.nodey_pv_lock_rows_per_cta.restype = i32
     elif name == "wsola_score_table":
         lib.nodey_wsola_score_table.argtypes = [
             vp, i64, i32, i32, i32, i64, i64, i32, i32, i32, vp, vp,

@@ -209,9 +209,9 @@ def stft_plan(n_fft: int, hop: int, push_cap: int) -> StftPlan:
 
 
 def stft_stream_init(plan: StftPlan, channels: int, device) -> FifoState:
-    """An empty FIFO; also puts the DFT basis on the device, so no step
-    copies from the host."""
-    stft_ops._device_basis(plan.n_fft, torch.device(device))
+    """An empty FIFO; also puts the DFT basis (or the rfft window) on the
+    device, so no step copies from the host."""
+    stft_ops.device_constants(plan.n_fft, torch.device(device))
     return fifo_init(channels, plan.cap, device)
 
 

@@ -151,9 +151,9 @@ def lock_to_peaks_cuda(cos_phi: torch.Tensor, sin_phi: torch.Tensor,
     if C * K >= 2**31:
         raise ValueError(f"{what}: {C * K} rows, more than a grid holds")
     lib = _build.load_library("pv_lock")
-    if lib.nodey_pv_lock_smem_bytes(B) > _build.SMEM_LIMIT:
-        raise ValueError(f"{what}: {B} bins need more shared memory than a "
-                         f"block has")
+    if lib.nodey_pv_lock_rows_per_cta(B) == 0:
+        raise ValueError(f"{what}: takes rows of 1 to 4097 bins (n_fft up "
+                         f"to 8192, those of pv_params), got {B}")
     with torch.cuda.device(mag.device):
         stream = torch.cuda.current_stream(mag.device).cuda_stream
         rc = lib.nodey_pv_lock(

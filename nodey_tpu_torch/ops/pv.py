@@ -287,13 +287,9 @@ def _hs_last_valid(seed):
     return tuple(arrs)
 
 
-def _lock_to_peaks(cos_phi, sin_phi, ph_in, mag):
-    """Identity phase locking, plain: peaks are local maxima over +-2
-    bins (edges count as -1); every other bin adopts the nearer of its
-    previous and next peak (the previous on a tie) and is re-phased
-    rigidly with it: phasor[b] <- phasor[peak] * e^{i(ph_in[b] -
-    ph_in[peak])}. A frame without peaks keeps its own phasors."""
-    B = mag.shape[-1]
+def _peak_flags(mag):
+    """The lock's peaks: bins whose magnitude is > the bins 1 and 2 below
+    and >= the bins 1 and 2 above (-1 beyond the row's ends)."""
     neg = torch.full_like(mag[..., :1], -1.0)
 
     def shift(x, s):
@@ -301,12 +297,22 @@ def _lock_to_peaks(cos_phi, sin_phi, ph_in, mag):
             return torch.cat([neg.expand(*x.shape[:-1], s), x[..., :-s]], -1)
         return torch.cat([x[..., -s:], neg.expand(*x.shape[:-1], -s)], -1)
 
-    is_peak = (
+    return (
         (mag > shift(mag, 1))
         & (mag >= shift(mag, -1))
         & (mag > shift(mag, 2))
         & (mag >= shift(mag, -2))
     )
+
+
+def _lock_to_peaks(cos_phi, sin_phi, ph_in, mag):
+    """Identity phase locking, plain: peaks are local maxima over +-2
+    bins (``_peak_flags``); every other bin adopts the nearer of its
+    previous and next peak (the previous on a tie) and is re-phased
+    rigidly with it: phasor[b] <- phasor[peak] * e^{i(ph_in[b] -
+    ph_in[peak])}. A frame without peaks keeps its own phasors."""
+    B = mag.shape[-1]
+    is_peak = _peak_flags(mag)
     bi = torch.arange(B, dtype=torch.int32, device=mag.device)
     seed = (
         torch.where(is_peak, bi.expand_as(is_peak), -1),

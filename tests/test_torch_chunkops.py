@@ -247,3 +247,25 @@ def test_chunk_chain_refuses_a_window_outside_x():
     with pytest.raises(ValueError, match="window reads"):
         wsola.wsola_chunk_chain(x, head, 3, wsola.frame_pos(3, num) + 1, 1,
                                 num, 65536, seq, seek, overlap)
+
+
+def test_stft_stream_step_takes_rfft_above_4096(monkeypatch):
+    """The streamed spectrum step goes through magnitude_spectrogram, so at
+    n_fft 8,192 it takes the rfft branch too: no basis at plan time or in a
+    step, and the frames of the JAX step (>= 100 dB)."""
+    def no_basis(n_fft, device):
+        raise AssertionError("the rfft branch built the DFT basis")
+
+    monkeypatch.setattr(chunkops.stft_ops, "_device_basis", no_basis)
+    plan = chunkops.stft_plan(8192, 2048, 6_000)
+    jplan = jchunkops.stft_plan(8192, 2048, 6_000)
+    counts, got, want = _drive(
+        functools.partial(chunkops.stft_stream_step, plan),
+        chunkops.stft_stream_init(plan, 2, "cpu"),
+        jax.jit(functools.partial(jchunkops.stft_stream_step, jplan)),
+        jchunkops.stft_stream_init(jplan, 2),
+        _blocks(_signal(4, 2, 25_000), 6_000), max_steps=10)
+    assert all(a == b for a, b in counts)
+    got, want = np.concatenate(got, axis=1), np.concatenate(want, axis=1)
+    assert got.shape == want.shape == (2, (25_000 - 8192) // 2048 + 1, 4097)
+    assert snr_db(want, got) >= 100.0

@@ -23,8 +23,9 @@ The phase-vocoder kernels: the phase path's synthesis planes >= 100 dB
 against the plain version fed the same re and im, and every bin with
 mag > 0 within a phasor error |kernel - plain| / mag <= 1e-3 (its prefix
 is associated otherwise; a different peak choice would show as O(1)); the
-lock kernel within 2e-6 of the plain lock (unit phasors: a different peak
-choice would show as O(1)).
+lock kernel bitwise the plain lock on finite inputs (the same decisions,
+the same roundings, the IEEE sine and cosine), and within 2e-6 of it, NaN
+where it is NaN, on inputs that are not finite.
 
 The WSOLA score-table kernel sums each score in another order than the
 plain version's bmm, so an entry may differ only where two candidates'
@@ -549,26 +550,115 @@ def test_pv_phase_kernel_makes_no_stream_sync(cuda_device, lock):
         assert torch.equal(ry, want[0]) and torch.equal(iy, want[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("C,K,B,silent", [
-    (2, 37, 1025, ()), (1, 64, 257, ()), (2, 16, 1025, (0, 7, 15)),
-    (1, 3, 513, (1,)),
-])
-def test_pv_lock_kernel_matches_plain(cuda_device, C, K, B, silent):
-    rng = np.random.default_rng(K)
+def _lock_planes(device, C, K, B, silent=(), phase_scale=np.pi, seed=None):
+    """The lock's four [C, K, B] planes: unit phasors, phases uniform in
+    +-phase_scale, random-walk magnitudes; frames ``silent`` all zero."""
+    rng = np.random.default_rng(K if seed is None else seed)
     phi = rng.uniform(-np.pi, np.pi, (C, K, B))
-    ph_in = rng.uniform(-np.pi, np.pi, (C, K, B))
+    ph_in = rng.uniform(-phase_scale, phase_scale, (C, K, B))
     mag = np.abs(np.cumsum(rng.standard_normal((C, K, B)), axis=-1))
     mag[:, list(silent), :] = 0.0
-    planes = [torch.from_numpy(a.astype(np.float32)).to(cuda_device)
-              for a in (np.cos(phi), np.sin(phi), ph_in, mag)]
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (np.cos(phi), np.sin(phi), ph_in, mag)]
+
+
+def _locked(planes):
+    """The lock kernel's output on ``planes`` (one launch, counted), and the
+    plain lock's on the same planes."""
     before = cuda_pv.lock_launches
-    oc, os_ = cuda_pv.lock_to_peaks_cuda(*planes)
+    got = cuda_pv.lock_to_peaks_cuda(*planes)
     torch.cuda.synchronize()
     assert cuda_pv.lock_launches == before + 1
-    poc, pos_ = pv._lock_to_peaks(*planes)
-    assert (oc - poc).abs().max().item() <= 2e-6
-    assert (os_ - pos_).abs().max().item() <= 2e-6
+    return got, pv._lock_to_peaks(*planes)
+
+
+# (C, K, B, silent frames, phase range): B of pv_params' rows (257 to 4097)
+# and others (3, 33), silent frames and a wholly silent clip, phases past
+# sincosf's fast path (|d| > 105,615).
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,B,silent,phase_scale", [
+    (2, 37, 1025, (), np.pi), (1, 64, 257, (), np.pi),
+    (2, 16, 1025, (0, 7, 15), np.pi), (1, 3, 513, (1,), np.pi),
+    (1, 7, 2049, (2,), np.pi), (2, 5, 4097, (3,), np.pi),
+    (1, 9, 1025, tuple(range(9)), np.pi), (1, 13, 1025, (), 3e5),
+    (1, 6, 3, (), np.pi), (2, 5, 33, (1,), np.pi),
+])
+def test_pv_lock_kernel_matches_plain(cuda_device, C, K, B, silent,
+                                      phase_scale):
+    """On finite inputs the kernel makes the plain lock's decisions and
+    roundings: bitwise its output."""
+    (oc, os_), (poc, pos_) = _locked(
+        _lock_planes(cuda_device, C, K, B, silent, phase_scale))
+    assert torch.equal(oc, poc) and torch.equal(os_, pos_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [257, 1025, 2049, 4097])
+def test_pv_lock_kernel_ragged_last_cta(cuda_device, B):
+    """A CTA locks several rows, one a warp: row counts that leave the last
+    CTA part empty."""
+    from nodey_tpu_torch.ops import _build
+
+    per_cta = _build.load_library("pv_lock").nodey_pv_lock_rows_per_cta(B)
+    assert per_cta >= 2
+    for rows in (per_cta + 1, 3 * per_cta - 1):
+        (oc, os_), (poc, pos_) = _locked(
+            _lock_planes(cuda_device, 1, rows, B, seed=rows))
+        assert torch.equal(oc, poc) and torch.equal(os_, pos_)
+
+
+@pytest.mark.cuda
+def test_pv_lock_kernel_at_a_mid_clip_chunk_shape(cuda_device):
+    """The streamed PV's pitch-stage chunk shape [2, 1,894, 1025], on the
+    lock inputs of analysed planes, frames from the middle of the clip."""
+    re, im, dpos, hop, n_fft = _pv_planes(cuda_device, 48_000,
+                                          2.0 ** (-4 / 12), 40.0, 2)
+    mag, ph = pv._magnitude_phase(re, im)
+    cos_phi, sin_phi = pv._synthesis_phasors(ph, dpos, hop, n_fft)
+    k0 = (mag.shape[1] - 1894) // 2
+    planes = [t[:, k0 : k0 + 1894].contiguous()
+              for t in (cos_phi, sin_phi, ph, mag)]
+    (oc, os_), (poc, pos_) = _locked(planes)
+    assert oc.shape == (2, 1894, 1025)
+    assert torch.equal(oc, poc) and torch.equal(os_, pos_)
+
+
+@pytest.mark.cuda
+def test_pv_lock_kernel_on_inputs_that_are_not_finite(cuda_device):
+    """NaN magnitudes (rows with no peak, or peaks cut off), infinite and
+    NaN phases and phasors: within 2e-6 of the plain lock, NaN where it is
+    NaN."""
+    planes = _lock_planes(cuda_device, 2, 11, 1025, seed=3)
+    cos_phi, sin_phi, ph_in, mag = planes
+    mag[0, 2] = math.nan
+    mag[1, 4, ::7] = math.nan
+    ph_in[0, 5, 100:140] = math.inf
+    ph_in[1, 6, 600] = -math.inf
+    ph_in[1, 7, 300:310] = math.nan
+    cos_phi[0, 8, 50] = math.nan
+    (oc, os_), (poc, pos_) = _locked(planes)
+    for got, want in ((oc, poc), (os_, pos_)):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.allclose(got, want, rtol=0.0, atol=2e-6, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_pv_lock_kernel_makes_no_stream_sync(cuda_device):
+    """The lock launches without a sync: two calls under
+    set_sync_debug_mode("error"), bitwise the first call's output."""
+    planes = _lock_planes(cuda_device, 2, 40, 1025)
+    want = cuda_pv.lock_to_peaks_cuda(*planes)
+    torch.cuda.synchronize()
+    before = cuda_pv.lock_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [cuda_pv.lock_to_peaks_cuda(*planes) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cuda_pv.lock_launches == before + 2
+    for oc, os_ in got:
+        assert torch.equal(oc, want[0]) and torch.equal(os_, want[1])
 
 
 def _stretch_input():
@@ -686,4 +776,7 @@ def test_pv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         cuda_pv.phase_path_cuda(small, small, dpos, hop // 2, 256)
     with pytest.raises(ValueError, match="one shape"):
         cuda_pv.lock_to_peaks_cuda(re, im, re, im[:, :-1].contiguous())
+    wide = torch.zeros((1, 2, 4098), device=cuda_device)
+    with pytest.raises(ValueError, match="rows of 1 to 4097"):
+        cuda_pv.lock_to_peaks_cuda(wide, wide, wide, wide)
     assert (cuda_pv.phase_path_launches, cuda_pv.lock_launches) == before

@@ -53,3 +53,36 @@ def test_spectrogram_shorter_than_one_frame_is_empty():
         Stream(data=x, length=100, rate=48_000, channels=2)
     )
     assert tuple(out.shape) == (2, 0, 513)
+
+
+def _no_basis(n_fft, device):
+    raise AssertionError("the rfft branch built the DFT basis")
+
+
+@pytest.mark.parametrize("hop", [2048, 3000])
+def test_large_n_fft_takes_rfft_and_matches_jax(monkeypatch, hop):
+    """Above n_fft 4096 the port windows the frames and takes rfft, as the
+    JAX package does (nodey_tpu/ops/stft.py:142-146), and builds no basis:
+    >= 100 dB against the JAX op and against float64, on ~1 s of stereo at
+    n_fft 8,192 (hop dividing n_fft or not)."""
+    monkeypatch.setattr(tstft, "_device_basis", _no_basis)
+    rng = np.random.default_rng(5)
+    n, n_fft = 48_000, 8192
+    t = np.arange(n) / 48_000.0
+    data = np.stack([0.5 * np.sin(2 * np.pi * 1000.0 * t),
+                     0.3 * rng.standard_normal(n)]).astype(np.float32)
+    got = tstft.magnitude_spectrogram(
+        Stream(data=torch.from_numpy(data), length=n, rate=48_000,
+               channels=2), n_fft=n_fft, hop=hop).numpy()
+    want = np.asarray(jstft.magnitude_spectrogram(
+        JStream(data=jnp.asarray(data), length=n, rate=48_000, channels=2),
+        n_fft=n_fft, hop=hop))
+    frames = (n - n_fft) // hop + 1
+    windowed = (np.lib.stride_tricks.sliding_window_view(
+        data.astype(np.float64), n_fft, axis=-1)[:, ::hop][:, :frames]
+        * np.hanning(n_fft))
+    ref = np.abs(np.fft.rfft(windowed, axis=-1))
+    assert got.shape == want.shape == ref.shape == (2, frames, n_fft // 2 + 1)
+    assert got.dtype == np.float32
+    assert snr_db(want, got) >= 100.0
+    assert snr_db(ref, got) >= 100.0
