@@ -150,10 +150,43 @@ Phases, in order; the first failure exits non-zero:
                frames the clip's and >= 100 dB against the offline spectrum's;
                resampler launches per chunk; peak device memory below the
                offline render's.
+ 22. configs-1-3 — BASELINE configs 1 (one mono track, gain 1.2, export)
+               and 3 (two stereo tracks, gains 1.5 and 0.9, amix 0.6/0.4,
+               export), as bench.py builds them, on bench.py's 300 s tones
+               through the CLI: the length, finite, config 1 launching no
+               kernel and config 3 the resampler twice, each launch within
+               2e-6 of plain; each graph's device RTF by CUDA events; card
+               vs CPU on 30 s clips (bench.py's clip length): config 1
+               bitwise, config 3 within 2e-6;
+ 23. config2 — config 2 (split -> gains 0.8 and 1.4 -> bimix) through the
+               CLI at 300 s; device RTF; card vs CPU at 30 s within 2e-6;
+               `run --stream` at 16 s chunks, every step under the sync
+               debug mode, within 3e-7 of the offline export, its
+               whole-export device peak at 100 s and 300 s within 2 MiB and
+               below the offline render's, its wall RTF (median of 3);
+               render_chunked >= 130 dB against the offline render. Every
+               resampler launch of the three paths (offline, streamed,
+               chunked) within 2e-6 of plain on its operands, recorded
+               without a sync and checked after the path's counts are read;
+ 24. config5 — config 5 (four tracks; split/gains/bimix, pitch -3, amix
+               0.3/0.3/0.2/0.2, spectrum) in preview mode through the CLI at
+               300 s: clamped, 6 resampler launches each within 2e-6 of
+               plain, the WSOLA chain at the 44.1 kHz geometry (seq 1,764,
+               seek 660, overlap 352) held as in phase 6 and its energy
+               prologue; device RTF; card vs CPU at 30 s within 2e-6,
+               spectrum >= 100 dB; `run --stream` (the pitch branch keeps
+               the clip's duration, so the graph streams in lockstep) under
+               the sync debug mode within 2e-6 of the offline export, every
+               resampler launch inside its steps within 2e-6 of plain and
+               every launch of the chain's chunk entry held as in phase 13,
+               the splices of all steps equal to the offline chain's; the
+               37/44 transposition (kernel, plain, conv1d) and the chain at
+               this geometry (kernel, plain) beside their bounds.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
-preview, the chunked render). The line before the last is one JSON object
+preview, the chunked render; phases 22-24's: each config's CLI render, the
+streamed exports of configs 2 and 5, config 2's chunked render). The line before the last is one JSON object
 describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -241,6 +274,12 @@ LOCK_TIMED_LAUNCHES = 200
 TOOL_ARGS = ["30", "8"]
 PROBE_STEPS = 4096
 RESAMPLE_DATA_PAIRS = [(44_100, 48_000), (48_000, 44_100)]
+# Phases 22-24: BASELINE configs 1, 2, 3 and 5. bench.py's config clips are
+# 30 s (bench.py:1312): the card-vs-CPU checks run on them. Config 5's pitch
+# node and the WSOLA geometry at 44.1 kHz (seq, seek, overlap).
+CONFIG_CHECK_SECONDS = 30
+CONFIG5_PITCH = -3.0
+CONFIG5_GEOMETRY = (1_764, 660, 352)
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -497,10 +536,13 @@ def read_counts() -> dict:
             "step_probe_dma": cuda_probes.dma_launches}
 
 
-def cli_export(cli, project: str, out_wav: str, tag: str, card: str):
+def cli_export(cli, project: str, out_wav: str, tag: str, card: str,
+               shape=(2, CONFIG4_LENGTH), flag: str = "--export"):
     """Render ``project`` through the port's CLI on the card into
-    ``out_wav``, launch counts set to 0 just before; returns (master,
-    launches by kernel)."""
+    ``out_wav`` (``flag``: "--export", or "--preview" for the preview
+    render), launch counts set to 0 just before; checks the master's
+    ``shape`` and that it is finite; returns (master, launches by
+    kernel)."""
     import numpy as np
 
     from nodey_tpu_torch.host.decode import decode_file
@@ -508,16 +550,17 @@ def cli_export(cli, project: str, out_wav: str, tag: str, card: str):
     stdout = io.StringIO()
     zero_counts()
     with contextlib.redirect_stdout(stdout):
-        rc = cli.main(["run", project, "--export", out_wav, "--device", CARD])
+        rc = cli.main(["run", project, flag, out_wav, "--device", CARD])
     counts = read_counts()
     print("\n".join(f"[{tag}] cli: {line}"
                     for line in stdout.getvalue().splitlines()))
     check(rc == 0, f"{tag}: cli run exited {rc}")
     master = decode_file(out_wav).data
-    print(f"[{tag}] {SECONDS} s export: master {list(master.shape)}, finite "
-          f"{bool(np.isfinite(master).all())}; launches {counts} ({card})")
-    check(master.shape == (2, CONFIG4_LENGTH),
-          f"{tag}: master {master.shape}, want (2, {CONFIG4_LENGTH})")
+    print(f"[{tag}] {SECONDS} s {flag[2:]}: master {list(master.shape)}, "
+          f"finite {bool(np.isfinite(master).all())}; launches {counts} "
+          f"({card})")
+    check(master.shape == tuple(shape),
+          f"{tag}: master {master.shape}, want {tuple(shape)}")
     check(bool(np.isfinite(master).all()), f"{tag}: master not finite")
     return master, counts
 
@@ -689,16 +732,19 @@ def near_tie(x, head, bs, k: int, other: int, geo, k0: int = 0,
     return abs(scores[int(bs[k])] - scores[other]) / np.abs(scores).max()
 
 
-def check_chain(tag: str, x, head, geo, card: str):
+def check_chain(tag: str, x, head, geo, card: str, out=None,
+                phase: str = "6 wsola"):
     """The kernel's chain on (x, head) against the plain version: every
     frame's choice given the kernel's previous one, and the audio given all
-    of them. Returns (bs, body, max|body - plain|)."""
+    of them. ``out``: the kernel's (bs, body) from a launch already made on
+    these operands (else it launches here). Returns (bs, body, max|body -
+    plain|)."""
     import numpy as np
     import torch
 
     from nodey_tpu_torch.ops import cuda_wsola, wsola
 
-    bs, body = cuda_wsola.wsola_chain_cuda(x, head, *chain_args(geo))
+    bs, body = out or cuda_wsola.wsola_chain_cuda(x, head, *chain_args(geo))
     torch.cuda.synchronize()
     bs_host = bs.cpu().numpy()
     replay = wsola.replay_decisions(x, head, bs_host, *chain_args(geo))
@@ -709,7 +755,7 @@ def check_chain(tag: str, x, head, geo, card: str):
             for k in differ]
     worst = max(gaps, default=0.0)
     K = geo["K"]
-    print(f"[6 wsola] {tag}: K={K}, x {list(x.shape)}: {len(differ)} frames "
+    print(f"[{phase}] {tag}: K={K}, x {list(x.shape)}: {len(differ)} frames "
           f"choose otherwise than the plain scoring given the kernel's "
           f"previous choice (max share {TIE_SHARE:g}), worst float64 gap "
           f"{worst:.3e} of the frame's max |score| (max {TIE_REL:g}); "
@@ -720,7 +766,7 @@ def check_chain(tag: str, x, head, geo, card: str):
     return bs, body, err
 
 
-def check_energy(tag: str, x, geo, card: str):
+def check_energy(tag: str, x, geo, card: str, phase: str = "6 wsola"):
     """The chain's energy prologue against its plain version on one chain's
     operands, every frame, in the wrapper's blocks of BLOCK_FRAMES: max
     relative difference <= ENERGY_REL. Returns (max relative, max abs)."""
@@ -735,7 +781,7 @@ def check_energy(tag: str, x, geo, card: str):
         rel = max(rel, ((got - want).abs() / want).max().item())
         err = max(err, (got - want).abs().max().item())
         del got, want
-    print(f"[6 wsola] {tag}: energy prologue, table [{K}, {geo['seek'] + 1}]"
+    print(f"[{phase}] {tag}: energy prologue, table [{K}, {geo['seek'] + 1}]"
           f" in {-(-K // cuda_wsola.BLOCK_FRAMES)} launches: max|kernel - "
           f"plain| / plain = {rel:.3e} (tol {ENERGY_REL:.0e}), max|kernel - "
           f"plain| = {err:.3e} ({card})")
@@ -1118,7 +1164,8 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
     return paths, entries
 
 
-def check_chunk_calls(tag: str, calls, geo, card: str):
+def check_chunk_calls(tag: str, calls, geo, card: str,
+                      phase: str = "13 stream-kernel"):
     """Every recorded chunk-chain launch of one WSOLA stage against the plain
     chunk chain on the same (x, head, k0, base, K): splices equal, or a
     float64 near tie on at most TIE_SHARE of the frames; body and tail_out
@@ -1157,7 +1204,7 @@ def check_chunk_calls(tag: str, calls, geo, card: str):
         worst = max(worst, err)
         frames += K
         decisions.append(bs)
-    print(f"[13 stream-kernel] {tag}: {len(calls)} chunk launches, {frames} "
+    print(f"[{phase}] {tag}: {len(calls)} chunk launches, {frames} "
           f"frames, K {min(c[0][4] for c in calls)}..{max(c[0][4] for c in calls)}"
           f" per launch: {differ_total} frames choose otherwise than the plain "
           f"chunk chain given the kernel's previous choice (max share "
@@ -1773,6 +1820,625 @@ def realtime_and_chunked_phases(cli, card: str, tmp: str, proj_5node: str,
     return {"realtime": counts_rt, "5node_chunked": counts_chunked}
 
 
+# -- BASELINE configs 1, 2, 3 and 5 (phases 22-24) ------------------------------
+
+
+def bench_tone(n: int, rate: int, f0: float, channels: int, seed: int):
+    """bench.py's ``_tone``: a tone, its 3.1x partial and a little noise,
+    [channels, n] float32 (the second channel the first rolled by 211)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / rate
+    base = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
+        2 * np.pi * 3.1 * f0 * t)
+    ch0 = (base + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    if channels == 1:
+        return ch0[None, :]
+    return np.stack([ch0, np.roll(ch0, 211)])
+
+
+def write_bench_tracks(directory: str, seconds: int, tag: str):
+    """bench.py's tracks as s16 WAVs at 44.1 kHz: (config 1's mono track,
+    the four stereo tracks that configs 2, 3 and 5 read the first one, two
+    and four of)."""
+    from nodey_tpu_torch.host.decode import write_wav_s16
+
+    n = RATE * seconds
+    mono = os.path.join(directory, f"bench_mono_{tag}.wav")
+    write_wav_s16(mono, bench_tone(n, RATE, 220.0, 1, 0), RATE)
+    stereo = []
+    for i in range(4):
+        path = os.path.join(directory, f"bench_stereo_{i}_{tag}.wav")
+        write_wav_s16(path, bench_tone(n, RATE, 220.0 * (i + 1), 2, i), RATE)
+        stereo.append(path)
+    return mono, stereo
+
+
+def _input_graph(paths):
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.processors.audio_input import AudioInput
+
+    g = Graph()
+    src = g.add_node(AudioInput())
+    g.nodes[src].processor.file_paths = list(paths)
+    g.update_node_pin(src)
+    return g, src
+
+
+def _gain(g, volume: float):
+    from nodey_tpu_torch.processors.audio_vol import AudioVol
+
+    node = g.add_node(AudioVol())
+    g.nodes[node].processor.set_volume(volume)
+    return node
+
+
+def _split_merge(g, from_pin: int, gains):
+    """Split -> a gain on each channel -> bimix (bias 0); returns the bimix
+    node."""
+    from nodey_tpu_torch.processors.bimix import AudioBimix
+    from nodey_tpu_torch.processors.split import AudioSplit
+
+    split = g.add_node(AudioSplit())
+    vl, vr = _gain(g, gains[0]), _gain(g, gains[1])
+    merge = g.add_node(AudioBimix())
+    g.add_link(from_pin, _pin(g, split, "input"))
+    g.add_link(_pin(g, split, "output_l"), _pin(g, vl, "input"))
+    g.add_link(_pin(g, split, "output_r"), _pin(g, vr, "input"))
+    g.add_link(_pin(g, vl, "output"), _pin(g, merge, "input_l"))
+    g.add_link(_pin(g, vr, "output"), _pin(g, merge, "input_r"))
+    return merge
+
+
+def _amix(g, volumes):
+    from nodey_tpu_torch.processors.amix import AudioAmix
+
+    amix = g.add_node(AudioAmix())
+    g.nodes[amix].processor.set_input_num(len(volumes))
+    g.nodes[amix].processor.volumes = list(volumes)
+    g.update_node_pin(amix)
+    return amix
+
+
+def _output(g, from_pin: int) -> None:
+    from nodey_tpu_torch.processors.audio_output import AudioOutput
+
+    out = g.add_node(AudioOutput())
+    g.add_link(from_pin, _pin(g, out, "input"))
+
+
+def config1_graph(paths):
+    """bench.py:108-120: the mono track -> gain 1.2 -> output (export)."""
+    g, src = _input_graph(paths[:1])
+    vol = _gain(g, 1.2)
+    g.add_link(_pin(g, src, "output_0"), _pin(g, vol, "input"))
+    _output(g, _pin(g, vol, "output"))
+    return g
+
+
+def config2_graph(paths):
+    """bench.py:123-145: track 0 -> split -> gains 0.8 and 1.4 -> bimix ->
+    output (export)."""
+    g, src = _input_graph(paths[:1])
+    merge = _split_merge(g, _pin(g, src, "output_0"), (0.8, 1.4))
+    _output(g, _pin(g, merge, "output"))
+    return g
+
+
+def config3_graph(paths):
+    """bench.py:148-169: tracks 0 and 1 -> gains 1.5 and 0.9 -> amix
+    0.6/0.4 -> output (export)."""
+    g, src = _input_graph(paths[:2])
+    v0, v1 = _gain(g, 1.5), _gain(g, 0.9)
+    amix = _amix(g, (0.6, 0.4))
+    g.add_link(_pin(g, src, "output_0"), _pin(g, v0, "input"))
+    g.add_link(_pin(g, src, "output_1"), _pin(g, v1, "input"))
+    g.add_link(_pin(g, v0, "output"), _pin(g, amix, "input_1"))
+    g.add_link(_pin(g, v1, "output"), _pin(g, amix, "input_2"))
+    _output(g, _pin(g, amix, "output"))
+    return g
+
+
+def config5_graph(paths):
+    """bench.py:258-300: track 0 split -> gains 0.7 and 1.3 -> bimix; track
+    1 -> pitch -3; the four branches -> amix 0.3/0.3/0.2/0.2 -> spectrum ->
+    output (preview)."""
+    from nodey_tpu_torch.processors.spectrum import AudioSpectrum
+    from nodey_tpu_torch.processors.velocity import PitchModifier
+
+    g, src = _input_graph(paths[:4])
+    merge = _split_merge(g, _pin(g, src, "output_0"), (0.7, 1.3))
+    pitch = g.add_node(PitchModifier())
+    g.nodes[pitch].processor.pitch = CONFIG5_PITCH
+    g.add_link(_pin(g, src, "output_1"), _pin(g, pitch, "input"))
+    amix = _amix(g, (0.3, 0.3, 0.2, 0.2))
+    g.add_link(_pin(g, merge, "output"), _pin(g, amix, "input_1"))
+    g.add_link(_pin(g, pitch, "output"), _pin(g, amix, "input_2"))
+    g.add_link(_pin(g, src, "output_2"), _pin(g, amix, "input_3"))
+    g.add_link(_pin(g, src, "output_3"), _pin(g, amix, "input_4"))
+    spec = g.add_node(AudioSpectrum())
+    g.add_link(_pin(g, amix, "output"), _pin(g, spec, "input"))
+    _output(g, _pin(g, spec, "output"))
+    return g
+
+
+def write_project(graph, path: str) -> str:
+    with open(path, "w") as f:
+        json.dump(graph.serialize(), f)
+    return path
+
+
+def device_rtf(tag: str, what: str, graph, mode: str, card: str,
+               iters: int = 5, warmup: int = 1, profile=None) -> float:
+    """The graph's whole device render by CUDA events (after a first
+    render, whose device peak above its inputs is printed): audio-seconds
+    per device-second, printed and returned. ``profile`` (tag, what): then
+    one render under torch.profiler (profile_render)."""
+    import torch
+
+    from nodey_tpu_torch.core.runner import Runner
+
+    runner = Runner(graph, device=CARD)
+    arrays, lengths, sources = runner.decode()
+    compiled = runner.compile(sources, mode)
+    args = runner.ingest(arrays, lengths)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    outputs, meta = compiled(args)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    key = "master" if mode == "export" else "preview"
+    audio_s = outputs[key][1] / meta[key]["rate"]
+    del outputs
+    med, lo, hi, count = summary(cuda_ms(lambda: compiled(args), iters,
+                                         warmup=warmup))
+    rtf = audio_s / (med / 1e3)
+    print(f"[{tag}] {what}, {audio_s:.3f} audio-s ({mode}): device render "
+          f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, n={count}), RTF "
+          f"{rtf:.1f} audio-s per device-s; peak {peak:.2f} GiB above its "
+          f"inputs ({card})")
+    if profile:
+        profile_render(lambda: compiled(args), card, *profile)
+    return rtf
+
+
+def card_vs_cpu(tag: str, what: str, make_graph, mode: str, card: str,
+                bitwise: bool = False) -> float:
+    """The graph rendered on the card and on the CPU: equal shapes, the
+    master bitwise (``bitwise``) or within TOL, every spectrum >= SNR_DB.
+    Returns max|card - cpu| of the master."""
+    import numpy as np
+
+    from nodey_tpu_torch.core.runner import Runner
+
+    on_card = Runner(make_graph(), device=CARD).render(mode)
+    on_cpu = Runner(make_graph(), device="cpu").render(mode)
+    check(on_card.master.shape == on_cpu.master.shape,
+          f"{tag}: {what}: master {on_card.master.shape} on the card, "
+          f"{on_cpu.master.shape} on the CPU")
+    err = float(np.abs(on_card.master - on_cpu.master).max())
+    spectra = {key: snr_db(on_cpu.spectra[key], on_card.spectra[key])
+               for key in on_cpu.spectra}
+    print(f"[{tag}] {what}, {CONFIG_CHECK_SECONDS} s clips ({mode}): master "
+          f"{list(on_card.master.shape)} {on_card.fmt}, max|card - cpu| = "
+          f"{err:.3e} ({'bitwise' if bitwise else f'tol {TOL:.0e}'}); spectra"
+          f" SNR {({k: round(v, 1) for k, v in spectra.items()})} (min "
+          f"{SNR_DB:.0f} dB) ({card})")
+    check(err == 0.0 if bitwise else err <= TOL,
+          f"{tag}: {what}: the card's master disagrees with the CPU's")
+    check(all(db >= SNR_DB for db in spectra.values()),
+          f"{tag}: {what}: the card's spectrum disagrees with the CPU's")
+    return err
+
+
+@contextlib.contextmanager
+def recorded_launches(resamples=None, chains=None, chunk_chains=None):
+    """Inside the block, every launch of the resampler kernel appends its
+    operands and the kernel's output to ``resamples``, every offline WSOLA
+    chain its operands and the kernel's (bs, body) to ``chains``, and every
+    chunk-chain launch (K > 0) its operands and the kernel's (bs, body,
+    tail_out) to ``chunk_chains`` (each list that is given). Clones, taken
+    on the stream of the launch, so no streamed step syncs: they are held
+    against the plain versions after the path's counts are read."""
+    from nodey_tpu_torch.ops import resample as tr
+    from nodey_tpu_torch.ops import wsola
+
+    saved = tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain
+    resampler, chain, chunk_chain = saved
+
+    def recording_resampler(x, G, M, W, bank, support):
+        got = resampler(x, G, M, W, bank, support)
+        resamples.append(((x.clone(), G, M, W, bank, support), got.clone()))
+        return got
+
+    def recording_chain(x, head, *args):
+        out = chain(x, head, *args)
+        chains.append((x.clone(), head.clone(), args, out))
+        return out
+
+    def recording_chunk_chain(*a):
+        out = chunk_chain(*a)
+        if a[4]:
+            chunk_chains.append(((a[0].clone(), a[1].clone(), *a[2:]),
+                                 tuple(t.clone() for t in out)))
+        return out
+
+    if resamples is not None:
+        tr.apply_filter_bank = recording_resampler
+    if chains is not None:
+        wsola.wsola_chain = recording_chain
+    if chunk_chains is not None:
+        wsola.wsola_chunk_chain = recording_chunk_chain
+    try:
+        yield
+    finally:
+        tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain = \
+            saved
+
+
+def check_resamples(tag: str, resamples, launched: int, card: str) -> float:
+    """Every recorded resampler launch (recorded_launches) against the
+    plain resampler on its operands: finite and within TOL, and as many
+    recorded launches as the path's count ``launched``. One line for each
+    (x's shape, L/M); returns the worst max|kernel - plain|."""
+    import torch
+
+    from nodey_tpu_torch.ops import resample as tr
+
+    check(len(resamples) == launched, f"{tag}: {len(resamples)} resampler "
+          f"launches held against plain, the path counted {launched}")
+    groups = {}
+    for (x, G, M, W, bank, _support), got in resamples:
+        want = tr.apply_filter_bank_plain(x, G, M, W, bank)
+        check(bool(torch.isfinite(got).all()),
+              f"{tag}: the resampler kernel gave a value that is not finite")
+        key = (tuple(x.shape), bank.shape[0], M)
+        count, worst = groups.get(key, (0, 0.0))
+        groups[key] = (count + 1, max(worst, (got - want).abs().max().item()))
+    for (shape, L, M), (count, worst) in groups.items():
+        print(f"[{tag}] resampler, {count} launch(es) at x {list(shape)}, L/M "
+              f"{L}/{M}: max|kernel - plain| = {worst:.3e} (tol {TOL:.0e}) "
+              f"({card})")
+    worst = max((w for _, w in groups.values()), default=0.0)
+    check(worst <= TOL, f"{tag}: a resampler launch disagrees with plain")
+    return worst
+
+
+def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
+                           tol: float, card: str, tmp: str,
+                           short_tracks=None, record=None) -> dict:
+    """`run --stream --export` of ``project`` on the card, every step under
+    the sync debug mode (checked_steps) and inside ``record`` (a context
+    manager, e.g. recorded_launches), launch counts set to 0 just before
+    and read just after: exit code 0, the export streamed in >= 4 steps,
+    its master equal in length to ``offline()`` (the offline render's
+    master on the host) and within ``tol``. With ``short_tracks``: the
+    project exported again on them (SHORT_SECONDS) and as it is (after that
+    first export, so the one-time allocations, filter banks and the DFT
+    basis, are in place), the whole export's device peak each, within
+    STREAM_SLACK_BYTES of each other and below the offline render's peak on
+    the same project. Returns dict(counts, err, device_ms, metrics)."""
+    import numpy as np
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import decode_file
+
+    out_wav = os.path.join(tmp, f"{what}_streamed.wav")
+    spans = []
+    zero_counts()
+    with checked_steps(spans), record or contextlib.nullcontext():
+        rc, text, metrics = stream_export(cli, project, out_wav)
+    counts = read_counts()
+    print("\n".join(f"[{phase}] {what} cli: {line}"
+                    for line in text.splitlines()))
+    check(rc == 0, f"{what}: cli run --stream exited {rc}")
+    check(metrics is not None, f"{what}: the export did not stream")
+    got = decode_file(out_wav).data
+    want = offline()
+    check(got.shape == want.shape,
+          f"{what}: streamed master {got.shape}, offline {want.shape}")
+    err = float(np.abs(got - want).max())
+    del got, want
+    device_ms = sum(a.elapsed_time(b) for a, b in spans)
+    memory, peaks = "", {}
+    if short_tracks is not None:
+        short_project = project_with_tracks(
+            project, short_tracks,
+            os.path.join(tmp, f"{what}_{SHORT_SECONDS}s.json"))
+        for seconds, proj in ((SHORT_SECONDS, short_project),
+                              (SECONDS, project)):
+            result = []
+            peaks[seconds] = device_peak(lambda: result.append(
+                stream_export(cli, proj, out_wav)))
+            check(result[0][0] == 0 and result[0][2] is not None,
+                  f"{what}: the {seconds} s streamed export failed")
+        offline_peak = device_peak(lambda: Runner(
+            cli._load_graph(project), device=CARD).render("export"))
+        memory = (f"; peak device memory of a whole streamed export "
+                  f"{peaks[SHORT_SECONDS] / 2**20:.1f} MiB at {SHORT_SECONDS}"
+                  f" s, {peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
+                  f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB), offline render "
+                  f"{offline_peak / 2**20:.1f} MiB")
+    print(f"[{phase}] {what}: {SECONDS} s streamed master at "
+          f"{STREAM_CHUNK_SECONDS} s chunks equal in length to the offline "
+          f"render, max|diff| {err:.3e} (tol {tol:.0e}); launches {counts}; "
+          f"{len(spans)} steps under sync debug mode 'error', device span "
+          f"{device_ms:.4f} ms{memory}; host RSS peak of this process "
+          f"{metrics.rss_peak_bytes / 2**20:.0f} MiB ({card})")
+    check(err <= tol, f"{what}: streamed master disagrees with offline")
+    check(len(spans) == metrics.steps >= 4,
+          f"{what}: {len(spans)} checked steps of {metrics.steps}")
+    if peaks:
+        check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
+              f"{what}: streamed device memory grows with clip length")
+        check(peaks[SECONDS] < offline_peak,
+              f"{what}: streaming took more memory than the offline render")
+    return dict(counts=counts, err=err, device_ms=device_ms, metrics=metrics)
+
+
+def stream_times(cli, phase: str, name: str, what: str, project: str,
+                 out_wav: str, device_ms: float, card: str):
+    """STREAM_TIMED_RUNS exports of ``project`` through `run --stream`,
+    nothing instrumented: the wall RTF's median, and the median export's
+    stage budget beside ``device_ms`` (its steps' device span, from
+    streamed_export_checks), printed. Returns the median export's
+    StreamMetrics."""
+    runs = []
+    for _ in range(STREAM_TIMED_RUNS):
+        rc, _text, m = stream_export(cli, project, out_wav)
+        check(rc == 0 and m is not None,
+              f"{name}: a timed streamed export failed")
+        runs.append(m)
+    runs.sort(key=lambda r: r.rtf)
+    m = runs[len(runs) // 2]
+    print(f"[{phase}] {name} ({what}, {SECONDS} s, {STREAM_CHUNK_SECONDS} s "
+          f"chunks, nothing instrumented): wall RTF median {m.rtf:.1f} (min "
+          f"{runs[0].rtf:.1f}, max {runs[-1].rtf:.1f}, n={len(runs)}); the "
+          f"median export: {m.audio_seconds:.3f} audio-s in "
+          f"{m.wall_seconds:.4f} s wall, {m.steps} steps, plan "
+          f"{m.compile_seconds:.4f} s, decode wait "
+          f"{m.decode_wait_seconds:.4f} s, egress wait "
+          f"{m.egress_wait_seconds:.4f} s, d2h busy {m.d2h_busy_seconds:.4f} "
+          f"s, sink busy {m.sink_busy_seconds:.4f} s; the steps' device span "
+          f"(CUDA events around each step of the checked export) "
+          f"{device_ms:.4f} ms ({card})")
+    return m
+
+
+def config_phases(cli, card: str, tmp: str, short_track: str):
+    """Phases 22-24 (see the module docstring). ``short_track``: a
+    SHORT_SECONDS-long stereo track (phase 14's). Returns (launch counts by
+    path, the figures for the kernels line)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.core.streaming import render_chunked
+    from nodey_tpu_torch.host.decode import decode_file
+    from nodey_tpu_torch.ops import cuda_resample, cuda_wsola, stretch, wsola
+    from nodey_tpu_torch.ops import resample as tr
+
+    paths, figures = {}, {}
+    mono, stereo = write_bench_tracks(tmp, SECONDS, f"{SECONDS}s")
+    mono30, stereo30 = write_bench_tracks(tmp, CONFIG_CHECK_SECONDS,
+                                          f"{CONFIG_CHECK_SECONDS}s")
+    n = RATE * SECONDS
+    n48 = -(-n * 160 // 147)
+
+    # -- 22. configs 1 and 3 -------------------------------------------------
+    tag = "22 configs-1-3"
+    t0 = time.perf_counter()
+    resample_err = 0.0
+    for name, make, tracks, tracks30, shape, bitwise in (
+            ("config1", config1_graph, [mono], [mono30], (1, n), True),
+            ("config3", config3_graph, stereo, stereo30, (2, n48), False)):
+        proj = write_project(make(tracks), os.path.join(tmp, f"{name}.json"))
+        resamples = []
+        with recorded_launches(resamples):
+            _, counts = cli_export(cli, proj, os.path.join(tmp, f"{name}.wav"),
+                                   tag, card, shape=shape)
+        paths[name] = counts
+        want = 0 if name == "config1" else 2
+        check(counts["polyphase_resample"] == want
+              and sum(counts.values()) == want,
+              f"{tag}: {name} launched {counts}, want {want} resampler "
+              f"launches and nothing else")
+        resample_err = max(resample_err, check_resamples(
+            f"{tag}: {name}", resamples, want, card))
+        del resamples
+        figures[f"{name}_rtf"] = device_rtf(tag, name, make(tracks), "export",
+                                            card)
+        card_vs_cpu(tag, name, lambda: make(tracks30), "export", card,
+                    bitwise=bitwise)
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+
+    # -- 23. config 2 ----------------------------------------------------------
+    tag = "23 config2"
+    t0 = time.perf_counter()
+    proj2 = write_project(config2_graph(stereo),
+                          os.path.join(tmp, "config2.json"))
+    wav2 = os.path.join(tmp, "config2.wav")
+    resamples = []
+    with recorded_launches(resamples):
+        _, counts = cli_export(cli, proj2, wav2, tag, card, shape=(2, n48))
+    paths["config2"] = counts
+    check(counts["polyphase_resample"] == 2,
+          f"{tag}: {counts['polyphase_resample']} resampler launches, want "
+          f"one per bimix side")
+    resample_err = max(resample_err, check_resamples(
+        f"{tag}: offline", resamples, 2, card))
+    del resamples
+    figures["config2_rtf"] = device_rtf(tag, "config2", config2_graph(stereo),
+                                        "export", card)
+    card_vs_cpu(tag, "config2", lambda: config2_graph(stereo30), "export",
+                card)
+
+    resamples = []
+    streamed = streamed_export_checks(
+        cli, tag, "config2", proj2, lambda: decode_file(wav2).data,
+        STREAM_MIX_TOL, card, tmp, short_tracks=[short_track],
+        record=recorded_launches(resamples))
+    paths["config2_streamed"] = counts = streamed["counts"]
+    check(counts["polyphase_resample"] >= 2
+          and sum(counts.values()) == counts["polyphase_resample"],
+          f"{tag}: the streamed config 2 launched {counts}")
+    resample_err = max(resample_err, check_resamples(
+        f"{tag}: streamed", resamples, counts["polyphase_resample"], card))
+    del resamples
+    figures["config2_streamed_wall_rtf"] = stream_times(
+        cli, tag, "config2_streamed_wav", "config 2, WAV sink", proj2,
+        os.path.join(tmp, "config2_timed.wav"), streamed["device_ms"],
+        card).rtf
+
+    graph = cli._load_graph(proj2)
+    whole = Runner(graph, device=CARD).render("export").master
+    resamples = []
+    zero_counts()
+    with recorded_launches(resamples):
+        chunked, rate, _fmt, _ = render_chunked(graph, device=CARD)
+    paths["config2_chunked"] = counts = read_counts()
+    db = snr_db(whole, chunked)
+    print(f"[{tag}] render_chunked: master {list(chunked.shape)} at {rate} Hz"
+          f" vs the offline render {list(whole.shape)}: SNR {db:.1f} dB (min "
+          f"130); launches {counts} ({card})")
+    check(chunked.shape == whole.shape and db >= 130.0,
+          f"{tag}: the chunked master disagrees with the offline render")
+    resample_err = max(resample_err, check_resamples(
+        f"{tag}: chunked", resamples, counts["polyphase_resample"], card))
+    del whole, chunked, resamples
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+
+    # -- 24. config 5 ----------------------------------------------------------
+    tag = "24 config5"
+    t0 = time.perf_counter()
+    proj5 = write_project(config5_graph(stereo),
+                          os.path.join(tmp, "config5.json"))
+    pitch = 2.0 ** (CONFIG5_PITCH / 12.0)
+    num, den = stretch._rational_factor(pitch)
+    resamples, chains = [], []
+    with recorded_launches(resamples, chains):
+        master, counts = cli_export(
+            cli, proj5, os.path.join(tmp, "config5_preview.wav"), tag, card,
+            shape=(2, n48), flag="--preview")
+    paths["config5"] = counts
+    check(float(np.abs(master).max()) <= 1.0, f"{tag}: preview not clamped")
+    del master
+    # Bimix sides 2, the transposition 1, amix inputs 2-4 3.
+    check(counts["polyphase_resample"] == 6,
+          f"{tag}: {counts['polyphase_resample']} resampler launches, want 6")
+    check(len(chains) == 1, f"{tag}: {len(chains)} WSOLA chains, want 1")
+    x, head, args, out = chains[0]
+    geo = dict(zip(("K", "num", "den", "seq", "seek", "overlap"), args))
+    blocks = -(-geo["K"] // cuda_wsola.BLOCK_FRAMES)
+    check(counts["wsola_chain"] == blocks == counts["wsola_energy"],
+          f"{tag}: WSOLA launches {counts}, want {blocks} each")
+    check((geo["seq"], geo["seek"], geo["overlap"]) == CONFIG5_GEOMETRY,
+          f"{tag}: WSOLA geometry {geo}, want seq/seek/overlap "
+          f"{CONFIG5_GEOMETRY}")
+    resample_err = max(resample_err, check_resamples(
+        f"{tag}: offline", resamples, 6, card))
+    # The transposition's operands, timed below.
+    [operands] = [ops for ops, _ in resamples
+                  if (ops[4].shape[0], ops[2]) == (den, num)]
+    del resamples
+    _, _, chain_err = check_chain(
+        f"pitch {CONFIG5_PITCH:g} stage at 44.1 kHz, tempo {1 / pitch:.5f}",
+        x, head, geo, card, out=out, phase=tag)
+    energy_rel, energy_err = check_energy("pitch stage at 44.1 kHz", x, geo,
+                                          card, phase=tag)
+    figures["config5_rtf"] = device_rtf(tag, "config5", config5_graph(stereo),
+                                        "preview", card, iters=3)
+    card_vs_cpu(tag, "config5", lambda: config5_graph(stereo30), "preview",
+                card)
+
+    # Streamed (the pitch branch keeps the clip's duration, so the mixer's
+    # inputs arrive in lockstep): every resampler launch and every launch of
+    # the chain's chunk entry inside the steps held against its plain
+    # version, and the chunk chain's splices of all steps against the
+    # offline chain kernel's.
+    resamples, chunk_calls = [], []
+    streamed = streamed_export_checks(
+        cli, tag, "config5", proj5, lambda: Runner(
+            cli._load_graph(proj5), device=CARD).render("export").master,
+        TOL, card, tmp, record=recorded_launches(
+            resamples, chunk_chains=chunk_calls))
+    paths["config5_streamed"] = counts = streamed["counts"]
+    check(counts["wsola_chain"] >= 2 and counts["polyphase_resample"] >= 6,
+          f"{tag}: the streamed config 5 launched {counts}")
+    resample_err = max(resample_err, check_resamples(
+        f"{tag}: streamed", resamples, counts["polyphase_resample"], card))
+    del resamples
+    check(sum(-(-a[4] // cuda_wsola.BLOCK_FRAMES) for a, _ in chunk_calls)
+          == counts["wsola_chain"], f"{tag}: {len(chunk_calls)} chunk-chain "
+          f"calls recorded for {counts['wsola_chain']} launches")
+    chunk_geo = dict(zip(("num", "den", "seq", "seek", "overlap"),
+                         chunk_calls[0][0][5:10]))
+    streamed_bs, chunk_err = check_chunk_calls(
+        "config 5 pitch stage", chunk_calls, chunk_geo, card, phase=tag)
+    same = torch.equal(streamed_bs, out[0][: streamed_bs.numel()])
+    print(f"[{tag}] pitch stage: splices of all {len(chunk_calls)} chunk "
+          f"launches ({streamed_bs.numel()} frames) "
+          f"{'equal' if same else 'DIFFER from'} the offline chain kernel's "
+          f"first {streamed_bs.numel()} of K={geo['K']}; streamed wall RTF "
+          f"{streamed['metrics'].rtf:.1f} (one export) ({card})")
+    check(same, f"{tag}: streamed splices differ from offline")
+    del chunk_calls, streamed_bs
+
+    # Times at this path's new shapes: the -3 semitone transposition, and
+    # the chain at the 44.1 kHz geometry.
+    tx, G, M, W, bank, support = operands
+    transpose_bound = resample_work_bound(tx, G, M, bank)
+    fns = {
+        "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
+                                    tx, G, M, W, support),
+        "plain": functools.partial(tr.apply_filter_bank_plain, tx, G, M, W,
+                                   bank),
+        "conv1d": functools.partial(F.conv1d, tx.view(2, 1, -1),
+                                    bank.view(-1, 1, W), stride=M),
+    }
+    transpose = time_resampler(
+        tag, f"{num}/{den} transposition (pitch {CONFIG5_PITCH:g}), bank "
+        f"{list(bank.shape)}, x {list(tx.shape)}", fns,
+        ("plain", "conv1d", "kernel", "kernel", "conv1d", "plain"), 5, card,
+        transpose_bound)
+    del fns, operands, tx
+    runs = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = (cuda_wsola.wsola_chain_cuda if name == "kernel"
+              else wsola.wsola_chain_plain)
+        runs[name] += cuda_ms(lambda: fn(x, head, *args), 2, warmup=1)
+    K, n_cand = geo["K"], geo["seek"] + 1
+    C, ov, stride = x.shape[0], geo["overlap"], geo["seq"] - geo["overlap"]
+    chain_bound = bound(4 * (x.numel() + K + C * K * stride),
+                        2 * C * ov * n_cand * K)
+    chain = {name: summary(runs[name])[0] for name in runs}
+    for name in runs:
+        med, lo, hi, count = summary(runs[name])
+        print(f"[{tag}] WSOLA chain at 44.1 kHz, K={K}, x {list(x.shape)}, "
+              f"{name}: median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+              f"n={count}) ({card})")
+    print(f"[{tag}] WSOLA chain at 44.1 kHz bound: {chain_bound[0]:.4f} ms by "
+          f"{chain_bound[1]}; kernel at {chain_bound[0] / chain['kernel']:.2%}"
+          f" of it; {chain['kernel'] * 1e3 / K:.4f} us per frame ({card})")
+    figures["transposition_minus3"] = {
+        "rate_pair": f"{num}/{den}",
+        "ms": transpose["kernel"], "plain_ms": transpose["plain"],
+        "bound_ms": transpose_bound[0], "bound_by": transpose_bound[1],
+        "library_ms": transpose["conv1d"]}
+    figures["chain_44100"] = {
+        "K": K, "seek": geo["seek"], "ms": chain["kernel"],
+        "plain_ms": chain["plain"], "bound_ms": chain_bound[0],
+        "bound_by": chain_bound[1], "max_abs_err": chain_err,
+        "energy_max_rel_err": energy_rel, "energy_max_abs_err": energy_err,
+        "chunk_max_abs_err": chunk_err}
+    figures["resample_err"] = resample_err
+    del x, head, out, chains
+    torch.cuda.synchronize()
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    return paths, figures
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1929,18 +2595,9 @@ def main() -> int:
         plain_ms = resample_times["44.1->48"]["plain"]
         del data, x, fns
 
-        runner = Runner(flagship_graph(paths), device=CARD)
-        arrays, lengths, sources = runner.decode()
-        compiled = runner.compile(sources, "export")
-        args = runner.ingest(arrays, lengths)
-        outputs, meta = compiled(args)
-        audio_s = outputs["master"][1] / meta["master"]["rate"]
-        med, lo, hi, count = summary(cuda_ms(lambda: compiled(args), 10))
-        print(f"[5 times] 5-node graph, {audio_s:.3f} audio-s: device render "
-              f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, n={count}), "
-              f"RTF {audio_s / (med / 1e3):.1f} audio-s per device-s "
-              f"({card})")
-        del runner, arrays, compiled, args, outputs, paths
+        device_rtf("5 times", "5-node graph", flagship_graph(paths), "export",
+                   card, iters=10, warmup=2)
+        del paths
 
         # -- 6. wsola ----------------------------------------------------------
         for rate, tempo in GOLDEN_CASES:
@@ -2152,19 +2809,8 @@ def main() -> int:
               f"kernel {kernel_ms:.4f} ms ({card})")
         del data, x
 
-        runner = Runner(config4_graph(track_path), device=CARD)
-        arrays, lengths, sources = runner.decode()
-        compiled = runner.compile(sources, "export")
-        args = runner.ingest(arrays, lengths)
-        outputs, meta = compiled(args)
-        audio_s = outputs["master"][1] / meta["master"]["rate"]
-        med, lo, hi, count = summary(cuda_ms(lambda: compiled(args), 3, warmup=1))
-        print(f"[8 times] config 4, {audio_s:.3f} audio-s: device render "
-              f"median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, n={count}), "
-              f"RTF {audio_s / (med / 1e3):.1f} audio-s per device-s "
-              f"({card})")
-        profile_render(lambda: compiled(args), card)
-        del runner, arrays, compiled, args, outputs
+        device_rtf("8 times", "config 4", config4_graph(track_path), "export",
+                   card, iters=3, profile=("8 times", "config-4"))
 
         # -- 9. pv-kernels -----------------------------------------------------
         pv_worst = {"abs": 0.0, "lock": 0.0}
@@ -2320,23 +2966,9 @@ def main() -> int:
                   f"{pv_times[tag]['phase bound'][0]:.4f} ms ({card})")
         del pv_ops, lock_inputs, fns
 
-        runner = Runner(config4_graph(track_path, algorithm="pv"), device=CARD)
-        arrays, lengths, sources = runner.decode()
-        compiled = runner.compile(sources, "export")
-        args = runner.ingest(arrays, lengths)
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        outputs, meta = compiled(args)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        audio_s = outputs["master"][1] / meta["master"]["rate"]
-        del outputs
-        med, lo, hi, count = summary(cuda_ms(lambda: compiled(args), 3, warmup=1))
-        print(f"[12 times] config 4 on the phase vocoder, {audio_s:.3f} audio-s: "
-              f"device render median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
-              f"n={count}), rtf_config4_pv {audio_s / (med / 1e3):.1f} audio-s "
-              f"per device-s; peak {peak:.2f} GiB above its inputs ({card})")
-        profile_render(lambda: compiled(args), card, "12 times", "config-4 PV")
-        del runner, arrays, compiled, args
+        device_rtf("12 times", "config 4 on the phase vocoder (rtf_config4_pv)",
+                   config4_graph(track_path, algorithm="pv"), "export", card,
+                   iters=3, profile=("12 times", "config-4 PV"))
 
         # -- 13. stream-kernel -------------------------------------------------
         # Config 4 streamed at 16 s chunks on phase 6's data (track 1, float
@@ -2407,67 +3039,21 @@ def main() -> int:
         # Both graphs at 300 s through `run --stream`, every step under the
         # sync debug mode, against the offline card renders of phases 4 and
         # 7, launch counts set to 0 just before. Then device memory: each
-        # graph exported again at 100 s and at 300 s (after that first
-        # export, so the one-time allocations, filter banks and the DFT
-        # basis, are in place), the whole export's peak each, beside the
-        # offline render's peak on the same project.
+        # graph exported again at 100 s and at 300 s, the whole export's
+        # peak each, beside the offline render's peak on the same project.
         short_paths = write_tracks(tmp, make_signals(SHORT_SECONDS, seed=5),
                                    f"{SHORT_SECONDS}s")
         streamed = {}
         for tag, proj, offline_wav, tol, short_tracks in (
                 ("5node", proj_5node, wav_5node, STREAM_MIX_TOL, short_paths),
                 ("config4", proj_c4, wav_c4, TOL, short_paths[:1])):
-            out_wav = os.path.join(tmp, f"{tag}_streamed.wav")
-            spans = []
-            zero_counts()
-            with checked_steps(spans):
-                rc, text, metrics = stream_export(cli, proj, out_wav)
-            counts = read_counts()
-            print("\n".join(f"[14 streamed] {tag} cli: {line}"
-                            for line in text.splitlines()))
-            check(rc == 0, f"{tag}: cli run --stream exited {rc}")
-            check(metrics is not None, f"{tag}: the export did not stream")
-            got = decode_file(out_wav).data
-            want = decode_file(offline_wav).data
-            check(got.shape == want.shape,
-                  f"{tag}: streamed master {got.shape}, offline {want.shape}")
-            err = float(np.abs(got - want).max())
-            del got, want
-            device_ms = sum(a.elapsed_time(b) for a, b in spans)
-
-            short_proj = project_with_tracks(
-                proj, short_tracks,
-                os.path.join(tmp, f"{tag}_{SHORT_SECONDS}s.json"))
-            peaks = {}
-            for seconds, project in ((SHORT_SECONDS, short_proj),
-                                     (SECONDS, proj)):
-                result = []
-                peaks[seconds] = device_peak(lambda: result.append(
-                    stream_export(cli, project, out_wav)))
-                check(result[0][0] == 0 and result[0][2] is not None,
-                      f"{tag}: the {seconds} s streamed export failed")
-            offline_peak = device_peak(lambda: Runner(
-                cli._load_graph(proj), device=CARD).render("export"))
-            streamed[tag] = dict(counts=counts, err=err, device_ms=device_ms)
-            print(f"[14 streamed] {tag}: {SECONDS} s streamed master equal "
-                  f"in length to the offline card render, max|diff| "
-                  f"{err:.3e} (tol {tol:.0e}); launches {counts}; "
-                  f"{len(spans)} steps under sync debug mode 'error'; peak "
-                  f"device memory of a whole streamed export "
-                  f"{peaks[SHORT_SECONDS] / 2**20:.1f} MiB at {SHORT_SECONDS}"
-                  f" s, {peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
-                  f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB), offline render "
-                  f"{offline_peak / 2**20:.1f} MiB; host RSS peak of this "
-                  f"process {metrics.rss_peak_bytes / 2**20:.0f} MiB ({card})")
-            check(err <= tol, f"{tag}: streamed master disagrees with offline")
-            check(counts["polyphase_resample"] >= 1,
-                  f"{tag}: resampler launched {counts['polyphase_resample']}")
-            check(len(spans) == metrics.steps >= 4,
-                  f"{tag}: {len(spans)} checked steps of {metrics.steps}")
-            check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
-                  f"{tag}: streamed device memory grows with clip length")
-            check(peaks[SECONDS] < offline_peak,
-                  f"{tag}: streaming took more memory than the offline render")
+            streamed[tag] = streamed_export_checks(
+                cli, "14 streamed", tag, proj,
+                lambda wav=offline_wav: decode_file(wav).data, tol, card, tmp,
+                short_tracks=short_tracks)
+            check(streamed[tag]["counts"]["polyphase_resample"] >= 1,
+                  f"{tag}: resampler launched "
+                  f"{streamed[tag]['counts']['polyphase_resample']}")
         check(streamed["config4"]["counts"]["wsola_chain"] >= 2
               and streamed["config4"]["counts"]["wsola_energy"] >= 2,
               "the WSOLA kernel did not run on the streamed config 4")
@@ -2478,27 +3064,9 @@ def main() -> int:
                  "5-node graph, two tracks"),
                 ("config4", proj_c4, "e2e_streamed_timevariant",
                  "config 4 on WSOLA, WAV sink")):
-            runs = []
-            for _ in range(STREAM_TIMED_RUNS):
-                rc, _text, m = stream_export(
-                    cli, proj, os.path.join(tmp, f"{tag}_timed.wav"))
-                check(rc == 0 and m is not None,
-                      f"{tag}: a timed streamed export failed")
-                runs.append(m)
-            runs.sort(key=lambda r: r.rtf)
-            m = runs[len(runs) // 2]
-            print(f"[15 stream times] {name} ({what}, {SECONDS} s, "
-                  f"{STREAM_CHUNK_SECONDS} s chunks, nothing instrumented): "
-                  f"wall RTF median {m.rtf:.1f} (min {runs[0].rtf:.1f}, max "
-                  f"{runs[-1].rtf:.1f}, n={len(runs)}); the median export: "
-                  f"{m.audio_seconds:.3f} audio-s in {m.wall_seconds:.4f} s "
-                  f"wall, {m.steps} steps, plan {m.compile_seconds:.4f} s, "
-                  f"decode wait {m.decode_wait_seconds:.4f} s, egress wait "
-                  f"{m.egress_wait_seconds:.4f} s, d2h busy "
-                  f"{m.d2h_busy_seconds:.4f} s, sink busy "
-                  f"{m.sink_busy_seconds:.4f} s; the steps' device span "
-                  f"(CUDA events around each step of phase 14's export) "
-                  f"{streamed[tag]['device_ms']:.4f} ms ({card})")
+            stream_times(cli, "15 stream times", name, what, proj,
+                         os.path.join(tmp, f"{tag}_timed.wav"),
+                         streamed[tag]["device_ms"], card)
         chunk_times = {}
         for tag in ("pitch", "velocity"):
             plan = plans[tag]
@@ -2552,6 +3120,10 @@ def main() -> int:
         session_paths = realtime_and_chunked_phases(cli, card, tmp, proj_5node,
                                                     excerpt)
 
+        # -- 22-24. configs 1, 2, 3 and 5 ------------------------------------
+        config_paths, config_figures = config_phases(cli, card, tmp,
+                                                     short_paths[0])
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -2559,7 +3131,7 @@ def main() -> int:
             ("5node_streamed", streamed["5node"]["counts"]),
             ("config4_streamed", streamed["config4"]["counts"]),
             *pv_stream_paths.items(), *session_paths.items(),
-            *tool_paths.items())}
+            *tool_paths.items(), *config_paths.items())}
 
     def with_launches(entry):
         # resample_data is the polyphase kernel reached through the A/B
@@ -2582,7 +3154,7 @@ def main() -> int:
             "replaces": "nodey_tpu/ops/pallas_resample.py:245",
             "launches": sum(by_path("polyphase_resample").values()),
             "launches_by_path": by_path("polyphase_resample"),
-            "max_abs_err": kernel_err,
+            "max_abs_err": max(kernel_err, config_figures["resample_err"]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": resample_bound[0],
@@ -2594,6 +3166,7 @@ def main() -> int:
                 "bound_ms": transpose_bound[0],
                 "bound_by": transpose_bound[1],
                 "library_ms": resample_times["635/504"]["conv1d"]},
+            "transposition_minus3": config_figures["transposition_minus3"],
         },
         {
             "name": "wsola_chain",
@@ -2609,6 +3182,7 @@ def main() -> int:
             "bound_by": pitch_times["bound"][1],
             "library_ms": None,
             "us_per_frame": pitch_times["us_per_frame"],
+            "geometry_44100": config_figures["chain_44100"],
         },
         {
             "name": "wsola_chunk_chain",

@@ -21,6 +21,7 @@ AUDIO_STREAM_BUFFER_SIZE = 16     # blocks per streaming stage queue
 
 AUDIO_VOLUME_MAX = 10.0           # gain slider ceiling
 AMIX_STD_SAMPLE_RATE = 48_000     # mixer output rate
+BIMIX_STD_SAMPLE_RATE = 48_000    # bimix output rate
 
 
 @dataclasses.dataclass(frozen=True)

@@ -291,6 +291,21 @@ def to_stereo_chunk(chunk: ChunkStream) -> ChunkStream:
     return chunk.with_data(data, fmt="flt")
 
 
+def to_mono_chunk(chunk: ChunkStream) -> ChunkStream:
+    """Stateless -3 dB stereo downmix."""
+    if chunk.spec.channels == 1:
+        return chunk
+    data = (chunk.data[0:1] + chunk.data[1:2]) * SQRT1_2
+    return chunk.with_data(data, fmt="flt")
+
+
+def side_mono_chunk(chunk: ChunkStream) -> ChunkStream:
+    """A bimix side: stereo-normalize, then the mean of the two channels
+    (reference: src/processor/audio-bimix.cpp:310-316)."""
+    s = to_stereo_chunk(chunk)
+    return s.with_data((s.data[0:1] + s.data[1:2]) * 0.5)
+
+
 def plan_resample_stage(spec: ChunkSpec, out_rate: int, device):
     """``(ChunkSpec, state, plan)`` of a streaming resampler after
     ``spec``; plan is None when the rate does not change."""

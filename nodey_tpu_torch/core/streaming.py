@@ -53,7 +53,8 @@ from nodey_tpu_torch.host.streamio import BoundedBlockQueue, RealtimePacer
 # the port registers (each other one joins when it is ported).
 _LTI_NODES = {
     "audio_input", "audio_output", "audio_volume_adjust", "audio_amix",
-    "audio_resample", "audio_spectrum",
+    "audio_resample", "audio_spectrum", "audio_split", "audio_bimix",
+    "audio_bimix_v2",
 }
 
 

@@ -1,5 +1,6 @@
-"""The ported nodes: the five of the 5-node stereo graph and the three of
-BASELINE config 4 (resample, pitch, velocity).
+"""The ported nodes: the five of the 5-node stereo graph, the three of
+BASELINE config 4 (resample, pitch, velocity) and the three of configs 2
+and 5 (channel split, bimix v1 and v2).
 
 Identifiers, pins and serde match the JAX package's processors, so project
 files load in either package."""
@@ -13,13 +14,16 @@ def register_builtin_processors() -> None:
     from nodey_tpu_torch.processors.audio_input import AudioInput
     from nodey_tpu_torch.processors.audio_output import AudioOutput
     from nodey_tpu_torch.processors.audio_vol import AudioVol
+    from nodey_tpu_torch.processors.bimix import AudioBimix, AudioBimixV2
     from nodey_tpu_torch.processors.resample_node import AudioResample
     from nodey_tpu_torch.processors.spectrum import AudioSpectrum
+    from nodey_tpu_torch.processors.split import AudioSplit
     from nodey_tpu_torch.processors.velocity import (
         PitchModifier,
         VelocityModifier,
     )
 
     for cls in (AudioInput, AudioOutput, AudioVol, AudioAmix, AudioSpectrum,
-                AudioResample, VelocityModifier, PitchModifier):
+                AudioResample, VelocityModifier, PitchModifier, AudioSplit,
+                AudioBimix, AudioBimixV2):
         register_processor(cls)

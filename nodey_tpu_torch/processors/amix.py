@@ -86,6 +86,33 @@ class AudioAmix(Processor):
                 if not self.locks[i]:
                     self.volumes[i] *= scale
 
+    def set_volume_at(self, value) -> None:
+        """:meth:`set_volume` with one argument, ``[index, volume]``: the
+        form an editor's per-input slider sends."""
+        index, volume = value
+        self.set_volume(int(index), float(volume))
+
+    def param_spec(self) -> List[Dict[str, Any]]:
+        # The reference's InputInt "Input Channels" clamped 1-16
+        # (audio-amix.cpp:340-347), a SliderFloat 0.001-0.999 and a
+        # "Locked" checkbox per input (audio-amix.cpp:349-393).
+        self._pad_params()
+        spec: List[Dict[str, Any]] = [{
+            "key": "input_num", "label": "Input Channels", "kind": "int",
+            "min": 1, "max": 16, "value": self.input_num,
+        }]
+        for i in range(self.input_num):
+            spec.append({
+                "key": "volume_at", "label": f"Input {i + 1} Volume",
+                "kind": "float", "min": 0.001, "max": 0.999, "step": 0.002,
+                "index": i, "value": self.volumes[i],
+            })
+            spec.append({
+                "key": f"locks{i}", "label": f"Locked {i + 1}",
+                "kind": "bool", "value": self.locks[i],
+            })
+        return spec
+
     # serde: flat volumes{i}/locks{i} keys (audio-amix.cpp:395-423).
 
     def serialize(self) -> Any:

@@ -62,6 +62,13 @@ class AudioInput(Processor):
             for i in range(len(self.file_paths))
         ]
 
+    def param_spec(self) -> List[Dict[str, Any]]:
+        # The reference's per-slot "File Path" fields and add/remove-slot
+        # controls (audio-io.cpp:345-426), as one "file_path" list applied
+        # through the serde.
+        return [{"key": "file_path", "label": "Input Files",
+                 "kind": "files", "value": list(self.file_paths)}]
+
     def serialize(self) -> Any:
         return {"file_path": list(self.file_paths)}
 

@@ -51,6 +51,16 @@ class AudioVol(Processor):
         """Clamped setter (reference slider bounds: audio-vol.cpp:262-270)."""
         self.volume = min(max(float(volume), 0.0), config.AUDIO_VOLUME_MAX)
 
+    def param_spec(self) -> List[Dict[str, Any]]:
+        # The reference's DragFloat "Volume", 0..max, step 0.01
+        # (audio-vol.cpp:260-276). The project file does not hold the
+        # volume, so the live value rides the spec.
+        return [{
+            "key": "volume", "label": "Volume", "kind": "float",
+            "min": 0.0, "max": config.AUDIO_VOLUME_MAX, "step": 0.01,
+            "value": self.volume,
+        }]
+
     def snapshot_params(self) -> Dict[str, Any]:
         return {"volume": self.volume}
 

@@ -41,6 +41,19 @@ class AudioSpectrum(Processor):
             PinAttribute("input", "Input", AudioStreamType, is_input=True),
         ]
 
+    def param_spec(self) -> List[Dict[str, Any]]:
+        # The frame sizes the JAX package offers, and the node's own where
+        # it is another.
+        sizes = [256, 512, 1024, 2048, 4096]
+        if self.n_fft not in sizes:
+            sizes = sorted(sizes + [self.n_fft])
+        return [
+            {"key": "n_fft", "label": "FFT Size", "kind": "enum",
+             "choices": sizes, "value": self.n_fft},
+            {"key": "hop", "label": "Hop (samples)", "kind": "int",
+             "min": 1, "max": 8192, "value": self.hop},
+        ]
+
     def serialize(self) -> Any:
         return {"n_fft": self.n_fft, "hop": self.hop}
 

@@ -27,7 +27,8 @@ from nodey_tpu_torch.processors.audio_vol import AudioVol
 
 @pytest.mark.parametrize("name", [
     "SAMPLE_RATE", "AUDIO_INPUT_NODE_NAME", "AUDIO_VOLUME_MAX",
-    "AMIX_STD_SAMPLE_RATE", "AUDIO_STREAM_BUFFER_SIZE", "BUFFER_SIZE",
+    "AMIX_STD_SAMPLE_RATE", "BIMIX_STD_SAMPLE_RATE",
+    "AUDIO_STREAM_BUFFER_SIZE", "BUFFER_SIZE",
     "MAX_BUFFER_ITEMS",
 ])
 def test_config_values_equal_the_jax_package(name):
