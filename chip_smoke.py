@@ -182,11 +182,35 @@ Phases, in order; the first failure exits non-zero:
                the splices of all steps equal to the offline chain's; the
                37/44 transposition (kernel, plain, conv1d) and the chain at
                this geometry (kernel, plain) beside their bounds.
+ 25. config6 — BASELINE-extension config 6 (bench.py:209-237: one 48 kHz
+               stereo track -> audio_eq with ls +3, p2 -4, hs +2 dB ->
+               audio_compressor -18 dB 4:1 -> audio_limiter -1 dB -> export)
+               on bench.py's 300 s tone through the CLI: the length, finite,
+               no launch of any kernel (48 kHz in and out: no resampler, no
+               stretch), no master sample above 10^(-1/20) x (1 + 1e-5); the
+               limiter op where it acts (the 30 s track x4) within that
+               ceiling and within 3e-7 of the CPU's; the device RTF by CUDA
+               events, its device peak and one render under torch.profiler;
+               card vs CPU at 30 s >= 100 dB; `run --stream` under the sync
+               debug mode >= 88 dB against the offline export, whole-export
+               device peaks at 100 s and 300 s within 2 MiB and below the
+               offline render's, and its wall RTF (median of 3).
+ 26. masterbus-nodes — graph A (the tone with a 6.5 kHz burst and a
+               passage 50 dB down, 30 s -> audio_filter highpass 80 Hz ->
+               audio_gate -> audio_deesser -> audio_normalize LUFS -14 ->
+               export): card vs CPU >= 90 dB, integrated loudness within
+               0.1 LU of -14; its `run --stream` takes the offline path
+               (normalize refuses the stream plan), bitwise the offline
+               export. Graph B (graph A without normalize): `run --stream`
+               streams, >= 90 dB against its offline export. The bitwise
+               passthroughs on the card: a flat EQ, the limiter, compressor
+               and de-esser below threshold, the gate above it.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
 preview, the chunked render; phases 22-24's: each config's CLI render, the
-streamed exports of configs 2 and 5, config 2's chunked render). The line before the last is one JSON object
+streamed exports of configs 2 and 5, config 2's chunked render; phases
+25-26's: each graph's CLI render and streamed export). The line before the last is one JSON object
 describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -280,6 +304,13 @@ RESAMPLE_DATA_PAIRS = [(44_100, 48_000), (48_000, 44_100)]
 CONFIG_CHECK_SECONDS = 30
 CONFIG5_PITCH = -3.0
 CONFIG5_GEOMETRY = (1_764, 660, 352)
+MASTER_RATE = 48_000             # config 6 and phase 26 read and write 48 kHz
+LIMITER_DB = -1.0                # config 6's limiter threshold
+CONFIG6_CARD_CPU_DB = 100.0
+CONFIG6_STREAM_DB = 88.0         # tests/test_biquad.py:131, the EQ's bar
+GRAPH_A_DB = 90.0                # tests/test_deesser.py:64, the de-esser's
+LUFS_TARGET = -14.0
+LUFS_TOL = 0.1                   # tests/test_loudness.py:88
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -537,7 +568,8 @@ def read_counts() -> dict:
 
 
 def cli_export(cli, project: str, out_wav: str, tag: str, card: str,
-               shape=(2, CONFIG4_LENGTH), flag: str = "--export"):
+               shape=(2, CONFIG4_LENGTH), flag: str = "--export",
+               seconds=None):
     """Render ``project`` through the port's CLI on the card into
     ``out_wav`` (``flag``: "--export", or "--preview" for the preview
     render), launch counts set to 0 just before; checks the master's
@@ -556,7 +588,8 @@ def cli_export(cli, project: str, out_wav: str, tag: str, card: str,
                     for line in stdout.getvalue().splitlines()))
     check(rc == 0, f"{tag}: cli run exited {rc}")
     master = decode_file(out_wav).data
-    print(f"[{tag}] {SECONDS} s {flag[2:]}: master {list(master.shape)}, "
+    print(f"[{tag}] {seconds or SECONDS} s {flag[2:]}: master "
+          f"{list(master.shape)}, "
           f"finite {bool(np.isfinite(master).all())}; launches {counts} "
           f"({card})")
     check(master.shape == tuple(shape),
@@ -2106,13 +2139,15 @@ def check_resamples(tag: str, resamples, launched: int, card: str) -> float:
 
 def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
                            tol: float, card: str, tmp: str,
-                           short_tracks=None, record=None) -> dict:
+                           short_tracks=None, record=None, min_db=None,
+                           min_steps: int = 4) -> dict:
     """`run --stream --export` of ``project`` on the card, every step under
     the sync debug mode (checked_steps) and inside ``record`` (a context
     manager, e.g. recorded_launches), launch counts set to 0 just before
-    and read just after: exit code 0, the export streamed in >= 4 steps,
-    its master equal in length to ``offline()`` (the offline render's
-    master on the host) and within ``tol``. With ``short_tracks``: the
+    and read just after: exit code 0, the export streamed in >= ``min_steps``
+    steps, its master equal in length to ``offline()`` (the offline render's
+    master on the host) and within ``tol`` (or, given ``min_db``, at least
+    that SNR against it; ``tol`` is then not held). With ``short_tracks``: the
     project exported again on them (SHORT_SECONDS) and as it is (after that
     first export, so the one-time allocations, filter banks and the DFT
     basis, are in place), the whole export's device peak each, within
@@ -2138,6 +2173,7 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
     check(got.shape == want.shape,
           f"{what}: streamed master {got.shape}, offline {want.shape}")
     err = float(np.abs(got - want).max())
+    db = snr_db(want, got)
     del got, want
     device_ms = sum(a.elapsed_time(b) for a, b in spans)
     memory, peaks = "", {}
@@ -2159,21 +2195,26 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
                   f" s, {peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
                   f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB), offline render "
                   f"{offline_peak / 2**20:.1f} MiB")
-    print(f"[{phase}] {what}: {SECONDS} s streamed master at "
+    bar = (f"SNR {db:.1f} dB (min {min_db:.0f})" if min_db is not None
+           else f"tol {tol:.0e}")
+    print(f"[{phase}] {what}: streamed master at "
           f"{STREAM_CHUNK_SECONDS} s chunks equal in length to the offline "
-          f"render, max|diff| {err:.3e} (tol {tol:.0e}); launches {counts}; "
+          f"render ({metrics.audio_seconds:.3f} audio-s), "
+          f"max|diff| {err:.3e} ({bar}); launches {counts}; "
           f"{len(spans)} steps under sync debug mode 'error', device span "
           f"{device_ms:.4f} ms{memory}; host RSS peak of this process "
           f"{metrics.rss_peak_bytes / 2**20:.0f} MiB ({card})")
-    check(err <= tol, f"{what}: streamed master disagrees with offline")
-    check(len(spans) == metrics.steps >= 4,
+    check(db >= min_db if min_db is not None else err <= tol,
+          f"{what}: streamed master disagrees with offline")
+    check(len(spans) == metrics.steps >= min_steps,
           f"{what}: {len(spans)} checked steps of {metrics.steps}")
     if peaks:
         check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
               f"{what}: streamed device memory grows with clip length")
         check(peaks[SECONDS] < offline_peak,
               f"{what}: streaming took more memory than the offline render")
-    return dict(counts=counts, err=err, device_ms=device_ms, metrics=metrics)
+    return dict(counts=counts, err=err, db=db, device_ms=device_ms,
+                metrics=metrics, peaks=peaks)
 
 
 def stream_times(cli, phase: str, name: str, what: str, project: str,
@@ -2437,6 +2478,312 @@ def config_phases(cli, card: str, tmp: str, short_track: str):
     torch.cuda.synchronize()
     print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
     return paths, figures
+
+
+def masterbus_track(directory: str, seconds: int, tag: str,
+                    sibilant: bool = False) -> str:
+    """bench.py's config-6 track (its 220 Hz tone, 48 kHz stereo, seed 0)
+    as an s16 WAV; with ``sibilant`` a 6.5 kHz burst over [1/3, 1/2) of the
+    clip and the clip 50 dB down over [2/3, 5/6) of it, so the de-esser and
+    the gate act. Returns its path."""
+    import numpy as np
+
+    from nodey_tpu_torch.host.decode import write_wav_s16
+
+    n = MASTER_RATE * seconds
+    x = bench_tone(n, MASTER_RATE, 220.0, 2, 0)
+    if sibilant:
+        ess = np.arange(n // 3, n // 2)
+        x[:, ess] += (0.3 * np.sin(2 * np.pi * 6_500.0 * ess / MASTER_RATE)
+                      ).astype(np.float32)
+        x[:, 2 * n // 3: 5 * n // 6] *= np.float32(0.003)
+    path = os.path.join(directory, f"master_{tag}.wav")
+    write_wav_s16(path, x, MASTER_RATE)
+    return path
+
+
+def config6_graph(paths):
+    """bench.py:209-237: the 48 kHz stereo track -> audio_eq (low shelf +3,
+    bell 2 -4, high shelf +2 dB) -> audio_compressor (-18 dB, 4:1) ->
+    audio_limiter (-1 dB) -> output (export)."""
+    from nodey_tpu_torch.processors.compressor import AudioCompressor
+    from nodey_tpu_torch.processors.equalizer import AudioEq
+    from nodey_tpu_torch.processors.limiter import AudioLimiter
+
+    g, src = _input_graph(paths[:1])
+    eq = g.add_node(AudioEq())
+    g.nodes[eq].processor.set_param("ls_gain_db", 3.0)
+    g.nodes[eq].processor.set_param("p2_gain_db", -4.0)
+    g.nodes[eq].processor.set_param("hs_gain_db", 2.0)
+    comp = g.add_node(AudioCompressor())
+    g.nodes[comp].processor.set_threshold_db(-18.0)
+    g.nodes[comp].processor.set_ratio(4.0)
+    lim = g.add_node(AudioLimiter())
+    g.nodes[lim].processor.set_threshold_db(LIMITER_DB)
+    g.add_link(_pin(g, src, "output_0"), _pin(g, eq, "input"))
+    g.add_link(_pin(g, eq, "output"), _pin(g, comp, "input"))
+    g.add_link(_pin(g, comp, "output"), _pin(g, lim, "input"))
+    _output(g, _pin(g, lim, "output"))
+    return g
+
+
+def graph_a(paths, normalize: bool = True):
+    """Phase 26's graph A: the track -> audio_filter (highpass 80 Hz) ->
+    audio_gate -> audio_deesser -> audio_normalize (LUFS, -14) -> output;
+    without ``normalize``, graph B."""
+    from nodey_tpu_torch.processors.deesser import AudioDeesser
+    from nodey_tpu_torch.processors.equalizer import AudioFilter
+    from nodey_tpu_torch.processors.gate import AudioGate
+    from nodey_tpu_torch.processors.normalize import AudioNormalize
+
+    g, src = _input_graph(paths[:1])
+    hp = AudioFilter()
+    hp.set_filter_type("highpass")
+    hp.set_freq(80.0)
+    chain = [hp, AudioGate(), AudioDeesser()]
+    if normalize:
+        norm = AudioNormalize()
+        norm.set_mode("lufs")
+        norm.set_param("target_db", LUFS_TARGET)
+        chain.append(norm)
+    prev = _pin(g, src, "output_0")
+    for processor in chain:
+        node = g.add_node(processor)
+        g.add_link(prev, _pin(g, node, "input"))
+        prev = _pin(g, node, "output")
+    _output(g, prev)
+    return g
+
+
+def card_vs_cpu_db(tag: str, what: str, make_graph, min_db: float,
+                   card: str):
+    """The graph's export render on the card and on the CPU: equal shapes,
+    the card's master at least ``min_db`` SNR against the CPU's. Returns
+    (card master, SNR)."""
+    from nodey_tpu_torch.core.runner import Runner
+
+    on_card = Runner(make_graph(), device=CARD).render("export")
+    on_cpu = Runner(make_graph(), device="cpu").render("export")
+    check(on_card.master.shape == on_cpu.master.shape,
+          f"{tag}: {what}: master {on_card.master.shape} on the card, "
+          f"{on_cpu.master.shape} on the CPU")
+    db = snr_db(on_cpu.master, on_card.master)
+    print(f"[{tag}] {what}, {on_card.metrics.audio_seconds:.3f} s clip: card "
+          f"vs CPU master {list(on_card.master.shape)} {on_card.fmt}: SNR "
+          f"{db:.1f} dB (min {min_db:.0f}), max|card - cpu| "
+          f"{float(abs(on_card.master - on_cpu.master).max()):.3e} ({card})")
+    check(db >= min_db, f"{tag}: {what}: the card's master disagrees with "
+          f"the CPU's")
+    return on_card.master, db
+
+
+def passthroughs_on_card(tag: str, card: str) -> None:
+    """Where the JAX node passes its input through bitwise, the port's node
+    must on the card too: a flat EQ (tests/test_biquad.py:148), the limiter
+    and the compressor below threshold (tests/test_dynamics.py:51, :163),
+    the gate above it once open (tests/test_gate.py) and the de-esser below
+    it (tests/test_deesser.py), each node's ``lower`` on 0.5 s of stereo."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.stream import Stream
+    from nodey_tpu_torch.processors.compressor import AudioCompressor
+    from nodey_tpu_torch.processors.deesser import AudioDeesser
+    from nodey_tpu_torch.processors.equalizer import AudioEq
+    from nodey_tpu_torch.processors.gate import AudioGate
+    from nodey_tpu_torch.processors.limiter import AudioLimiter
+
+    def noise(amp, seed):
+        rng = np.random.default_rng(seed)
+        return (amp * rng.standard_normal((2, MASTER_RATE // 2))).astype(
+            np.float32)
+
+    limiter, comp, gate, deesser = (AudioLimiter(), AudioCompressor(),
+                                    AudioGate(), AudioDeesser())
+    limiter.set_threshold_db(-6.0)
+    comp.set_makeup_db(0.0)
+    gate.set_threshold_db(-30.0)
+    gate.set_release_ms(100.0)
+    deesser.set_param("threshold_db", -20.0)
+    deesser.set_param("ratio", 8.0)
+    square = np.where(noise(1.0, 3) < 0, -0.6, 0.6).astype(np.float32)
+    # (name, node, input, first sample held: the gate opens at its attack
+    # rate from a closed start)
+    cases = [("flat EQ", AudioEq(), noise(0.3, 0), 0),
+             ("limiter", limiter, noise(0.1, 3), 0),
+             ("compressor", comp, noise(0.02, 5), 0),
+             ("gate", gate, square, 2_000),
+             ("de-esser", deesser, noise(0.001, 1), 0)]
+    held = []
+    for name, node, x, start in cases:
+        data = torch.from_numpy(x).to(CARD)
+        out = node.lower(None, {"input": Stream(
+            data=data, length=x.shape[1], rate=MASTER_RATE,
+            channels=2)})["output"].data
+        same = bool(torch.equal(out[:, start:], data[:, start:]))
+        held.append(f"{name} {'bitwise' if same else 'NOT bitwise'}")
+        check(same, f"{tag}: the {name} does not pass its input through "
+              f"bitwise on the card")
+    print(f"[{tag}] passthroughs on the card: {', '.join(held)} ({card})")
+
+
+def masterbus_phases(cli, card: str, tmp: str):
+    """Phases 25-26 (see the module docstring): config 6 and the other four
+    master-bus nodes. No kernel of ours lies on these paths (48 kHz in and
+    out: no resampler, no stretch); each path's launch counts are read and
+    must stay 0. Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.host.decode import decode_file
+    from nodey_tpu_torch.ops import dynamics, loudness
+
+    paths, figures = {}, {}
+
+    # -- 25. config 6 ------------------------------------------------------------
+    tag = "25 config6"
+    t0 = time.perf_counter()
+    track, short, check_track = (
+        masterbus_track(tmp, seconds, f"{seconds}s")
+        for seconds in (SECONDS, SHORT_SECONDS, CONFIG_CHECK_SECONDS))
+    proj6 = write_project(config6_graph([track]),
+                          os.path.join(tmp, "config6.json"))
+    wav6 = os.path.join(tmp, "config6.wav")
+    master, counts = cli_export(cli, proj6, wav6, tag, card,
+                                shape=(2, MASTER_RATE * SECONDS))
+    paths["config6"] = counts
+    check(sum(counts.values()) == 0, f"{tag}: config 6 launched {counts}")
+    ceiling = 10 ** (LIMITER_DB / 20) * (1 + 1e-5)
+    peak = float(np.abs(master).max())
+    print(f"[{tag}] limiter: master peak {peak:.7f} against the ceiling "
+          f"10^({LIMITER_DB:g}/20) x (1 + 1e-5) = {ceiling:.7f} ({card})")
+    check(peak <= ceiling, f"{tag}: a master sample above the limiter's "
+          f"threshold")
+    del master
+    # bench.py's tone stays below -1 dBFS through the EQ and the compressor,
+    # so the limiter passes it through: hold the property where it acts, on
+    # the 30 s track 12 dB louder, the limiter op on the card against the
+    # same op on the CPU (tests/test_dynamics.py's atol 3e-7).
+    loud = 4.0 * decode_file(check_track).data
+    threshold, c = dynamics.limiter_params(LIMITER_DB, 50.0, MASTER_RATE)
+    limited = dynamics.limit_block(torch.from_numpy(loud).to(CARD), threshold,
+                                   c)[0].cpu().numpy()
+    err = float(np.abs(limited - dynamics.limit_block(
+        torch.from_numpy(loud), threshold, c)[0].numpy()).max())
+    peak = float(np.abs(limited).max())
+    print(f"[{tag}] limiter op at {LIMITER_DB:g} dB on the 30 s track x4 "
+          f"(input peak {float(np.abs(loud).max()):.4f}): output peak "
+          f"{peak:.7f} (ceiling {ceiling:.7f}), max|card - cpu| {err:.3e} "
+          f"(tol 3e-07) ({card})")
+    check(peak <= ceiling and err <= 3e-7 and float(np.abs(loud).max())
+          > threshold, f"{tag}: the limiter op failed on the card")
+    del loud, limited
+    figures["config6_rtf"] = device_rtf(
+        tag, "config6", config6_graph([track]), "export", card,
+        profile=(tag, "config-6"))
+    _, figures["config6_card_cpu_db"] = card_vs_cpu_db(
+        tag, "config6", lambda: config6_graph([check_track]),
+        CONFIG6_CARD_CPU_DB, card)
+    streamed = streamed_export_checks(
+        cli, tag, "config6", proj6, lambda: decode_file(wav6).data, 0.0, card,
+        tmp, short_tracks=[short], min_db=CONFIG6_STREAM_DB)
+    paths["config6_streamed"] = counts = streamed["counts"]
+    check(sum(counts.values()) == 0,
+          f"{tag}: the streamed config 6 launched {counts}")
+    figures["config6_streamed_db"] = streamed["db"]
+    figures["config6_streamed_peaks_mib"] = {
+        s: p / 2**20 for s, p in streamed["peaks"].items()}
+    figures["config6_streamed_wall_rtf"] = stream_times(
+        cli, tag, "config6_streamed_wav", "config 6, WAV sink", proj6,
+        os.path.join(tmp, "config6_timed.wav"), streamed["device_ms"],
+        card).rtf
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+
+    # -- 26. filter, gate, de-esser, normalize -------------------------------------
+    tag = "26 masterbus-nodes"
+    t0 = time.perf_counter()
+    sibilant = masterbus_track(tmp, CONFIG_CHECK_SECONDS, "sibilant",
+                               sibilant=True)
+    n = MASTER_RATE * CONFIG_CHECK_SECONDS
+    proj_a = write_project(graph_a([sibilant]),
+                           os.path.join(tmp, "graph_a.json"))
+    wav_a = os.path.join(tmp, "graph_a.wav")
+    _, counts = cli_export(cli, proj_a, wav_a, tag, card, shape=(2, n),
+                           seconds=CONFIG_CHECK_SECONDS)
+    paths["graph_a"] = counts
+    check(sum(counts.values()) == 0, f"{tag}: graph A launched {counts}")
+    on_card, figures["graph_a_card_cpu_db"] = card_vs_cpu_db(
+        tag, "graph A", lambda: graph_a([sibilant]), GRAPH_A_DB, card)
+    lufs = float(loudness.integrated_lufs(torch.from_numpy(on_card), n,
+                                          MASTER_RATE))
+    figures["graph_a_lufs"] = lufs
+    print(f"[{tag}] graph A: the card master's integrated loudness "
+          f"{lufs:.4f} LUFS (target {LUFS_TARGET:g}, tol {LUFS_TOL}) ({card})")
+    check(abs(lufs - LUFS_TARGET) <= LUFS_TOL,
+          f"{tag}: graph A missed its loudness target")
+    del on_card
+
+    out_a = os.path.join(tmp, "graph_a_streamed.wav")
+    zero_counts()
+    rc, text, metrics = stream_export(cli, proj_a, out_a)
+    paths["graph_a_streamed"] = counts = read_counts()
+    print("\n".join(f"[{tag}] graph A cli: {line}"
+                    for line in text.splitlines()))
+    check(rc == 0, f"{tag}: graph A: cli run --stream exited {rc}")
+    same = bool(np.array_equal(decode_file(out_a).data,
+                               decode_file(wav_a).data))
+    path = "offline" if metrics is None and "(offline)" in text else "streamed"
+    print(f"[{tag}] graph A run --stream: the {path} path ran (the normalize "
+          f"node refuses the stream plan); master "
+          f"{'bitwise' if same else 'NOT bitwise'} the offline export's; "
+          f"launches {counts} ({card})")
+    check(path == "offline" and same and sum(counts.values()) == 0,
+          f"{tag}: graph A's run --stream did not fall back to the offline "
+          f"render")
+
+    proj_b = write_project(graph_a([sibilant], normalize=False),
+                           os.path.join(tmp, "graph_b.json"))
+    wav_b = os.path.join(tmp, "graph_b.wav")
+    master_b, counts = cli_export(cli, proj_b, wav_b, tag, card,
+                                  shape=(2, n), seconds=CONFIG_CHECK_SECONDS)
+    paths["graph_b"] = counts
+    # The gate and the de-esser act on the sibilant track: the quiet passage
+    # from 1.5 s on (the gate's release falls ~43 dB a second, and the
+    # passage lies ~50 dB below the tone) and the burst's 6-7 kHz band,
+    # graph B's master against its input.
+    x = decode_file(sibilant).data
+    quiet = slice(2 * n // 3 + 3 * MASTER_RATE // 2, 5 * n // 6)
+    burst = slice(n // 3 + MASTER_RATE // 2, n // 2)
+
+    def band(v):
+        spec = np.abs(np.fft.rfft(v[:, burst].astype(np.float64), axis=1))
+        freqs = np.fft.rfftfreq(burst.stop - burst.start, 1.0 / MASTER_RATE)
+        return float(np.sqrt((spec[:, (freqs >= 6_000) & (freqs < 7_000)]
+                              ** 2).sum()))
+
+    gate_db = 20 * math.log10(float(np.abs(master_b[:, quiet]).max())
+                              / float(np.abs(x[:, quiet]).max()))
+    ess_db = 20 * math.log10(band(master_b) / band(x))
+    print(f"[{tag}] graph B: the gate {gate_db:.1f} dB over the quiet "
+          f"passage, the de-esser {ess_db:.1f} dB in the burst's 6-7 kHz "
+          f"band ({card})")
+    check(gate_db < -3.0 and ess_db < -3.0,
+          f"{tag}: the gate or the de-esser did not act")
+    del x, master_b
+    streamed = streamed_export_checks(
+        cli, tag, "graph_b", proj_b, lambda: decode_file(wav_b).data, 0.0,
+        card, tmp, min_db=GRAPH_A_DB, min_steps=2)
+    paths["graph_b_streamed"] = counts = streamed["counts"]
+    check(sum(paths["graph_b"].values()) == sum(counts.values()) == 0,
+          f"{tag}: graph B launched {paths['graph_b']}, streamed {counts}")
+    figures["graph_b_streamed_db"] = streamed["db"]
+    print(f"[{tag}] graph B run --stream: the streamed path ran, "
+          f"{streamed['metrics'].steps} steps, SNR {streamed['db']:.1f} dB "
+          f"against the offline export ({card})")
+    passthroughs_on_card(tag, card)
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[25-26 figures] {json.dumps(figures)}")
+    return paths
 
 
 def main() -> int:
@@ -3124,6 +3471,9 @@ def main() -> int:
         config_paths, config_figures = config_phases(cli, card, tmp,
                                                      short_paths[0])
 
+        # -- 25-26. config 6 and the master-bus nodes ------------------------
+        masterbus_paths = masterbus_phases(cli, card, tmp)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -3131,7 +3481,8 @@ def main() -> int:
             ("5node_streamed", streamed["5node"]["counts"]),
             ("config4_streamed", streamed["config4"]["counts"]),
             *pv_stream_paths.items(), *session_paths.items(),
-            *tool_paths.items(), *config_paths.items())}
+            *tool_paths.items(), *config_paths.items(),
+            *masterbus_paths.items())}
 
     def with_launches(entry):
         # resample_data is the polyphase kernel reached through the A/B

@@ -1,6 +1,7 @@
 """The ported nodes: the five of the 5-node stereo graph, the three of
-BASELINE config 4 (resample, pitch, velocity) and the three of configs 2
-and 5 (channel split, bimix v1 and v2).
+BASELINE config 4 (resample, pitch, velocity), the three of configs 2
+and 5 (channel split, bimix v1 and v2) and the seven master-bus nodes
+(EQ, filter, compressor, limiter, gate, de-esser, normalize).
 
 Identifiers, pins and serde match the JAX package's processors, so project
 files load in either package."""
@@ -15,6 +16,12 @@ def register_builtin_processors() -> None:
     from nodey_tpu_torch.processors.audio_output import AudioOutput
     from nodey_tpu_torch.processors.audio_vol import AudioVol
     from nodey_tpu_torch.processors.bimix import AudioBimix, AudioBimixV2
+    from nodey_tpu_torch.processors.compressor import AudioCompressor
+    from nodey_tpu_torch.processors.deesser import AudioDeesser
+    from nodey_tpu_torch.processors.equalizer import AudioEq, AudioFilter
+    from nodey_tpu_torch.processors.gate import AudioGate
+    from nodey_tpu_torch.processors.limiter import AudioLimiter
+    from nodey_tpu_torch.processors.normalize import AudioNormalize
     from nodey_tpu_torch.processors.resample_node import AudioResample
     from nodey_tpu_torch.processors.spectrum import AudioSpectrum
     from nodey_tpu_torch.processors.split import AudioSplit
@@ -25,5 +32,7 @@ def register_builtin_processors() -> None:
 
     for cls in (AudioInput, AudioOutput, AudioVol, AudioAmix, AudioSpectrum,
                 AudioResample, VelocityModifier, PitchModifier, AudioSplit,
-                AudioBimix, AudioBimixV2):
+                AudioBimix, AudioBimixV2, AudioEq, AudioFilter,
+                AudioCompressor, AudioLimiter, AudioGate, AudioDeesser,
+                AudioNormalize):
         register_processor(cls)

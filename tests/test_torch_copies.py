@@ -11,13 +11,16 @@ import pytest
 from nodey_tpu import config as jconfig
 from nodey_tpu.core import errors as jerrors
 from nodey_tpu.core.graph import Graph as JGraph
+from nodey_tpu.ops import dynamics as jdynamics
+from nodey_tpu.ops import loudness as jloudness
 from nodey_tpu.ops import pv as jpv
+from nodey_tpu.ops import scans as jscans
 from nodey_tpu.ops.stft import _dft_matrices as j_dft_matrices
 from nodey_tpu_torch import config
 from nodey_tpu_torch.core import errors
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.host import decode, native_lib
-from nodey_tpu_torch.ops import pv
+from nodey_tpu_torch.ops import dynamics, loudness, pv, scans
 from nodey_tpu_torch.ops.stft import _dft_matrices
 from nodey_tpu_torch.processors.amix import AudioAmix
 from nodey_tpu_torch.processors.audio_input import AudioInput
@@ -33,6 +36,20 @@ from nodey_tpu_torch.processors.audio_vol import AudioVol
 ])
 def test_config_values_equal_the_jax_package(name):
     assert getattr(config, name) == getattr(jconfig, name)
+
+
+@pytest.mark.parametrize("module,jmodule,name", [
+    (scans, jscans, "_W"), (scans, jscans, "_BLOCK_THRESHOLD"),
+    (scans, jscans, "_NEG"), (dynamics, jdynamics, "_LOG_FLOOR"),
+    (dynamics, jdynamics, "_NAT_TO_DB"), (dynamics, jdynamics, "_DB_TO_NAT"),
+    (loudness, jloudness, "_SHELF_48K"), (loudness, jloudness, "_HP_48K"),
+    (loudness, jloudness, "ABS_GATE_LKFS"), (loudness, jloudness, "BLOCK_S"),
+    (loudness, jloudness, "HOP_S"), (loudness, jloudness, "REL_GATE_LU"),
+    (loudness, jloudness, "_OFFSET"), (loudness, jloudness, "_SILENCE_FLOOR"),
+])
+def test_master_bus_constants_equal_the_jax_package(module, jmodule, name):
+    got, want = getattr(module, name), getattr(jmodule, name)
+    assert got == want and type(got) is type(want)
 
 
 def test_exec_config_pad_quantum_equals_the_jax_package():

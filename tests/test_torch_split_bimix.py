@@ -259,7 +259,8 @@ def test_the_port_registers_the_three_nodes():
                             ("audio_bimix", AudioBimix),
                             ("audio_bimix_v2", AudioBimixV2)):
         assert processor_map[identifier].generate is cls
-    assert len(processor_map) == 11
+    # 11 node types of the earlier slices and the seven master-bus nodes.
+    assert len(processor_map) == 18
 
 
 @pytest.mark.parametrize("make_jax,make_port,edit", [
