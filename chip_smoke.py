@@ -205,12 +205,40 @@ Phases, in order; the first failure exits non-zero:
                streams, >= 90 dB against its offline export. The bitwise
                passthroughs on the card: a flat EQ, the limiter, compressor
                and de-esser below threshold, the gate above it.
+ 27. config7 — BASELINE-extension config 7 (bench.py:240-253: one 48 kHz
+               stereo track -> audio_reverb decay 1.8 s, wet 0.35 -> export)
+               on phase 25's 300 s tone through the CLI: length 14,487,359
+               (the 87,360-sample IR's tail), finite, no launch of any
+               kernel; the device RTF by CUDA events (median of 5), its
+               device peak and one render under torch.profiler; card vs CPU
+               at 30 s >= 100 dB; `run --stream` under the sync debug mode
+               >= 90 dB against the offline export at its length,
+               whole-export device peaks at 100 s and 300 s within 2 MiB and
+               below the offline render's, its wall RTF (median of 3);
+               render_chunked (30 s windows) >= 110 dB against the offline
+               render, the same length, a lower device peak.
+ 28. channel-strip — (a) examples/projects/channel_strip.json on the 300 s
+               tone through the CLI (the reverb's tail, finite, no launch);
+               card vs CPU at 30 s >= 90 dB; its `run --stream` takes the
+               offline path (normalize), bitwise the offline export. (b)
+               examples/channel_strip.py's chain (gate, EQ, compressor,
+               phaser, width, pan, delay, reverb, fade, limiter) rebuilt from
+               the port's processor_map with the script's parameters, 300 s:
+               grown by the delay's and the reverb's tails; `run --stream`
+               >= 88 dB against its offline export, peaks at 100 s and 300 s
+               flat, wall RTF (median of 3). (c) the 30 s tone through
+               tremolo (5 Hz, 0.5) and chorus (defaults): card vs CPU >= 95
+               dB, streamed within 3e-7 of offline. The bitwise passthroughs
+               on the card: reverb, delay, phaser and chorus at wet 0 with
+               dry 1, tremolo at depth 0, width 1, pan 0, a fade with no
+               ramp.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
 preview, the chunked render; phases 22-24's: each config's CLI render, the
 streamed exports of configs 2 and 5, config 2's chunked render; phases
-25-26's: each graph's CLI render and streamed export). The line before the last is one JSON object
+25-28's: each graph's CLI render and streamed export, config 7's chunked
+render). The line before the last is one JSON object
 describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -311,6 +339,15 @@ CONFIG6_STREAM_DB = 88.0         # tests/test_biquad.py:131, the EQ's bar
 GRAPH_A_DB = 90.0                # tests/test_deesser.py:64, the de-esser's
 LUFS_TARGET = -14.0
 LUFS_TOL = 0.1                   # tests/test_loudness.py:88
+# Phases 27-28: config 7 (bench.py:240-253) and the channel strips.
+CONFIG7_IR = 87_360              # round(1.8 s * 48 kHz) + 20 ms pre-delay
+CONFIG7_CARD_CPU_DB = 100.0
+CONFIG7_STREAM_DB = 90.0         # tests/test_reverb.py:154
+CONFIG7_CHUNKED_DB = 110.0       # tests/test_reverb.py:179
+STRIP_CARD_CPU_DB = 90.0         # phase 26's bar for a graph with normalize
+STRIP_STREAM_DB = 88.0           # the EQ's streamed bar, the weakest link
+MODFX_CARD_CPU_DB = 95.0         # tests/test_modfx.py:82, the chorus's
+MODFX_STREAM_TOL = 3e-7          # tests/test_modfx.py:107
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -2786,6 +2823,256 @@ def masterbus_phases(cli, card: str, tmp: str):
     return paths
 
 
+def config7_graph(paths):
+    """bench.py:240-253: the 48 kHz stereo track -> audio_reverb (decay
+    1.8 s, wet 0.35; pre-delay 20 ms, damping 0.5, dry 1 by default) ->
+    output (export)."""
+    from nodey_tpu_torch.processors.reverb import AudioReverb
+
+    g, src = _input_graph(paths[:1])
+    rev = g.add_node(AudioReverb())
+    g.nodes[rev].processor.set_param("decay_s", 1.8)
+    g.nodes[rev].processor.set_param("wet", 0.35)
+    g.add_link(_pin(g, src, "output_0"), _pin(g, rev, "input"))
+    _output(g, _pin(g, rev, "output"))
+    return g
+
+
+def _chain(paths, stages):
+    """The track -> each (identifier, params) of ``stages`` from the port's
+    processor_map, set as examples/channel_strip.py sets them (a node's
+    ``set_<key>`` where it has one, else ``set_param``) -> output."""
+    from nodey_tpu_torch.core.registry import (processor_map,
+                                               register_all_processors)
+
+    register_all_processors()
+    g, src = _input_graph(paths[:1])
+    prev = _pin(g, src, "output_0")
+    for identifier, params in stages:
+        nid = g.add_node(processor_map[identifier].generate())
+        proc = g.nodes[nid].processor
+        for key, value in params.items():
+            setter = getattr(proc, f"set_{key}", None)
+            if setter is not None:
+                setter(value)
+            else:
+                proc.set_param(key, value)
+        g.add_link(prev, _pin(g, nid, "input"))
+        prev = _pin(g, nid, "output")
+    _output(g, prev)
+    return g
+
+
+# examples/channel_strip.py:51-64, its parameters as the script sets them.
+EXAMPLE_STRIP = [
+    ("audio_gate", dict(threshold_db=-45.0, ratio=6.0, release_ms=150.0)),
+    ("audio_eq", dict(ls_gain_db=2.0, p2_freq=2500.0, p2_gain_db=3.0,
+                      hs_gain_db=1.5)),
+    ("audio_compressor", dict(threshold_db=-16.0, ratio=3.0, attack_ms=5.0,
+                              release_ms=120.0, makeup_db=2.0)),
+    ("audio_phaser", dict(rate_hz=0.4, f_min_hz=300.0, f_max_hz=2500.0,
+                          wet=0.5)),
+    ("audio_width", dict(width=1.4)),
+    ("audio_pan", dict(pan=-0.25)),
+    ("audio_delay", dict(delay_ms=240.0, feedback=0.35, wet=0.18)),
+    ("audio_reverb", dict(decay_s=1.2, wet=0.2)),
+    ("audio_fade", dict(in_ms=120.0, out_start_s=3.5, out_ms=600.0)),
+    ("audio_limiter", dict(threshold_db=-1.0, release_ms=60.0)),
+]
+# Phase 28's graph (c): tremolo at 5 Hz, depth 0.5, then the chorus's
+# defaults.
+MODFX_CHAIN = [("audio_tremolo", dict(rate_hz=5.0, depth=0.5)),
+               ("audio_chorus", {})]
+
+
+def effect_passthroughs_on_card(tag: str, card: str) -> None:
+    """Where the JAX node passes its input through bitwise, the port's node
+    must on the card too: reverb, delay, phaser and chorus at wet 0 with dry
+    1, tremolo at depth 0, width 1, pan 0 on stereo and a fade with no
+    ramp, each node's ``lower`` on 0.5 s of stereo noise."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.registry import (processor_map,
+                                               register_all_processors)
+    from nodey_tpu_torch.core.stream import Stream
+
+    register_all_processors()
+    rng = np.random.default_rng(7)
+    x = (0.3 * rng.standard_normal((2, MASTER_RATE // 2))).astype(np.float32)
+    data = torch.from_numpy(x).to(CARD)
+    cases = [("audio_reverb", dict(wet=0.0, dry=1.0)),
+             ("audio_delay", dict(wet=0.0, dry=1.0)),
+             ("audio_phaser", dict(wet=0.0, dry=1.0)),
+             ("audio_chorus", dict(wet=0.0, dry=1.0)),
+             ("audio_tremolo", dict(depth=0.0)),
+             ("audio_width", dict(width=1.0)),
+             ("audio_pan", dict(pan=0.0)),
+             ("audio_fade", dict(in_ms=0.0, out_start_s=0.0))]
+    held = []
+    for identifier, params in cases:
+        node = processor_map[identifier].generate()
+        for key, value in params.items():
+            node.set_param(key, value)
+        out = node.lower(None, {"input": Stream(
+            data=data, length=x.shape[1], rate=MASTER_RATE,
+            channels=2)})["output"].data
+        same = bool(torch.equal(out, data))
+        held.append(f"{identifier[6:]} {'bitwise' if same else 'NOT bitwise'}")
+        check(same, f"{tag}: {identifier} does not pass its input through "
+              f"bitwise on the card")
+    print(f"[{tag}] passthroughs on the card: {', '.join(held)} ({card})")
+
+
+def effects_phases(cli, card: str, tmp: str):
+    """Phases 27-28 (see the module docstring): config 7 and the channel
+    strips. No kernel of ours lies on these paths (48 kHz in and out: no
+    resampler, no stretch); each path's launch counts are read and must
+    stay 0. Returns the launch counts by path."""
+    import numpy as np
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.core.streaming import render_chunked
+    from nodey_tpu_torch.host.decode import decode_file
+    from nodey_tpu_torch.ops import delay, reverb
+
+    paths, figures = {}, {}
+    n = MASTER_RATE * SECONDS
+
+    def no_launch(tag, what, counts):
+        paths[what] = counts
+        check(sum(counts.values()) == 0, f"{tag}: {what} launched {counts}")
+
+    # -- 27. config 7 ------------------------------------------------------------
+    tag = "27 config7"
+    t0 = time.perf_counter()
+    track, short, check_track = (
+        masterbus_track(tmp, seconds, f"{seconds}s")
+        for seconds in (SECONDS, SHORT_SECONDS, CONFIG_CHECK_SECONDS))
+    check(reverb.ir_length(MASTER_RATE, 1.8, 20.0) == CONFIG7_IR,
+          f"{tag}: the IR is not {CONFIG7_IR} samples long")
+    proj7 = write_project(config7_graph([track]),
+                          os.path.join(tmp, "config7.json"))
+    wav7 = os.path.join(tmp, "config7.wav")
+    _, counts = cli_export(cli, proj7, wav7, tag, card,
+                           shape=(2, n + CONFIG7_IR - 1))
+    no_launch(tag, "config7", counts)
+    figures["config7_rtf"] = device_rtf(
+        tag, "config7", config7_graph([track]), "export", card,
+        profile=(tag, "config-7"))
+    _, figures["config7_card_cpu_db"] = card_vs_cpu_db(
+        tag, "config7", lambda: config7_graph([check_track]),
+        CONFIG7_CARD_CPU_DB, card)
+    streamed = streamed_export_checks(
+        cli, tag, "config7", proj7, lambda: decode_file(wav7).data, 0.0, card,
+        tmp, short_tracks=[short], min_db=CONFIG7_STREAM_DB)
+    no_launch(tag, "config7_streamed", streamed["counts"])
+    figures["config7_streamed_db"] = streamed["db"]
+    figures["config7_streamed_peaks_mib"] = {
+        s: p / 2**20 for s, p in streamed["peaks"].items()}
+    figures["config7_streamed_wall_rtf"] = stream_times(
+        cli, tag, "config7_streamed_wav", "config 7, WAV sink", proj7,
+        os.path.join(tmp, "config7_timed.wav"), streamed["device_ms"],
+        card).rtf
+    graph = cli._load_graph(proj7)
+    whole = []
+    offline_peak = device_peak(lambda: whole.append(
+        Runner(graph, device=CARD).render("export").master))
+    result = []
+    zero_counts()
+    chunked_peak = device_peak(lambda: result.append(
+        render_chunked(graph, device=CARD)))
+    no_launch(tag, "config7_chunked", read_counts())
+    chunked, rate, _fmt, _ = result[0]
+    db = snr_db(whole[0], chunked)
+    figures["config7_chunked_db"] = db
+    print(f"[{tag}] render_chunked (30 s windows): master "
+          f"{list(chunked.shape)} at {rate} Hz vs the offline render "
+          f"{list(whole[0].shape)}: SNR {db:.1f} dB (min "
+          f"{CONFIG7_CHUNKED_DB:.0f}), max|diff| "
+          f"{float(np.abs(chunked - whole[0]).max()):.3e}; peak device "
+          f"memory {chunked_peak / 2**20:.1f} MiB (offline render "
+          f"{offline_peak / 2**20:.1f} MiB) ({card})")
+    check(chunked.shape == whole[0].shape and db >= CONFIG7_CHUNKED_DB,
+          f"{tag}: the chunked master disagrees with the offline render")
+    check(chunked_peak < offline_peak,
+          f"{tag}: the chunked render took more memory than the offline one")
+    del whole, chunked, result
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+
+    # -- 28. the channel strips -------------------------------------------------
+    tag = "28 channel-strip"
+    t0 = time.perf_counter()
+    shipped = os.path.join(ROOT, "examples", "projects", "channel_strip.json")
+    proj_a = project_with_tracks(shipped, [track],
+                                 os.path.join(tmp, "strip_a.json"))
+    check_a = project_with_tracks(shipped, [check_track],
+                                  os.path.join(tmp, "strip_a_30s.json"))
+    tail_a = reverb.ir_length(MASTER_RATE, 1.2, 20.0) - 1
+    wav_a = os.path.join(tmp, "strip_a.wav")
+    _, counts = cli_export(cli, proj_a, wav_a, tag, card,
+                           shape=(2, n + tail_a))
+    no_launch(tag, "strip_a", counts)
+    _, figures["strip_a_card_cpu_db"] = card_vs_cpu_db(
+        tag, "channel_strip.json", lambda: cli._load_graph(check_a),
+        STRIP_CARD_CPU_DB, card)
+    out_a = os.path.join(tmp, "strip_a_streamed.wav")
+    zero_counts()
+    rc, text, metrics = stream_export(cli, proj_a, out_a)
+    no_launch(tag, "strip_a_streamed", read_counts())
+    print("\n".join(f"[{tag}] channel_strip.json cli: {line}"
+                    for line in text.splitlines()))
+    same = bool(np.array_equal(decode_file(out_a).data,
+                               decode_file(wav_a).data))
+    path = "offline" if metrics is None and "(offline)" in text else "streamed"
+    print(f"[{tag}] channel_strip.json run --stream: the {path} path ran "
+          f"(the normalize node refuses the stream plan); master "
+          f"{'bitwise' if same else 'NOT bitwise'} the offline export's "
+          f"({card})")
+    check(rc == 0 and path == "offline" and same,
+          f"{tag}: channel_strip.json's run --stream did not fall back to "
+          f"the offline render")
+
+    proj_b = write_project(_chain([track], EXAMPLE_STRIP),
+                           os.path.join(tmp, "strip_b.json"))
+    wav_b = os.path.join(tmp, "strip_b.wav")
+    d, k = delay.delay_params(MASTER_RATE, 240.0, 0.35)
+    _, counts = cli_export(cli, proj_b, wav_b, tag, card,
+                           shape=(2, n + k * d + tail_a))
+    no_launch(tag, "strip_b", counts)
+    streamed = streamed_export_checks(
+        cli, tag, "strip_b", proj_b, lambda: decode_file(wav_b).data, 0.0,
+        card, tmp, short_tracks=[short], min_db=STRIP_STREAM_DB)
+    no_launch(tag, "strip_b_streamed", streamed["counts"])
+    figures["strip_b_streamed_db"] = streamed["db"]
+    figures["strip_b_streamed_peaks_mib"] = {
+        s: p / 2**20 for s, p in streamed["peaks"].items()}
+    figures["strip_b_streamed_wall_rtf"] = stream_times(
+        cli, tag, "strip_b_streamed_wav", "the example's channel strip, WAV "
+        "sink", proj_b, os.path.join(tmp, "strip_b_timed.wav"),
+        streamed["device_ms"], card).rtf
+
+    proj_c = write_project(_chain([check_track], MODFX_CHAIN),
+                           os.path.join(tmp, "modfx.json"))
+    wav_c = os.path.join(tmp, "modfx.wav")
+    _, counts = cli_export(cli, proj_c, wav_c, tag, card,
+                           shape=(2, MASTER_RATE * CONFIG_CHECK_SECONDS),
+                           seconds=CONFIG_CHECK_SECONDS)
+    no_launch(tag, "modfx", counts)
+    _, figures["modfx_card_cpu_db"] = card_vs_cpu_db(
+        tag, "tremolo -> chorus", lambda: _chain([check_track], MODFX_CHAIN),
+        MODFX_CARD_CPU_DB, card)
+    streamed = streamed_export_checks(
+        cli, tag, "modfx", proj_c, lambda: decode_file(wav_c).data,
+        MODFX_STREAM_TOL, card, tmp, min_steps=2)
+    no_launch(tag, "modfx_streamed", streamed["counts"])
+    figures["modfx_streamed_err"] = streamed["err"]
+    effect_passthroughs_on_card(tag, card)
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[27-28 figures] {json.dumps(figures)}")
+    return paths
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -3474,6 +3761,9 @@ def main() -> int:
         # -- 25-26. config 6 and the master-bus nodes ------------------------
         masterbus_paths = masterbus_phases(cli, card, tmp)
 
+        # -- 27-28. config 7 and the channel strips --------------------------
+        effects_paths = effects_phases(cli, card, tmp)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -3482,7 +3772,7 @@ def main() -> int:
             ("config4_streamed", streamed["config4"]["counts"]),
             *pv_stream_paths.items(), *session_paths.items(),
             *tool_paths.items(), *config_paths.items(),
-            *masterbus_paths.items())}
+            *masterbus_paths.items(), *effects_paths.items())}
 
     def with_launches(entry):
         # resample_data is the polyphase kernel reached through the A/B

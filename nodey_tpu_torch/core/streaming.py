@@ -14,12 +14,15 @@ nodey_tpu.core.streaming).
 
 2. **Chunked rendering** (``render_chunked``): an export render of a
    time-invariant graph per time chunk, each chunk with a left and a right
-   halo (``halo_seconds``, rounded up to the quantum), the halos' output
-   discarded (overlap-discard). Chunk lengths are multiples of every
-   resampler's input stride (times its group factor) and of the spectrum
-   hop, so the chunks' outputs concatenate exactly. Valid for the
-   time-invariant node set; the velocity and pitch nodes carry state from
-   one chunk to the next and are refused (the streamed export runs them).
+   halo (``halo_seconds``, or the largest ``receptive_seconds`` a node
+   declares, rounded up to the quantum), the halos' output discarded
+   (overlap-discard), and chunks enough to cover the tail a reverb or a
+   delay adds past the input. Chunk lengths are multiples of every
+   resampler's input stride (times its group factor), of the spectrum hop
+   and of the reverb's partition, so the chunks' outputs concatenate
+   exactly. Valid for the time-invariant node set; the velocity, pitch,
+   modulation, fade and master-bus nodes carry state from one chunk to the
+   next and are refused (the streamed export runs them).
 
 Both run on the device they are given (``cuda`` unless the caller asks for
 the CPU); a CUDA device without a card raises. Producer threads bind the
@@ -49,12 +52,12 @@ from nodey_tpu_torch.core.runner import Runner
 from nodey_tpu_torch.host.streamio import BoundedBlockQueue, RealtimePacer
 
 # Nodes whose offline lowering is time-invariant and stride-aligned, so
-# overlap-discard chunking is exact: the JAX package's set, cut to the nodes
-# the port registers (each other one joins when it is ported).
+# overlap-discard chunking is exact: the JAX package's set.
 _LTI_NODES = {
     "audio_input", "audio_output", "audio_volume_adjust", "audio_amix",
     "audio_resample", "audio_spectrum", "audio_split", "audio_bimix",
-    "audio_bimix_v2",
+    "audio_bimix_v2", "audio_reverb", "audio_delay", "audio_pan",
+    "audio_width",
 }
 
 
@@ -353,9 +356,19 @@ def render_chunked(
 
     quantum = _chunk_quantum(graph, in_rate)
     chunk = max(1, int(chunk_seconds * in_rate) // quantum) * quantum
-    halo = -(-int(halo_seconds * in_rate) // quantum) * quantum
+    # The halo covers every node's receptive field: the nodes whose output
+    # reaches further back than a resampler's taps (reverb, delay) declare
+    # theirs as ``receptive_seconds``.
+    max_receptive_s = max(
+        [float(getattr(n.processor, "receptive_seconds", 0.0))
+         for n in graph.nodes.values()] + [0.0])
+    halo = -(-int(max(halo_seconds, max_receptive_s) * in_rate)
+             // quantum) * quantum
     total = max(lengths.values())
-    n_chunks = max(1, -(-total // chunk))
+    # Tail-growing nodes emit past the input's end: enough chunks to cover
+    # the grown output.
+    tail_in = int(max_receptive_s * in_rate)
+    n_chunks = max(1, -(-(total + tail_in) // chunk))
 
     # Window = left halo + chunk + right halo, both halos discarded (the
     # right one covers the resampler taps reading past the chunk's end).

@@ -21,7 +21,11 @@ passes run on the device. Two formulations of each primitive:
 
 The forms differ only in float32 re-association. The JAX package's
 ``NODEY_SCAN_FORM`` switch is not ported (the forms are called directly
-where a test needs one); ``tv_ar1_scan`` (the phaser's) is not ported yet.
+where a test needs one).
+
+``tv_ar1_scan`` (the phaser's) has a TIME-VARYING pole, so no scan weight
+is host-computable: it composes affine maps (P, V) by doubling on the
+device, with the pole products carried beside the values.
 
 No complex dtype reaches the device: the complex modal scan runs on split
 re/im float32 planes with the complex algebra done on the host.
@@ -290,3 +294,36 @@ def maxplus_scan(a: torch.Tensor, c: float) -> torch.Tensor:
     if _form(a.shape[-1]) == "blocked":
         return _maxplus_blocked(a, c)
     return _maxplus_doubling(a, c)
+
+
+# -- AR(1) with a time-varying pole ---------------------------------------------
+
+
+def tv_ar1_scan(u: torch.Tensor, p: torch.Tensor):
+    """y[n] = p[n] * y[n-1] + u[n] with y[-1] = 0: a first-order linear
+    recurrence with a TIME-VARYING pole, along the last axis.
+
+    The pair (P, V) represents y_out = P * y_in + V; a segment a followed
+    by a segment b composes to (Pa * Pb, Vb + Pb * Va). The JAX package
+    runs that operator through ``lax.associative_scan``; here it runs as a
+    Hillis-Steele doubling (log2(N) rounds, each pass composing every
+    position with the one ``d`` before it; positions before the start take
+    the identity (1, 0)), with the products on ``p``'s own shape (a [N]
+    pole track shared by [C, N] channels).
+
+    Returns ``(P_cum, y)``, ``P_cum[n] = prod_{j<=n} p[j]`` broadcast to
+    ``u``'s shape: the weight a nonzero initial state enters with
+    (y_s[n] = y[n] + P_cum[n] * s). Callers keep |p| < 1, so every
+    composed product decays and the values stay bounded by the drive's
+    scale; a long run's P_cum underflows to 0.0 (the initial state's true
+    contribution is below float32 resolution there), never to a NaN: the
+    doubling only multiplies and adds finite numbers.
+    """
+    n = u.shape[-1]
+    pc, v = p, u
+    d = 1
+    while d < n:
+        v = torch.addcmul(v, pc, _shift(v, d))
+        pc = pc * _shift(pc, d, 1.0)
+        d *= 2
+    return pc.expand(u.shape), v

@@ -1,7 +1,9 @@
 """The port's own copies of the JAX package's jax-free modules stay equal
 to them where it matters: config values, error classes and messages, the
-graph's rules and quirks, the codec runtime's build, and the phase
-vocoder's constants, geometry and host bases."""
+graph's rules and quirks, the codec runtime's build, the phase
+vocoder's constants, geometry and host bases, and the effect nodes'
+constants (the reverb's partition, the delay's echo truncation, the LFO
+quantization and phase tables, the fade's ramp cap)."""
 
 import inspect
 
@@ -11,16 +13,21 @@ import pytest
 from nodey_tpu import config as jconfig
 from nodey_tpu.core import errors as jerrors
 from nodey_tpu.core.graph import Graph as JGraph
+from nodey_tpu.ops import delay as jdelay
 from nodey_tpu.ops import dynamics as jdynamics
+from nodey_tpu.ops import fadepan as jfadepan
 from nodey_tpu.ops import loudness as jloudness
+from nodey_tpu.ops import modfx as jmodfx
 from nodey_tpu.ops import pv as jpv
+from nodey_tpu.ops import reverb as jreverb
 from nodey_tpu.ops import scans as jscans
 from nodey_tpu.ops.stft import _dft_matrices as j_dft_matrices
 from nodey_tpu_torch import config
 from nodey_tpu_torch.core import errors
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.host import decode, native_lib
-from nodey_tpu_torch.ops import dynamics, loudness, pv, scans
+from nodey_tpu_torch.ops import (delay, dynamics, fadepan, loudness, modfx,
+                                 pv, reverb, scans)
 from nodey_tpu_torch.ops.stft import _dft_matrices
 from nodey_tpu_torch.processors.amix import AudioAmix
 from nodey_tpu_torch.processors.audio_input import AudioInput
@@ -50,6 +57,29 @@ def test_config_values_equal_the_jax_package(name):
 def test_master_bus_constants_equal_the_jax_package(module, jmodule, name):
     got, want = getattr(module, name), getattr(jmodule, name)
     assert got == want and type(got) is type(want)
+
+
+@pytest.mark.parametrize("module,jmodule,name", [
+    (reverb, jreverb, "PARTITION"), (reverb, jreverb, "_F"),
+    (reverb, jreverb, "_BINS"), (delay, jdelay, "_MAX_ECHOES"),
+    (delay, jdelay, "_TRUNCATE_DB"), (modfx, jmodfx, "_DEN_MAX"),
+    (modfx, jmodfx, "_LO_BITS"), (modfx, jmodfx, "_LO"),
+    (fadepan, jfadepan, "_RAMP_MAX_MS"),
+])
+def test_effect_constants_equal_the_jax_package(module, jmodule, name):
+    got, want = getattr(module, name), getattr(jmodule, name)
+    assert got == want and type(got) is type(want)
+
+
+def test_lfo_phase_tables_equal_the_jax_package():
+    for rate_hz, sample_rate, width in ((0.4, 48_000, 768_000),
+                                        (5.3, 8_000, 4_096),
+                                        (20.0, 44_100, 1)):
+        num, m = modfx.lfo_quantize(rate_hz, sample_rate)
+        for got, want in zip(modfx._phase_tables(num, m, width),
+                             jmodfx._phase_tables(num, m, width)):
+            np.testing.assert_array_equal(got, want)
+            assert got.dtype == want.dtype == np.int32
 
 
 def test_exec_config_pad_quantum_equals_the_jax_package():

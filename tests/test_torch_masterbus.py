@@ -539,7 +539,8 @@ def test_the_port_registers_the_seven_master_bus_nodes():
         assert identifier not in _LTI_NODES
         g, _ = _graph(cls())
         assert stream_supported(g) and not supports_chunked(g)
-    assert len(processor_map) == 18
+    # With the eight single-input effects beside them.
+    assert len(processor_map) == 26
 
 
 def _jax_chain(paths):

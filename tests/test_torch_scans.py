@@ -15,7 +15,9 @@ JAX's, so they are bitwise its eager results; the blocked forms differ
 from it by the GEMMs' summation order only. The host weights are the JAX
 package's arrays, bitwise; the GEMMs run in full float32 (TF32 off,
 "highest" asserted where they run); a prepared width copies no table
-again.
+again. The time-varying-pole scan (the phaser's) against the JAX scan and
+a float64 sequential recurrence, its pole products underflowing to 0.0
+without a NaN.
 """
 
 import jax
@@ -200,3 +202,55 @@ def test_a_prepared_width_copies_no_table_again():
     scans.device_powers(pole, n, device)
     assert (scans._device_powers.cache_info().misses,
             scans._device_table.cache_info().misses) == misses
+
+
+# -- tv_ar1_scan: the time-varying pole -------------------------------------------
+
+
+def _tv_ref(u, p):
+    """The float64 sequential recurrence y[n] = p[n] y[n-1] + u[n]."""
+    y = np.zeros(u.shape)
+    prev = np.zeros(u.shape[:-1])
+    for j in range(u.shape[-1]):
+        prev = p.astype(np.float64)[j] * prev + u.astype(np.float64)[..., j]
+        y[..., j] = prev
+    return y
+
+
+@pytest.mark.parametrize("n", [1, 1_000, 4_097])
+def test_tv_ar1_matches_jax_and_the_float64_recurrence(n):
+    """tests/test_phaser.py::test_tv_ar1_scan_matches_sequential_float64 in
+    the port (poles in the phaser's working range, an odd length): y
+    > 110 dB against the float64 recurrence and against the JAX scan; the
+    cumulative products within rtol 5e-4 where they exceed 1e-30, and
+    broadcast to the drive's shape."""
+    rng = np.random.default_rng(1)
+    p = (0.90 + 0.099 * rng.random(n)).astype(np.float32)
+    u = (0.5 * rng.standard_normal((2, n))).astype(np.float32)
+    p_cum, y = scans.tv_ar1_scan(torch.from_numpy(u), torch.from_numpy(p))
+    jp_cum, jy = jax.jit(jscans.tv_ar1_scan)(jnp.asarray(u), jnp.asarray(p))
+    assert y.shape == p_cum.shape == u.shape == jy.shape
+    yref = _tv_ref(u, p).astype(np.float32)
+    assert snr_db(yref, y.numpy()) > 110.0
+    assert snr_db(np.asarray(jy), y.numpy()) > 110.0
+    want = np.cumprod(p.astype(np.float64))
+    keep = want > 1e-30
+    for row in (p_cum.numpy()[0], p_cum.numpy()[1], np.asarray(jp_cum)[0]):
+        np.testing.assert_allclose(row[keep], want[keep].astype(np.float32),
+                                   rtol=5e-4)
+
+
+def test_tv_ar1_products_underflow_to_zero_never_nan():
+    """Over a long run of poles well inside (0, 1) the cumulative product
+    falls below float32's least subnormal: it reaches 0.0 and stays finite,
+    and y stays bounded by the drive's scale (the JAX docstring's
+    conditioning argument)."""
+    rng = np.random.default_rng(2)
+    n = 20_000
+    p = (0.5 + 0.49 * rng.random(n)).astype(np.float32)
+    u = rng.standard_normal((2, n)).astype(np.float32)
+    p_cum, y = scans.tv_ar1_scan(torch.from_numpy(u), torch.from_numpy(p))
+    assert torch.isfinite(p_cum).all() and torch.isfinite(y).all()
+    assert float(p_cum[0, -1]) == 0.0
+    assert float(y.abs().max()) < 100.0 * float(np.abs(u).max())
+    assert snr_db(_tv_ref(u, p).astype(np.float32), y.numpy()) > 110.0

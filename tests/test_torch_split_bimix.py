@@ -259,8 +259,9 @@ def test_the_port_registers_the_three_nodes():
                             ("audio_bimix", AudioBimix),
                             ("audio_bimix_v2", AudioBimixV2)):
         assert processor_map[identifier].generate is cls
-    # 11 node types of the earlier slices and the seven master-bus nodes.
-    assert len(processor_map) == 18
+    # 11 node types of the earlier slices, the seven master-bus nodes and
+    # the eight single-input effects.
+    assert len(processor_map) == 26
 
 
 @pytest.mark.parametrize("make_jax,make_port,edit", [
