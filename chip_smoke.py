@@ -232,13 +232,37 @@ Phases, in order; the first failure exits non-zero:
                on the card: reverb, delay, phaser and chorus at wet 0 with
                dry 1, tremolo at depth 0, width 1, pan 0, a fade with no
                ramp.
+ 29. timeline — (a) examples/projects/crossfade_splice.json (a 1.5 s
+               equal-power splice at 2.0 s) on two 300 s 48 kHz stereo s16
+               tones (220 and 330 Hz, seeds 10 and 11) through the CLI: the
+               length, finite, no launch; the device RTF by CUDA events
+               (median of 5); card vs CPU at 30 s and `run --stream` (16 s
+               chunks, the sync debug mode) vs the offline export: bitwise
+               outside the window, within 3e-7 inside it; whole-export
+               device peaks at 100 s and 300 s within 2 MiB and below the
+               offline render's; the wall RTF (median of 3) and stage
+               budget. (b) a graph with no audio file: generator (noise, seed
+               7, -12 dB, 300 s) -> trim (10 s to 250 s) -> output: exactly
+               240 s of samples, bitwise the numpy mirror of the noise hash
+               at those positions, `run --stream` bitwise the offline export;
+               the same graph on the sine, card vs CPU >= 130 dB. (c) the
+               300 s 44.1 kHz track and a 48 kHz triangle generator -> amix:
+               chunk widths 705,600 and 768,000 (one 16 s quantum),
+               `run --stream` within 3e-7 of the offline export, every
+               resampler launch of both paths within 2e-6 of plain. (d) the
+               300 s 48 kHz track -> reverse: the render bitwise the card's
+               flip of the decoded input; export_streamed falls back offline,
+               bitwise the offline export, its progress monotone up to 300
+               audio-s; a stop() from the first progress call raises
+               RunCancelled, leaves no file and the runner READY, and the
+               same runner then exports in full.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
 preview, the chunked render; phases 22-24's: each config's CLI render, the
 streamed exports of configs 2 and 5, config 2's chunked render; phases
-25-28's: each graph's CLI render and streamed export, config 7's chunked
-render). The line before the last is one JSON object
+25-29's: each graph's CLI render and streamed export, config 7's chunked
+render, reverse's fallback exports). The line before the last is one JSON object
 describing the kernels;
 the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -348,6 +372,11 @@ STRIP_CARD_CPU_DB = 90.0         # phase 26's bar for a graph with normalize
 STRIP_STREAM_DB = 88.0           # the EQ's streamed bar, the weakest link
 MODFX_CARD_CPU_DB = 95.0         # tests/test_modfx.py:82, the chorus's
 MODFX_STREAM_TOL = 3e-7          # tests/test_modfx.py:107
+# Phase 29: the timeline nodes. The splice's in-window bar is the JAX
+# package's across-program one (tests/test_crossfade.py:137-160).
+SPLICE_TOL = 3e-7
+GENERATOR_SINE_DB = 130.0
+TRIM_SPAN = (1 / 30, 5 / 6)      # of the clip: 10 s to 250 s of 300 s
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -3072,6 +3101,316 @@ def effects_phases(cli, card: str, tmp: str):
     print(f"[27-28 figures] {json.dumps(figures)}")
     return paths
 
+# -- phase 29: the timeline nodes ---------------------------------------------
+
+
+def splice_checks(tag: str, what: str, got, want, window, card: str):
+    """``got`` against ``want`` ([C, n] on the host): equal shapes, bitwise
+    outside the crossfade window (n0, n_dur), within SPLICE_TOL inside it.
+    Returns max|got - want| inside the window."""
+    import numpy as np
+
+    n0, n_dur = window
+    check(got.shape == want.shape,
+          f"{tag}: {what}: master {got.shape}, want {want.shape}")
+    outside = bool(np.array_equal(got[:, :n0], want[:, :n0])
+                   and np.array_equal(got[:, n0 + n_dur:],
+                                      want[:, n0 + n_dur:]))
+    inside = float(np.abs(got[:, n0:n0 + n_dur]
+                          - want[:, n0:n0 + n_dur]).max(initial=0.0))
+    print(f"[{tag}] {what}: master {list(got.shape)}; outside the window "
+          f"[{n0}, {n0 + n_dur}) {'bitwise' if outside else 'NOT bitwise'}, "
+          f"inside max|diff| {inside:.3e} (tol {SPLICE_TOL:.0e}) ({card})")
+    check(outside and inside <= SPLICE_TOL,
+          f"{tag}: {what} disagrees with its reference")
+    return inside
+
+
+def _generator(g, **params) -> int:
+    from nodey_tpu_torch.processors.generator import AudioGenerator
+
+    gen = AudioGenerator()
+    for key, value in params.items():
+        gen.set_param(key, value)
+    return g.add_node(gen)
+
+
+def generator_trim_graph(waveform: str):
+    """Phase 29's graph (b): audio_generator (``waveform``, seed 7, -12 dB,
+    SECONDS at 48 kHz stereo) -> audio_trim (TRIM_SPAN of the clip) ->
+    output. No audio file."""
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.processors.editnodes import AudioTrim
+
+    g = Graph()
+    gen = _generator(g, waveform=waveform, seed=7, level_db=-12.0,
+                     duration_s=SECONDS, rate=MASTER_RATE, channels=2)
+    trim = g.add_node(AudioTrim())
+    g.nodes[trim].processor.set_param("start_s", SECONDS * TRIM_SPAN[0])
+    g.nodes[trim].processor.set_param("end_s", SECONDS * TRIM_SPAN[1])
+    g.add_link(_pin(g, gen, "output"), _pin(g, trim, "input"))
+    _output(g, _pin(g, trim, "output"))
+    return g
+
+
+def mixed_rate_graph(paths):
+    """Phase 29's graph (c): the 44.1 kHz track and a 48 kHz triangle
+    generator (97 Hz, -18 dB, SECONDS) -> audio_amix 0.6 / 0.4 -> output."""
+    g, src = _input_graph(paths[:1])
+    gen = _generator(g, waveform="triangle", freq=97.0, level_db=-18.0,
+                     duration_s=SECONDS, rate=MASTER_RATE, channels=2)
+    amix = _amix(g, (0.6, 0.4))
+    g.add_link(_pin(g, src, "output_0"), _pin(g, amix, "input_1"))
+    g.add_link(_pin(g, gen, "output"), _pin(g, amix, "input_2"))
+    _output(g, _pin(g, amix, "output"))
+    return g
+
+
+def reverse_graph(paths):
+    """Phase 29's graph (d): the track -> audio_reverse -> output."""
+    from nodey_tpu_torch.processors.editnodes import AudioReverse
+
+    g, src = _input_graph(paths[:1])
+    rev = g.add_node(AudioReverse())
+    g.add_link(_pin(g, src, "output_0"), _pin(g, rev, "input"))
+    _output(g, _pin(g, rev, "output"))
+    return g
+
+
+def noise_mirror(seed: int, channels: int, pos0: int, n: int, gain: float):
+    """The generator's noise at absolute samples [pos0, pos0 + n) from the
+    numpy mirror of its hash (``_fmix32_np``): the top 23 bits centred,
+    times the gain folded into one float32 constant, as the op computes
+    them. [channels, n] float32."""
+    import numpy as np
+
+    from nodey_tpu_torch.ops.oscillator import _fmix32_np
+
+    i = np.arange(pos0, pos0 + n, dtype=np.int64).astype(np.uint32)
+    rows = []
+    for c in range(channels):
+        key = np.uint32((seed * 0x9E3779B9 + c * 0x7FEB352D) & 0xFFFFFFFF)
+        with np.errstate(over="ignore"):
+            h = _fmix32_np(i ^ key)
+        centered = (h >> np.uint32(9)).astype(np.int32) - np.int32(1 << 22)
+        rows.append(centered.astype(np.float32)
+                    * np.float32(gain * 2.0 ** -22))
+    return np.stack(rows)
+
+
+@contextlib.contextmanager
+def recorded_feeds(found):
+    """Inside the block, every StreamExecutor's planned sources and hints
+    (``_open_feeds``) are appended to ``found``."""
+    from nodey_tpu_torch.core.stream_executor import StreamExecutor
+
+    open_feeds = StreamExecutor._open_feeds
+
+    def recording(self):
+        feeds, sources, hints = open_feeds(self)
+        found.append((sources, hints))
+        return feeds, sources, hints
+
+    StreamExecutor._open_feeds = recording
+    try:
+        yield
+    finally:
+        StreamExecutor._open_feeds = open_feeds
+
+
+def timeline_phases(cli, card: str, tmp: str, track_44k: str):
+    """Phase 29 (see the module docstring): the crossfade, the generator,
+    trim and reverse. ``track_44k``: a SECONDS-long 44.1 kHz stereo s16
+    track. Only path (c) resamples; every other path's launch counts must
+    stay 0. Returns (the launch counts by path, the worst resampler
+    launch's max|kernel - plain|)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.errors import RunCancelled
+    from nodey_tpu_torch.core.runner import Runner, RunnerState
+    from nodey_tpu_torch.host.decode import decode_file, write_wav_s16
+    from nodey_tpu_torch.ops import crossfade
+
+    paths, figures = {}, {}
+    n = MASTER_RATE * SECONDS
+
+    def no_launch(what, counts):
+        paths[what] = counts
+        check(sum(counts.values()) == 0, f"{tag}: {what} launched {counts}")
+
+    # -- (a) crossfade_splice.json --------------------------------------------
+    tag = "29 timeline"
+    t0 = time.perf_counter()
+    tracks = {}
+    for seconds in (SECONDS, SHORT_SECONDS, CONFIG_CHECK_SECONDS):
+        tracks[seconds] = []
+        for i, f0 in enumerate((220.0, 330.0)):
+            path = os.path.join(tmp, f"splice_{i}_{seconds}s.wav")
+            write_wav_s16(path, bench_tone(MASTER_RATE * seconds,
+                                           MASTER_RATE, f0, 2, 10 + i),
+                          MASTER_RATE)
+            tracks[seconds].append(path)
+    shipped = os.path.join(ROOT, "examples", "projects",
+                           "crossfade_splice.json")
+    proj_a, proj_check = (
+        project_with_tracks(shipped, tracks[seconds], os.path.join(
+            tmp, f"splice_{seconds}s.json"))
+        for seconds in (SECONDS, CONFIG_CHECK_SECONDS))
+    graph = cli._load_graph(proj_a)
+    xfade = next(node.processor for node in graph.nodes.values()
+                 if node.processor.info().identifier == "audio_crossfade")
+    window = crossfade.crossfade_spec(MASTER_RATE, xfade.at_s, xfade.dur_ms)
+    print(f"[{tag}] crossfade_splice.json: {xfade.law} over {xfade.dur_ms} "
+          f"ms at {xfade.at_s} s, window {window} samples ({card})")
+    wav_a = os.path.join(tmp, "splice.wav")
+    _, counts = cli_export(cli, proj_a, wav_a, tag, card, shape=(2, n))
+    no_launch("splice", counts)
+    figures["splice_rtf"] = device_rtf(tag, "crossfade_splice", graph,
+                                       "export", card)
+    on_card = Runner(cli._load_graph(proj_check), device=CARD).render()
+    on_cpu = Runner(cli._load_graph(proj_check), device="cpu").render()
+    figures["splice_card_cpu_err"] = splice_checks(
+        tag, f"card vs CPU, {CONFIG_CHECK_SECONDS} s", on_card.master,
+        on_cpu.master, window, card)
+    del on_card, on_cpu
+    streamed = streamed_export_checks(
+        cli, tag, "splice", proj_a, lambda: decode_file(wav_a).data,
+        SPLICE_TOL, card, tmp, short_tracks=tracks[SHORT_SECONDS])
+    no_launch("splice_streamed", streamed["counts"])
+    figures["splice_streamed_err"] = splice_checks(
+        tag, "streamed vs offline export",
+        decode_file(os.path.join(tmp, "splice_streamed.wav")).data,
+        decode_file(wav_a).data, window, card)
+    figures["splice_streamed_peaks_mib"] = {
+        s: p / 2**20 for s, p in streamed["peaks"].items()}
+    figures["splice_streamed_wall_rtf"] = stream_times(
+        cli, tag, "splice_streamed_wav", "crossfade_splice.json, WAV sink",
+        proj_a, os.path.join(tmp, "splice_timed.wav"),
+        streamed["device_ms"], card).rtf
+
+    # -- (b) a graph with no audio file ----------------------------------------
+    proj_b = write_project(generator_trim_graph("noise"),
+                           os.path.join(tmp, "generator_trim.json"))
+    wav_b = os.path.join(tmp, "generator_trim.wav")
+    n0 = round(SECONDS * TRIM_SPAN[0] * MASTER_RATE)
+    n1 = round(SECONDS * TRIM_SPAN[1] * MASTER_RATE)
+    master_b, counts = cli_export(cli, proj_b, wav_b, tag, card,
+                                  shape=(2, n1 - n0))
+    no_launch("generator_trim", counts)
+    gain = 10.0 ** (-12.0 / 20.0)
+    same = bool(np.array_equal(master_b, noise_mirror(7, 2, n0, n1 - n0,
+                                                      gain)))
+    print(f"[{tag}] generator (noise, seed 7) -> trim [{n0}, {n1}): "
+          f"{n1 - n0} samples, {'bitwise' if same else 'NOT bitwise'} the "
+          f"_fmix32_np mirror at those positions ({card})")
+    check(same, f"{tag}: the generator's noise is not its mirror's")
+    del master_b
+    streamed = streamed_export_checks(
+        cli, tag, "generator_trim", proj_b, lambda: decode_file(wav_b).data,
+        0.0, card, tmp)
+    no_launch("generator_trim_streamed", streamed["counts"])
+    figures["generator_trim_streamed_err"] = streamed["err"]
+    figures["generator_trim_streamed_wall_rtf"] = streamed["metrics"].rtf
+    _, figures["generator_sine_card_cpu_db"] = card_vs_cpu_db(
+        tag, "generator (sine) -> trim", lambda: generator_trim_graph("sine"),
+        GENERATOR_SINE_DB, card)
+
+    # -- (c) a generator mixed with a decoded track at another rate ------------
+    proj_c = write_project(mixed_rate_graph([track_44k]),
+                           os.path.join(tmp, "mixed_rate.json"))
+    wav_c = os.path.join(tmp, "mixed_rate.wav")
+    offline_rs, streamed_rs, planned = [], [], []
+    with recorded_launches(resamples=offline_rs):
+        _, counts = cli_export(cli, proj_c, wav_c, tag, card, shape=(2, n))
+    paths["mixed_rate"] = counts
+    worst = check_resamples(f"{tag} offline", offline_rs,
+                            counts["polyphase_resample"], card)
+    with recorded_feeds(planned):
+        streamed = streamed_export_checks(
+            cli, tag, "mixed_rate", proj_c, lambda: decode_file(wav_c).data,
+            STREAM_MIX_TOL, card, tmp,
+            record=recorded_launches(resamples=streamed_rs))
+    paths["mixed_rate_streamed"] = streamed["counts"]
+    launched = streamed["counts"]["polyphase_resample"]
+    worst = max(worst, check_resamples(f"{tag} streamed", streamed_rs,
+                                       launched, card))
+    sources, hints = planned[0]
+    widths = sorted([spec.capacity for spec in sources.values()]
+                    + [h["chunk_width"] for h in hints.values()])
+    print(f"[{tag}] mixed rates: chunk widths {widths} (the 44.1 kHz feed "
+          f"and the 48 kHz generator's hint on one {STREAM_CHUNK_SECONDS} s "
+          f"quantum); {launched} resampler launches in "
+          f"{streamed['metrics'].steps} steps, "
+          f"{counts['polyphase_resample']} offline ({card})")
+    check(widths == [STREAM_CHUNK_SECONDS * 44_100,
+                     STREAM_CHUNK_SECONDS * MASTER_RATE],
+          f"{tag}: the mixed-rate chunk widths are {widths}")
+    check(counts["polyphase_resample"] > 0 and launched > 0,
+          f"{tag}: the mixed-rate paths launched no resampler")
+    figures["mixed_rate_streamed_err"] = streamed["err"]
+    figures["mixed_rate_resampler_launches"] = {
+        "offline": counts["polyphase_resample"], "streamed": launched}
+    del offline_rs, streamed_rs
+
+    # -- (d) reverse -------------------------------------------------------------
+    track = tracks[SECONDS][0]
+    proj_d = write_project(reverse_graph([track]),
+                           os.path.join(tmp, "reverse.json"))
+    wav_d = os.path.join(tmp, "reverse.wav")
+    master_d, counts = cli_export(cli, proj_d, wav_d, tag, card,
+                                  shape=(2, n))
+    no_launch("reverse", counts)
+    decoded = decode_file(track).data
+    zero_counts()
+    rendered = Runner(reverse_graph([track]), device=CARD).render().master
+    on_card = torch.from_numpy(decoded).to(CARD).flip(1).cpu().numpy()
+    same = bool(np.array_equal(rendered, on_card)
+                and np.array_equal(master_d, decoded[:, ::-1]))
+    del rendered, on_card, master_d, decoded
+    print(f"[{tag}] reverse: the render "
+          f"{'bitwise' if same else 'NOT bitwise'} the card's flip of the "
+          f"decoded input, the export the host's ({card})")
+    check(same, f"{tag}: reverse is not the flip of its input")
+    out_d = os.path.join(tmp, "reverse_streamed.wav")
+    runner = Runner(cli._load_graph(proj_d), device=CARD)
+    seen = []
+    metrics = runner.export_streamed(out_d, progress=seen.append)
+    with open(out_d, "rb") as f1, open(wav_d, "rb") as f2:
+        same = f1.read() == f2.read()
+    monotone = seen == sorted(seen) and seen[-1] == n / MASTER_RATE
+    print(f"[{tag}] reverse, export_streamed: the {metrics.mode} path ran, "
+          f"the file {'bitwise' if same else 'NOT bitwise'} the offline "
+          f"export's; progress called {len(seen)} times, "
+          f"{'monotone' if monotone else 'NOT monotone'} up to {seen[-1]} "
+          f"audio-s ({card})")
+    check(metrics.mode == "offline" and same and monotone,
+          f"{tag}: reverse's streamed export did not fall back offline")
+
+    def stop(seconds):
+        runner.stop()
+
+    try:
+        runner.export_streamed(out_d, progress=stop)
+        cancelled = False
+    except RunCancelled:
+        cancelled = True
+    ready = runner.state is RunnerState.READY and not os.path.exists(out_d)
+    runner.export_streamed(out_d)
+    with open(out_d, "rb") as f1, open(wav_d, "rb") as f2:
+        again = f1.read() == f2.read()
+    no_launch("reverse_streamed", read_counts())
+    print(f"[{tag}] reverse, stop() from the first progress call: "
+          f"{'RunCancelled' if cancelled else 'NOT cancelled'}, "
+          f"{'no file, READY' if ready else 'NOT clean'}; the same runner "
+          f"then exported in full, {'bitwise' if again else 'NOT bitwise'} "
+          f"the offline export ({card})")
+    check(cancelled and ready and again,
+          f"{tag}: the fallback export did not cancel cleanly")
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[29 figures] {json.dumps(figures)}")
+    return paths, worst
+
 
 def main() -> int:
     sys.path.insert(0, ROOT)
@@ -3764,6 +4103,10 @@ def main() -> int:
         # -- 27-28. config 7 and the channel strips --------------------------
         effects_paths = effects_phases(cli, card, tmp)
 
+        # -- 29. the timeline nodes -------------------------------------------
+        timeline_paths, timeline_resample_err = timeline_phases(
+            cli, card, tmp, track_path)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -3772,7 +4115,8 @@ def main() -> int:
             ("config4_streamed", streamed["config4"]["counts"]),
             *pv_stream_paths.items(), *session_paths.items(),
             *tool_paths.items(), *config_paths.items(),
-            *masterbus_paths.items(), *effects_paths.items())}
+            *masterbus_paths.items(), *effects_paths.items(),
+            *timeline_paths.items())}
 
     def with_launches(entry):
         # resample_data is the polyphase kernel reached through the A/B
@@ -3795,7 +4139,8 @@ def main() -> int:
             "replaces": "nodey_tpu/ops/pallas_resample.py:245",
             "launches": sum(by_path("polyphase_resample").values()),
             "launches_by_path": by_path("polyphase_resample"),
-            "max_abs_err": max(kernel_err, config_figures["resample_err"]),
+            "max_abs_err": max(kernel_err, config_figures["resample_err"],
+                               timeline_resample_err),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": resample_bound[0],

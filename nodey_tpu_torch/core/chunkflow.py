@@ -94,15 +94,20 @@ class ChunkStream:
 
 
 class StreamPlanCtx:
-    """Static planning context: the run mode, the bound sources and the
-    device the carries live on."""
+    """Static planning context: the run mode, the bound sources, the device
+    the carries live on, and ``hints``: per-node planning parameters the
+    executor knows and the nodes do not (the chunk width of a source
+    synthesized on the device, the signal generator, snapped to the decode
+    feeds' time quantum so that lockstep merges see equal cadences)."""
 
     def __init__(self, mode: str, sources: Dict[Tuple[int, str], SourceSpec],
-                 device: torch.device):
+                 device: torch.device,
+                 hints: Optional[Dict[int, Dict[str, Any]]] = None):
         self.mode = mode
         self.node_id: Optional[int] = None
         self.device = device
         self._sources = sources
+        self.hints: Dict[int, Dict[str, Any]] = hints or {}
         self.output_specs: Dict[str, Any] = {}
 
     def external_spec(self, node_id: int, pin: str) -> ChunkSpec:
@@ -200,12 +205,15 @@ def compile_stream_graph(
     sources: Dict[Tuple[int, str], SourceSpec],
     mode: str = "export",
     device: torch.device | str = "cuda",
+    plan_hints: Optional[Dict[int, Dict[str, Any]]] = None,
 ) -> StreamCompiled:
     """Validate and plan the graph; return its chunk step on ``device``
     (the card unless the caller asks for the CPU).
 
     ``sources`` binds each (audio_input node, output pin) to a SourceSpec
-    whose ``capacity`` is the per-chunk input width of that stream. The
+    whose ``capacity`` is the per-chunk input width of that stream;
+    ``plan_hints`` gives nodes their planning hints by node id
+    (StreamPlanCtx.hints). The
     plan pass allocates every carry on the device and raises the
     structured errors (UnstreamableGraphError for a graph that cannot run
     in lockstep), attributed to their node."""
@@ -221,7 +229,7 @@ def compile_stream_graph(
             (to_pin.attribute.identifier, link.from_pin))
 
     # -- plan pass: chunk specs and initial states -----------------------------
-    plan_ctx = StreamPlanCtx(mode, sources, device)
+    plan_ctx = StreamPlanCtx(mode, sources, device, hints=plan_hints)
     pin_specs: Dict[int, ChunkSpec] = {}
     init_states: Dict[str, Any] = {}
     for nid in order:

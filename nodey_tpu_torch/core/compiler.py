@@ -37,11 +37,15 @@ def external_key(node_id: int, pin: str) -> str:
 
 class LowerCtx:
     """Per-run context handed to every node's ``lower()``: the run mode,
-    the bound external inputs, and the emitted outputs."""
+    the device the graph is bound to (where a source with no input tensor,
+    the signal generator, puts its stream), the bound external inputs, and
+    the emitted outputs."""
 
     def __init__(self, mode: str, sources: Dict[Tuple[int, str], SourceSpec],
-                 args: Dict[str, Tuple[torch.Tensor, int]]):
+                 args: Dict[str, Tuple[torch.Tensor, int]],
+                 device: torch.device):
         self.mode = mode  # "export" | "preview"
+        self.device = device
         self.node_id: Optional[int] = None  # set per node by the compiler
         self._sources = sources
         self._args = args
@@ -155,7 +159,7 @@ class CompiledGraph:
                     f"input {key} is on {args[key][0].device}, the graph "
                     f"is bound to {self.device}"
                 )
-        ctx = LowerCtx(self.mode, self.sources, args)
+        ctx = LowerCtx(self.mode, self.sources, args, self.device)
         pin_values: Dict[int, Stream] = {}  # output pin id -> Stream
         for nid in self.order:
             node = self.graph.nodes[nid]

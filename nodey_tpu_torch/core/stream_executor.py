@@ -290,11 +290,20 @@ class StreamExecutor:
         self._gauge_keys: Tuple[str, ...] = ()
 
     def _open_feeds(self):
+        """Open a decode feed per audio_input slot; returns ``(feeds,
+        sources, plan hints)``. A signal generator is a source with no host
+        feed: it only needs a chunk width on the same time quantum as the
+        feeds, passed to the plan as its ``chunk_width`` hint."""
         feeds: Dict[str, _SourceFeed] = {}
         pins: Dict[str, Tuple[int, str]] = {}
+        generators: Dict[int, int] = {}   # node id -> sample rate
         for nid, node in self.graph.nodes.items():
             proc = node.processor
-            if proc.info().identifier != cfg.AUDIO_INPUT_NODE_NAME:
+            ident = proc.info().identifier
+            if ident == "audio_generator":
+                generators[nid] = int(proc.rate)
+                continue
+            if ident != cfg.AUDIO_INPUT_NODE_NAME:
                 continue
             for i, path in enumerate(proc.file_paths):
                 key = compiler.external_key(nid, f"output_{i}")
@@ -305,18 +314,21 @@ class StreamExecutor:
                         feed.stop()
                     raise
                 pins[key] = (nid, f"output_{i}")
-        if not feeds:
+        if not feeds and not generators:
             raise ProcessorRuntimeError(
                 "Graph has no inputs",
-                "Streaming execution requires at least one audio_input slot.",
+                "Streaming execution requires at least one audio_input "
+                "slot or a signal-generator node.",
                 "StreamExecutor",
             )
-        # Snap every source's chunk to a shared time quantum (1/gcd of the
-        # rates), so all deliver exactly the same audio-seconds per step:
-        # lockstep merges need exactly proportional cadences.
+        # Snap every source's chunk, decode feeds and generators alike, to a
+        # shared time quantum (1/gcd of the rates), so all deliver exactly
+        # the same audio-seconds per step: lockstep merges need exactly
+        # proportional cadences.
         g = 0
-        for feed in feeds.values():
-            g = math.gcd(g, feed.rate)
+        for rate in [feed.rate for feed in feeds.values()] + list(
+                generators.values()):
+            g = math.gcd(g, rate)
         m = max(1, round(self.chunk_seconds * g))
         sources: Dict[Tuple[int, str], compiler.SourceSpec] = {}
         for key, feed in feeds.items():
@@ -325,7 +337,9 @@ class StreamExecutor:
                 rate=feed.rate, channels=feed.channels, fmt=feed.fmt,
                 capacity=feed.chunk, t0_us=float(feed.t0_us),
             )
-        return feeds, sources
+        hints = {nid: {"chunk_width": m * rate // g}
+                 for nid, rate in generators.items()}
+        return feeds, sources, hints
 
     def run(
         self,
@@ -337,12 +351,13 @@ class StreamExecutor:
         thread for every host master block ([C, n] float32, or int16 on the
         s16 wire), in order."""
         wall0 = time.perf_counter()
-        feeds, sources = self._open_feeds()
+        feeds, sources, plan_hints = self._open_feeds()
         master_key = "master" if self.mode == "export" else "preview"
         try:
             t0 = time.perf_counter()
             compiled = chunkflow.compile_stream_graph(
-                self.graph, sources, mode=self.mode, device=self.device)
+                self.graph, sources, mode=self.mode, device=self.device,
+                plan_hints=plan_hints)
             self.metrics.compile_seconds = time.perf_counter() - t0
             if master_key not in compiled.output_meta:
                 raise ProcessorRuntimeError(
@@ -482,6 +497,8 @@ class StreamExecutor:
                     frames, count, _done = outs[k]
                     if count:
                         frame_parts[k].append(frames[:, :count])
+                # With no decode feed (generators only) every step counts
+                # toward max_flush_steps, as in the JAX package's loop.
                 if all(source_done.values()):
                     if finished:
                         break

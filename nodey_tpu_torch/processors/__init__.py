@@ -1,9 +1,10 @@
 """The ported nodes: the five of the 5-node stereo graph, the three of
 BASELINE config 4 (resample, pitch, velocity), the three of configs 2
 and 5 (channel split, bimix v1 and v2), the seven master-bus nodes
-(EQ, filter, compressor, limiter, gate, de-esser, normalize) and the
+(EQ, filter, compressor, limiter, gate, de-esser, normalize), the
 eight single-input effects (reverb, delay, tremolo, chorus, phaser, pan,
-width, fade): 26 node types.
+width, fade), and the nodes that make, join or cut streams (generator,
+crossfade, trim, reverse): 30 node types, all of the JAX package's.
 
 Identifiers, pins and serde match the JAX package's processors, so project
 files load in either package."""
@@ -19,11 +20,14 @@ def register_builtin_processors() -> None:
     from nodey_tpu_torch.processors.audio_vol import AudioVol
     from nodey_tpu_torch.processors.bimix import AudioBimix, AudioBimixV2
     from nodey_tpu_torch.processors.compressor import AudioCompressor
+    from nodey_tpu_torch.processors.crossfade import AudioCrossfade
     from nodey_tpu_torch.processors.deesser import AudioDeesser
     from nodey_tpu_torch.processors.delay import AudioDelay
+    from nodey_tpu_torch.processors.editnodes import AudioReverse, AudioTrim
     from nodey_tpu_torch.processors.equalizer import AudioEq, AudioFilter
     from nodey_tpu_torch.processors.fade import AudioFade
     from nodey_tpu_torch.processors.gate import AudioGate
+    from nodey_tpu_torch.processors.generator import AudioGenerator
     from nodey_tpu_torch.processors.limiter import AudioLimiter
     from nodey_tpu_torch.processors.modulation import (AudioChorus,
                                                        AudioPhaser,
@@ -44,5 +48,6 @@ def register_builtin_processors() -> None:
                 AudioBimix, AudioBimixV2, AudioEq, AudioFilter,
                 AudioCompressor, AudioLimiter, AudioGate, AudioDeesser,
                 AudioNormalize, AudioReverb, AudioDelay, AudioTremolo,
-                AudioChorus, AudioPhaser, AudioPan, AudioWidth, AudioFade):
+                AudioChorus, AudioPhaser, AudioPan, AudioWidth, AudioFade,
+                AudioGenerator, AudioCrossfade, AudioTrim, AudioReverse):
         register_processor(cls)

@@ -3,9 +3,13 @@ to them where it matters: config values, error classes and messages, the
 graph's rules and quirks, the codec runtime's build, the phase
 vocoder's constants, geometry and host bases, and the effect nodes'
 constants (the reverb's partition, the delay's echo truncation, the LFO
-quantization and phase tables, the fade's ramp cap)."""
+quantization and phase tables, the fade's ramp cap), the timeline nodes'
+constants (the oscillator's waveforms and hash constants, the generator's
+rates and clamps, trim's clamps, the crossfade's ceiling, duration cap and
+laws), and the registry: both packages hold the same 30 node types."""
 
 import inspect
+import json
 
 import numpy as np
 import pytest
@@ -13,25 +17,33 @@ import pytest
 from nodey_tpu import config as jconfig
 from nodey_tpu.core import errors as jerrors
 from nodey_tpu.core.graph import Graph as JGraph
+from nodey_tpu.core import registry as jregistry
+from nodey_tpu.ops import crossfade as jcrossfade
 from nodey_tpu.ops import delay as jdelay
 from nodey_tpu.ops import dynamics as jdynamics
 from nodey_tpu.ops import fadepan as jfadepan
 from nodey_tpu.ops import loudness as jloudness
 from nodey_tpu.ops import modfx as jmodfx
+from nodey_tpu.ops import oscillator as josc
 from nodey_tpu.ops import pv as jpv
 from nodey_tpu.ops import reverb as jreverb
 from nodey_tpu.ops import scans as jscans
 from nodey_tpu.ops.stft import _dft_matrices as j_dft_matrices
+from nodey_tpu.processors import editnodes as jeditnodes
+from nodey_tpu.processors import generator as jgenerator
 from nodey_tpu_torch import config
 from nodey_tpu_torch.core import errors
+from nodey_tpu_torch.core import registry
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.host import decode, native_lib
-from nodey_tpu_torch.ops import (delay, dynamics, fadepan, loudness, modfx,
-                                 pv, reverb, scans)
+from nodey_tpu_torch.ops import (crossfade, delay, dynamics, fadepan,
+                                 loudness, modfx, oscillator, pv, reverb,
+                                 scans)
 from nodey_tpu_torch.ops.stft import _dft_matrices
 from nodey_tpu_torch.processors.amix import AudioAmix
 from nodey_tpu_torch.processors.audio_input import AudioInput
 from nodey_tpu_torch.processors.audio_output import AudioOutput
+from nodey_tpu_torch.processors import editnodes, generator
 from nodey_tpu_torch.processors.audio_vol import AudioVol
 
 
@@ -69,6 +81,56 @@ def test_master_bus_constants_equal_the_jax_package(module, jmodule, name):
 def test_effect_constants_equal_the_jax_package(module, jmodule, name):
     got, want = getattr(module, name), getattr(jmodule, name)
     assert got == want and type(got) is type(want)
+
+
+@pytest.mark.parametrize("module,jmodule,name", [
+    (oscillator, josc, "WAVEFORMS"), (oscillator, josc, "_M_MAX"),
+    (oscillator, josc, "_FMIX_C1"), (oscillator, josc, "_FMIX_C2"),
+    (generator, jgenerator, "_STD_RATES"), (crossfade, jcrossfade,
+                                             "_ANCHOR_MAX"),
+    (crossfade, jcrossfade, "_DUR_MAX_MS"), (crossfade, jcrossfade, "LAWS"),
+])
+def test_timeline_constants_equal_the_jax_package(module, jmodule, name):
+    got, want = getattr(module, name), getattr(jmodule, name)
+    assert got == want and type(got) is type(want)
+
+
+@pytest.mark.parametrize("cls,jcls", [
+    (generator.AudioGenerator, jgenerator.AudioGenerator),
+    (editnodes.AudioTrim, jeditnodes.AudioTrim),
+])
+def test_timeline_clamps_equal_the_jax_package(cls, jcls):
+    assert cls._CLAMPS == jcls._CLAMPS
+    for key, (lo, hi) in cls._CLAMPS.items():
+        assert type(lo) is type(jcls._CLAMPS[key][0])
+        assert type(hi) is type(jcls._CLAMPS[key][1])
+
+
+def test_oscillator_quantization_equals_the_jax_package():
+    for rate in generator._STD_RATES:
+        for freq in (0.001, 1.0, 97.0, 333.3, 440.7, 20_000.0, 1e6):
+            assert oscillator.osc_quantize(freq, rate) == josc.osc_quantize(
+                freq, rate)
+
+
+def test_the_registries_hold_the_same_30_node_types():
+    """Identifiers, pins, param_spec and the default instance's serialize,
+    node type by node type."""
+    registry.register_all_processors()
+    jregistry.register_all_processors()
+    assert sorted(registry.processor_map) == sorted(jregistry.processor_map)
+    assert len(registry.processor_map) == 30
+    for identifier, info in registry.processor_map.items():
+        node, jnode = info.generate(), jregistry.processor_map[
+            identifier].generate()
+        assert node.info().identifier == identifier
+        assert [(a.identifier, a.display_name, a.is_input)
+                for a in node.pin_attributes()] == \
+            [(a.identifier, a.display_name, a.is_input)
+             for a in jnode.pin_attributes()], identifier
+        assert node.param_spec() == jnode.param_spec(), identifier
+        assert json.dumps(node.serialize()) == json.dumps(
+            jnode.serialize()), identifier
 
 
 def test_lfo_phase_tables_equal_the_jax_package():

@@ -539,8 +539,9 @@ def test_the_port_registers_the_seven_master_bus_nodes():
         assert identifier not in _LTI_NODES
         g, _ = _graph(cls())
         assert stream_supported(g) and not supports_chunked(g)
-    # With the eight single-input effects beside them.
-    assert len(processor_map) == 26
+    # With the eight single-input effects and the generator, crossfade, trim
+    # and reverse beside them.
+    assert len(processor_map) == 30
 
 
 def _jax_chain(paths):

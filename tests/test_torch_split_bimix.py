@@ -259,9 +259,10 @@ def test_the_port_registers_the_three_nodes():
                             ("audio_bimix", AudioBimix),
                             ("audio_bimix_v2", AudioBimixV2)):
         assert processor_map[identifier].generate is cls
-    # 11 node types of the earlier slices, the seven master-bus nodes and
-    # the eight single-input effects.
-    assert len(processor_map) == 26
+    # 11 node types of the earlier slices, the seven master-bus nodes, the
+    # eight single-input effects, and the generator, crossfade, trim and
+    # reverse.
+    assert len(processor_map) == 30
 
 
 @pytest.mark.parametrize("make_jax,make_port,edit", [
