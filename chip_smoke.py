@@ -256,15 +256,40 @@ Phases, in order; the first failure exits non-zero:
                audio-s; a stop() from the first progress call raises
                RunCancelled, leaves no file and the runner READY, and the
                same runner then exports in full.
+ 30. batch   — batched serving, CompiledGraph.run_batch: (a)
+               rtf_batch8_serving (bench.py:1779-1826): the 5-node graph on
+               two 30 s tracks, decoded and compiled by Runner, broadcast to
+               8 clips and uploaded once, run_batch back to back: the median
+               of 10 calls by CUDA events, RTF = 240 audio-s over it; (b)
+               config 4 on WSOLA, on the PV, and on the PV with pv_transient
+               and preserve_formants, each on 8 x 30 s clips (bench.py's tone
+               at seeds 20-27 and other pitches): run_batch beside eight
+               single renders of the same clips; (c) each clip against its
+               own single render: masters bitwise (the PV's >= 90 dB), the
+               spectrum within 2e-6 of its largest value, WSOLA splices
+               equal, lengths equal, tails zero; (d) one batch of 30, 21.3
+               and 9.7 s clips in one 30 s capacity, the same checks; (e)
+               every batched launch of the resampler (2e-6), the WSOLA chain
+               (check_chain per clip) and its prologue (1e-5 relative), the
+               phase path (>= 100 dB) and the lock (2e-6, bitwise on finite
+               inputs) against its plain version on its operands, and each
+               kernel's batched time beside its bound (the chain also beside
+               one clip alone); (f) each batched render launches each
+               kernel as often as one clip's render; (g) a graph with a node
+               that has no batched lowering (the reverb) makes run_batch
+               raise before any launch.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
 preview, the chunked render; phases 22-24's: each config's CLI render, the
 streamed exports of configs 2 and 5, config 2's chunked render; phases
 25-29's: each graph's CLI render and streamed export, config 7's chunked
-render, reverse's fallback exports). The line before the last is one JSON object
-describing the kernels;
-the last is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+render, reverse's fallback exports; phase 30's: each batched render, and
+the refused one). Streamed exports that phases 14 and 22-29 repeat at 100 s
+and 300 s also print each export's host RSS (sampled every 5 ms): its rise
+above its start at 300 s must stay within 64 MiB of the one at 100 s. The
+line before the last is one JSON object describing the kernels; the last
+is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -335,6 +360,7 @@ STREAM_CHUNK_SECONDS = 16
 STREAM_MIX_TOL = 3e-7
 SHORT_SECONDS = 100
 STREAM_SLACK_BYTES = 2 * 2**20
+RSS_SLACK_BYTES = 64 * 2**20     # a streamed export's host RSS, 300 s vs 100 s
 STREAM_TIMED_RUNS = 3
 # Phase 19: the streamed PV's 10 s excerpt against its offline render at 2 s
 # chunks (so the carries cross chunk boundaries), and the lock's inputs of
@@ -377,6 +403,12 @@ MODFX_STREAM_TOL = 3e-7          # tests/test_modfx.py:107
 SPLICE_TOL = 3e-7
 GENERATOR_SINE_DB = 130.0
 TRIM_SPAN = (1 / 30, 5 / 6)      # of the clip: 10 s to 250 s of 300 s
+BATCH = 8                        # phase 30: rtf_batch8_serving's clips
+BATCH_SECONDS = 30               # ... of bench.py's 30 s each
+BATCH_ITERS = 10                 # timed run_batch calls (median)
+BATCH_SPECTRUM_REL = 2e-6        # a batched clip's spectrum vs its single
+BATCH_PV_DB = 90.0               # a batched PV clip vs its single render
+BATCH_LENGTHS_S = (30.0, 21.3, 9.7)  # phase 30 (d): one capacity, 3 lengths
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -413,6 +445,60 @@ def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = False):
         end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) for start, end in events]
+
+
+@contextlib.contextmanager
+def host_rss(out: dict):
+    """Inside the block a thread samples this process's RSS every 5 ms;
+    ``out`` gets the RSS before the block ("base") and the largest sample
+    ("peak"), in bytes. An export's rise, peak - base, is what it holds on
+    the host, whatever earlier phases left resident."""
+    import threading
+
+    from nodey_tpu_torch.core.stream_executor import _rss_bytes
+
+    done = threading.Event()
+    out["base"] = out["peak"] = _rss_bytes()
+
+    def sample():
+        while not done.wait(0.005):
+            out["peak"] = max(out["peak"], _rss_bytes())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        thread.join()
+        out["peak"] = max(out["peak"], _rss_bytes())
+
+
+def rss_text(rss: dict) -> str:
+    """Host RSS of the exports at SHORT_SECONDS and SECONDS (host_rss)."""
+    return "; ".join(
+        f"{(r['peak'] - r['base']) / 2**20:.1f} MiB above its start at "
+        f"{seconds} s (peak {r['peak'] / 2**20:.1f})"
+        for seconds, r in sorted(rss.items()))
+
+
+def rss_rise(rss: dict, seconds: int) -> int:
+    return rss[seconds]["peak"] - rss[seconds]["base"]
+
+
+def settle_host_heap() -> None:
+    """Collect garbage and hand the freed heap back to the system
+    (glibc's malloc_trim, where it is there), so that the host RSS an export
+    samples at its start is what is alive, not what earlier phases freed."""
+    import ctypes
+    import ctypes.util
+    import gc
+
+    gc.collect()
+    libc = ctypes.util.find_library("c")
+    if libc:
+        with contextlib.suppress(OSError, AttributeError):
+            ctypes.CDLL(libc).malloc_trim(0)
 
 
 def device_peak(fn) -> int:
@@ -2131,19 +2217,24 @@ def card_vs_cpu(tag: str, what: str, make_graph, mode: str, card: str,
 
 
 @contextlib.contextmanager
-def recorded_launches(resamples=None, chains=None, chunk_chains=None):
+def recorded_launches(resamples=None, chains=None, chunk_chains=None,
+                      phase_paths=None, locks=None):
     """Inside the block, every launch of the resampler kernel appends its
     operands and the kernel's output to ``resamples``, every offline WSOLA
-    chain its operands and the kernel's (bs, body) to ``chains``, and every
+    chain its operands and the kernel's (bs, body) to ``chains``, every
     chunk-chain launch (K > 0) its operands and the kernel's (bs, body,
-    tail_out) to ``chunk_chains`` (each list that is given). Clones, taken
-    on the stream of the launch, so no streamed step syncs: they are held
-    against the plain versions after the path's counts are read."""
+    tail_out) to ``chunk_chains``, every phase-path launch ((re, im, dpos,
+    hop, n_fft, lock), its planes) to ``phase_paths`` and every lock launch
+    ((cos_phi, sin_phi, ph, mag), its planes) to ``locks`` (each list that
+    is given). Clones, taken on the stream of the launch, so no streamed
+    step syncs: they are held against the plain versions after the path's
+    counts are read."""
+    from nodey_tpu_torch.ops import pv, wsola
     from nodey_tpu_torch.ops import resample as tr
-    from nodey_tpu_torch.ops import wsola
 
-    saved = tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain
-    resampler, chain, chunk_chain = saved
+    saved = (tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain,
+             pv.phase_path, pv.lock_phases)
+    resampler, chain, chunk_chain, phase_path, lock_phases = saved
 
     def recording_resampler(x, G, M, W, bank, support):
         got = resampler(x, G, M, W, bank, support)
@@ -2162,17 +2253,33 @@ def recorded_launches(resamples=None, chains=None, chunk_chains=None):
                                  tuple(t.clone() for t in out)))
         return out
 
+    def recording_phase_path(re, im, dpos, hop, n_fft, lock=True):
+        out = phase_path(re, im, dpos, hop, n_fft, lock)
+        phase_paths.append(((re.clone(), im.clone(), dpos, hop, n_fft, lock),
+                            tuple(t.clone() for t in out)))
+        return out
+
+    def recording_lock(*planes):
+        out = lock_phases(*planes)
+        locks.append((tuple(t.clone() for t in planes),
+                      tuple(t.clone() for t in out)))
+        return out
+
     if resamples is not None:
         tr.apply_filter_bank = recording_resampler
     if chains is not None:
         wsola.wsola_chain = recording_chain
     if chunk_chains is not None:
         wsola.wsola_chunk_chain = recording_chunk_chain
+    if phase_paths is not None:
+        pv.phase_path = recording_phase_path
+    if locks is not None:
+        pv.lock_phases = recording_lock
     try:
         yield
     finally:
-        tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain = \
-            saved
+        (tr.apply_filter_bank, wsola.wsola_chain, wsola.wsola_chunk_chain,
+         pv.phase_path, pv.lock_phases) = saved
 
 
 def check_resamples(tag: str, resamples, launched: int, card: str) -> float:
@@ -2218,7 +2325,9 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
     first export, so the one-time allocations, filter banks and the DFT
     basis, are in place), the whole export's device peak each, within
     STREAM_SLACK_BYTES of each other and below the offline render's peak on
-    the same project. Returns dict(counts, err, device_ms, metrics)."""
+    the same project, and the two exports' host RSS rises (host_rss) within
+    RSS_SLACK_BYTES of each other. Returns dict(counts, err, device_ms,
+    metrics, peaks, rss)."""
     import numpy as np
 
     from nodey_tpu_torch.core.runner import Runner
@@ -2247,11 +2356,14 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
         short_project = project_with_tracks(
             project, short_tracks,
             os.path.join(tmp, f"{what}_{SHORT_SECONDS}s.json"))
+        rss = {}
         for seconds, proj in ((SHORT_SECONDS, short_project),
                               (SECONDS, project)):
             result = []
-            peaks[seconds] = device_peak(lambda: result.append(
-                stream_export(cli, proj, out_wav)))
+            settle_host_heap()
+            with host_rss(rss.setdefault(seconds, {})):
+                peaks[seconds] = device_peak(lambda: result.append(
+                    stream_export(cli, proj, out_wav)))
             check(result[0][0] == 0 and result[0][2] is not None,
                   f"{what}: the {seconds} s streamed export failed")
         offline_peak = device_peak(lambda: Runner(
@@ -2260,7 +2372,9 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
                   f"{peaks[SHORT_SECONDS] / 2**20:.1f} MiB at {SHORT_SECONDS}"
                   f" s, {peaks[SECONDS] / 2**20:.1f} MiB at {SECONDS} s (max "
                   f"+{STREAM_SLACK_BYTES / 2**20:.0f} MiB), offline render "
-                  f"{offline_peak / 2**20:.1f} MiB")
+                  f"{offline_peak / 2**20:.1f} MiB; host RSS sampled every "
+                  f"5 ms: {rss_text(rss)} (max +"
+                  f"{RSS_SLACK_BYTES / 2**20:.0f} MiB between them)")
     bar = (f"SNR {db:.1f} dB (min {min_db:.0f})" if min_db is not None
            else f"tol {tol:.0e}")
     print(f"[{phase}] {what}: streamed master at "
@@ -2277,10 +2391,74 @@ def streamed_export_checks(cli, phase: str, what: str, project: str, offline,
     if peaks:
         check(peaks[SECONDS] <= peaks[SHORT_SECONDS] + STREAM_SLACK_BYTES,
               f"{what}: streamed device memory grows with clip length")
+        check(rss_rise(rss, SECONDS)
+              <= rss_rise(rss, SHORT_SECONDS) + RSS_SLACK_BYTES,
+              f"{what}: streamed host memory grows with clip length")
         check(peaks[SECONDS] < offline_peak,
               f"{what}: streaming took more memory than the offline render")
     return dict(counts=counts, err=err, db=db, device_ms=device_ms,
-                metrics=metrics, peaks=peaks)
+                metrics=metrics, peaks=peaks, rss=rss if peaks else {})
+
+
+class WholeClipRead:
+    """The streaming executor's former read of a WAV where the codec runtime
+    does not load: the whole clip at once, then sliced into chunks. Phase
+    14's host RSS A/B puts it in the place of ``host_decode.WavBlockReader``
+    (``reader``: the block reader, read in one block)."""
+
+    reader = None
+
+    def __init__(self, path: str):
+        with self.reader(path) as whole:
+            self._data = whole.read(whole.num_samples)
+            self.rate, self.channels, self.fmt = (whole.rate, whole.channels,
+                                                  whole.fmt)
+        self.pts0_us = 0
+
+    def blocks(self, n: int):
+        for start in range(0, self._data.shape[1], n):
+            yield self._data[:, start : start + n]
+
+    def close(self) -> None:
+        self._data = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def whole_clip_rss(cli, phase: str, what: str, project: str, short_tracks,
+                   tmp: str, rss_blocks: dict, card: str) -> dict:
+    """Host RSS (host_rss) of ``project``'s streamed export at
+    SHORT_SECONDS (on ``short_tracks``) and SECONDS through the former
+    whole-clip read (WholeClipRead), printed beside the block reader's
+    (``rss_blocks``, from streamed_export_checks); returns them by clip
+    length."""
+    from nodey_tpu_torch.host import decode as host_decode
+
+    out_wav = os.path.join(tmp, f"{what}_whole_clip.wav")
+    short = project_with_tracks(project, short_tracks, os.path.join(
+        tmp, f"{what}_{SHORT_SECONDS}s_whole.json"))
+    saved = WholeClipRead.reader = host_decode.WavBlockReader
+    host_decode.WavBlockReader = WholeClipRead
+    rss = {}
+    try:
+        for seconds, proj in ((SHORT_SECONDS, short), (SECONDS, project)):
+            settle_host_heap()
+            with host_rss(rss.setdefault(seconds, {})):
+                rc, _text, metrics = stream_export(cli, proj, out_wav)
+            check(rc == 0 and metrics is not None,
+                  f"{what}: the whole-clip streamed export failed")
+    finally:
+        host_decode.WavBlockReader = saved
+    native = host_decode.load_native() is not None
+    unused = "; the codec runtime loads, so neither read ran" if native else ""
+    print(f"[{phase}] {what}: host RSS of a streamed export, sampled every "
+          f"5 ms: the block reader {rss_text(rss_blocks)}; the former "
+          f"whole-clip read {rss_text(rss)}{unused} ({card})")
+    return rss
 
 
 def stream_times(cli, phase: str, name: str, what: str, project: str,
@@ -3412,6 +3590,408 @@ def timeline_phases(cli, card: str, tmp: str, track_44k: str):
     return paths, worst
 
 
+def s16_clips(signals, capacity: int):
+    """Clips [B, C, n] float32 as the s16 wire [B, C, capacity] int16
+    (round(x*32768), as Runner.decode keeps s16 sources), zero padded."""
+    import numpy as np
+
+    out = np.zeros((len(signals), signals[0].shape[0], capacity),
+                   dtype=np.int16)
+    for b, sig in enumerate(signals):
+        out[b, :, : sig.shape[1]] = np.clip(np.round(sig * 32768.0), -32768,
+                                            32767)
+    return out
+
+
+def batch_and_singles(key: str, clips, lengths, dev):
+    """The batch's device args and each clip's single-render args."""
+    import torch
+
+    data = torch.from_numpy(clips).to(dev)
+    return ({key: data}, {key: tuple(lengths)},
+            [{key: (data[b], n)} for b, n in enumerate(lengths)])
+
+
+def check_clips(tag: str, what: str, outs, singles, card: str,
+                min_db=None) -> None:
+    """Each clip of a batched render against its own single render: the
+    lengths equal, the master bitwise (or, given ``min_db``, at least that
+    SNR over the clip's length), each spectrum within BATCH_SPECTRUM_REL of
+    its largest value, the tail past each clip's length zero."""
+    import numpy as np
+    import torch
+
+    data, lens = outs["master"]
+    worst_db, spectrum_rel, bitwise = math.inf, 0.0, True
+    for b, single in enumerate(singles):
+        one, n = single["master"]
+        check(lens[b] == n, f"{tag}: {what} clip {b}: length {lens[b]}, its "
+                            f"single render {n}")
+        check(not bool(data[b, :, n:].any()),
+              f"{tag}: {what} clip {b}: the tail past its length is not zero")
+        same = torch.equal(data[b], one)
+        bitwise &= same
+        if not same:
+            worst_db = min(worst_db, snr_db(one[:, :n].cpu().numpy(),
+                                            data[b, :, :n].cpu().numpy()))
+        for k, v in single.items():
+            if k.startswith("spectrum_"):
+                spectrum_rel = max(spectrum_rel, float(
+                    (outs[k][b] - v).abs().max() / v.abs().max()))
+    print(f"[{tag}] {what}: each of {len(singles)} clips against its own "
+          f"single render: lengths {list(lens)} equal, tails zero, masters "
+          f"{'bitwise' if bitwise else f'{worst_db:.1f} dB at worst'}"
+          + (f", spectra max|diff| / max {spectrum_rel:.3e} (tol "
+             f"{BATCH_SPECTRUM_REL:g})" if any(k.startswith("spectrum_")
+                                                for k in outs) else "")
+          + f" ({card})")
+    check(bitwise if min_db is None else worst_db >= min_db,
+          f"{tag}: {what}: a clip disagrees with its single render")
+    check(spectrum_rel <= BATCH_SPECTRUM_REL,
+          f"{tag}: {what}: a clip's spectrum disagrees with its single render")
+
+
+def batch_phase(cli, card: str, dev, tmp: str):
+    """Phase 30 (see the module docstring): batched serving through
+    ``CompiledGraph.run_batch``. Returns (the launch counts by path, the
+    figures: rtf_batch8_serving, the batched config-4 times, and each
+    kernel's batched launch held against its plain version, with its time
+    and bound)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.ops import cuda_resample
+    from nodey_tpu_torch.ops import resample as tr
+    from nodey_tpu_torch.processors.audio_input import AudioInput
+    from nodey_tpu_torch.processors.audio_output import AudioOutput
+    from nodey_tpu_torch.processors.resample_node import AudioResample
+    from nodey_tpu_torch.processors.reverb import AudioReverb
+
+    tag = "30 batch"
+    t0 = time.perf_counter()
+    paths, figures, kernels = {}, {}, {}
+    n = RATE * BATCH_SECONDS
+
+    def counts_match(what, batched, single):
+        print(f"[{tag}] {what}: launches of the batch {batched}, of one "
+              f"clip's render {single} ({card})")
+        check(batched == single, f"{tag}: {what}: the batch launched "
+                                 f"{batched}, one clip {single}")
+
+    # -- (a) rtf_batch8_serving -----------------------------------------------
+    tracks = []
+    for i in range(2):
+        path = os.path.join(tmp, f"batch_5node_{i}.wav")
+        write_wav_s16(path, bench_tone(n, RATE, 220.0 * (i + 1), 2, i), RATE)
+        tracks.append(path)
+    runner = Runner(flagship_graph(tracks), device=CARD)
+    arrays, lengths, sources = runner.decode()
+    compiled = runner.compile(sources, "export")
+    bargs = {k: torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(v, (BATCH,) + v.shape))).to(dev)
+        for k, v in arrays.items()}
+    blens = {k: (v,) * BATCH for k, v in lengths.items()}
+    single_args = runner.ingest(arrays, lengths)
+    resamples = []
+    zero_counts()
+    with recorded_launches(resamples=resamples):
+        outs, meta = compiled.run_batch(bargs, blens)
+    paths["5node_batch8"] = read_counts()
+    zero_counts()
+    single, _ = compiled(single_args)
+    counts_match(f"5-node graph, {BATCH} x {BATCH_SECONDS} s",
+                 paths["5node_batch8"], read_counts())
+    kernels["resample_err"] = check_resamples(
+        tag, resamples, paths["5node_batch8"]["polyphase_resample"], card)
+    check_clips(tag, f"5-node graph, {BATCH} copies of {BATCH_SECONDS} s",
+                outs, [single] * BATCH, card)
+    rate = meta["master"]["rate"]
+    audio_s = sum(outs["master"][1]) / rate
+    del outs, single
+    med, lo, hi, count = summary(cuda_ms(
+        lambda: compiled.run_batch(bargs, blens), BATCH_ITERS, warmup=2))
+    one_med = summary(cuda_ms(lambda: compiled(single_args), BATCH_ITERS,
+                              warmup=2))[0]
+    rtf = audio_s / (med / 1e3)
+    figures["rtf_batch8_serving"] = rtf
+    figures["5node_batch8_ms"] = med
+    figures["5node_single_30s_ms"] = one_med
+    print(f"[{tag}] rtf_batch8_serving: 5-node graph, {BATCH} x "
+          f"{BATCH_SECONDS} s stereo uploaded once, run_batch back to back: "
+          f"{audio_s:.3f} audio-s per call, device time median {med:.4f} ms "
+          f"(min {lo:.4f}, max {hi:.4f}, n={count}, CUDA events), RTF "
+          f"{rtf:.1f} audio-s per device-s; one {BATCH_SECONDS} s clip alone "
+          f"{one_med:.4f} ms ({card})")
+    # The batched resampler launch: its time beside its bound and plain.
+    (x, G, M, W, bank, support), _ = resamples[0]
+    rows = x.reshape(-1, x.shape[-1])
+    runs = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = (functools.partial(cuda_resample.apply_filter_bank_cuda, x, G, M,
+                                W, support) if name == "kernel" else
+              functools.partial(tr.apply_filter_bank_plain, x, G, M, W,
+                                bank))
+        runs[name] += cuda_ms(fn, 5)
+    kernels["polyphase_resample"] = dict(
+        shape=list(x.shape), ms=summary(runs["kernel"])[0],
+        plain_ms=summary(runs["plain"])[0],
+        bound=resample_work_bound(rows, G, M, bank))
+    del resamples, bargs, x, rows
+
+    # -- (b, c, e, f) config 4 on WSOLA and the PV, 8 x 30 s ------------------
+    signals = [bench_tone(n, RATE, 220.0 + 20.0 * b, 2, 20 + b)
+               for b in range(BATCH)]
+    track = os.path.join(tmp, "batch_config4.wav")
+    write_wav_s16(track, signals[0], RATE)
+    for what, algo, options in (("config4", "wsola", False),
+                                ("config4_pv", "pv", False),
+                                ("config4_pv_options", "pv", True)):
+        runner = Runner(config4_graph(track, algorithm=algo,
+                                      transient=options, formants=options),
+                        device=CARD)
+        arrays, _, sources = runner.decode()
+        compiled = runner.compile(sources, "export")
+        [key] = arrays
+        clips = s16_clips(signals, arrays[key].shape[1])
+        bargs, blens, singles_args = batch_and_singles(key, clips, [n] * BATCH,
+                                                       dev)
+        resamples, chains, phase_paths, locks = [], [], [], []
+        zero_counts()
+        with recorded_launches(resamples=resamples, chains=chains,
+                               phase_paths=phase_paths, locks=locks):
+            outs, meta = compiled.run_batch(bargs, blens)
+        batch_counts = read_counts()
+        audio_s = sum(outs["master"][1]) / meta["master"]["rate"]
+        paths[f"{what}_batch8"] = batch_counts
+        single_chains, singles = [], []
+        for b, args in enumerate(singles_args):
+            zero_counts()
+            with recorded_launches(chains=single_chains):
+                singles.append(compiled(args)[0])
+            if b == 0:
+                counts_match(f"{what}, {BATCH} x {BATCH_SECONDS} s",
+                             batch_counts, read_counts())
+        check_clips(tag, f"{what}, {BATCH} clips of {BATCH_SECONDS} s (bench "
+                         f"tones, seeds 20 to {19 + BATCH})", outs, singles,
+                    card,
+                    min_db=None if algo == "wsola" else BATCH_PV_DB)
+        del outs, singles
+        kernels[f"{what}_resample_err"] = check_resamples(
+            f"{tag} {what}", resamples, batch_counts["polyphase_resample"],
+            card)
+        if algo == "wsola":
+            check(len(chains) == batch_counts["wsola_chain"] == 2,
+                  f"{tag}: {len(chains)} batched chains recorded")
+            wsola_batch_checks(tag, chains, single_chains, kernels, card)
+        else:
+            pv_batch_checks(tag, what, phase_paths, locks, batch_counts,
+                            kernels, card)
+        del resamples, chains, single_chains, phase_paths, locks
+        runs = {"batch": [], "singles": []}
+        for name in ("batch", "singles", "singles", "batch"):
+            fn = ((lambda: compiled.run_batch(bargs, blens)) if name == "batch"
+                  else (lambda: [compiled(a) for a in singles_args]))
+            runs[name] += cuda_ms(fn, BATCH_ITERS // 2, warmup=1)
+        med, lo, hi, count = summary(runs["batch"])
+        smed, slo, shi, scount = summary(runs["singles"])
+        figures[f"{what}_batch8_ms"] = med
+        figures[f"{what}_8_singles_ms"] = smed
+        label = algo + (", pv_transient and preserve_formants" if options
+                        else "")
+        print(f"[{tag}] {what} ({label}), {BATCH} x {BATCH_SECONDS} s: "
+              f"run_batch median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+              f"n={count}); {BATCH} single renders of the same clips median "
+              f"{smed:.4f} ms (min {slo:.4f}, max {shi:.4f}, n={scount}), "
+              f"{smed / med:.2f}x the batch's time; RTF "
+              f"{audio_s / (med / 1e3):.1f} audio-s ({audio_s:.3f} of output) "
+              f"per device-s batched (CUDA events) ({card})")
+        del bargs, singles_args, compiled, runner
+
+    # -- (d) one batch with differing lengths ---------------------------------
+    cut = [int(RATE * s) for s in BATCH_LENGTHS_S]
+    runner = Runner(config4_graph(track), device=CARD)
+    arrays, _, sources = runner.decode()
+    compiled = runner.compile(sources, "export")
+    [key] = arrays
+    clips = s16_clips([sig[:, :m] for sig, m in zip(signals, cut)],
+                      arrays[key].shape[1])
+    bargs, blens, singles_args = batch_and_singles(key, clips, cut, dev)
+    zero_counts()
+    outs, _ = compiled.run_batch(bargs, blens)
+    paths["config4_batch_lengths"] = read_counts()
+    singles = [compiled(a)[0] for a in singles_args]
+    check_clips(tag, f"config4, clips of {list(BATCH_LENGTHS_S)} s in one "
+                     f"{BATCH_SECONDS} s capacity", outs, singles, card)
+    check(len(set(outs["master"][1])) == len(cut),
+          f"{tag}: the clips' output lengths are not their own")
+    del outs, singles, bargs, singles_args
+
+    # -- (g) a graph with an unbatched node -----------------------------------
+    g = Graph()
+    src = g.add_node(AudioInput())
+    g.nodes[src].processor.file_paths = [track]
+    g.update_node_pin(src)
+    rs = g.add_node(AudioResample())
+    g.nodes[rs].processor.set_target_rate(48_000)
+    rv = g.add_node(AudioReverb())
+    out = g.add_node(AudioOutput())
+    g.add_link(_pin(g, src, "output_0"), _pin(g, rs, "input"))
+    g.add_link(_pin(g, rs, "output"), _pin(g, rv, "input"))
+    g.add_link(_pin(g, rv, "output"), _pin(g, out, "input"))
+    runner = Runner(g, device=CARD)
+    arrays, _, sources = runner.decode()
+    compiled = runner.compile(sources, "export")
+    [key] = arrays
+    bargs, blens, _ = batch_and_singles(key, clips, cut, dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    try:
+        compiled.run_batch(bargs, blens)
+        refused = None
+    except ProcessorRuntimeError as exc:
+        refused = exc
+    counts = read_counts()
+    print(f"[{tag}] input -> resample -> reverb -> output: run_batch "
+          f"{'raised: ' + refused.detail if refused else 'DID NOT RAISE'}; "
+          f"launches {counts}; device memory allocated "
+          f"{torch.cuda.memory_allocated() - before} bytes more ({card})")
+    check(refused is not None and "audio_reverb" in refused.detail,
+          f"{tag}: a graph with the reverb was not refused")
+    check(sum(counts.values()) == 0, f"{tag}: the refused batch launched "
+                                     f"{counts}")
+    paths["refused_batch"] = counts
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[30 figures] {json.dumps(figures)}")
+    return paths, figures, kernels
+
+
+def wsola_batch_checks(tag: str, chains, single_chains, kernels,
+                       card: str) -> None:
+    """Phase 30's WSOLA checks: every batched chain launch, clip by clip,
+    against the plain scoring and assembly (check_chain), each clip's
+    splices equal to its single render's, the batched energy prologue
+    against its plain version, and both kernels' batched times."""
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_wsola, wsola
+
+    worst = energy_rel = 0.0
+    for stage, (x, head, args, (bs, body)) in enumerate(chains):
+        geo = dict(zip(("K", "num", "den", "seq", "seek", "overlap"), args))
+        B = x.shape[0]
+        for b in range(B):
+            _, _, err = check_chain(f"batched chain {stage}, clip {b}", x[b],
+                                    head[b], geo, card, out=(bs[b], body[b]),
+                                    phase=tag)
+            worst = max(worst, err)
+            single_bs = single_chains[2 * b + stage][3][0]
+            check(torch.equal(single_bs, bs[b]),
+                  f"{tag}: chain {stage} clip {b}: splices differ from its "
+                  f"single render's")
+        K = geo["K"]
+        first = min(K, cuda_wsola.BLOCK_FRAMES)
+        got = cuda_wsola.wsola_energy_cuda(x, 0, 0, first, *args[1:])
+        want = wsola.wsola_energy_plain(x, 0, 0, first, *args[1:])
+        energy_rel = max(energy_rel, ((got - want).abs() / want).max().item())
+        if stage == 0:
+            C, ov, n_cand = x.shape[1], geo["overlap"], geo["seek"] + 1
+            stride = geo["seq"] - ov
+            runs = {"kernel": [], "plain": [], "one clip": []}
+            for name in ("plain", "kernel", "one clip", "one clip", "kernel",
+                         "plain"):
+                fn = {"kernel": lambda: cuda_wsola.wsola_chain_cuda(
+                          x, head, *args),
+                      "plain": lambda: wsola.wsola_chain_plain(x, head, *args),
+                      "one clip": lambda: cuda_wsola.wsola_chain_cuda(
+                          x[0], head[0], *args)}[name]
+                runs[name] += cuda_ms(fn, 1, warmup=1)
+            eruns = cuda_ms(lambda: cuda_wsola.wsola_energy_cuda(
+                x, 0, 0, K, *args[1:]), 3)
+            kernels["wsola_chain"] = dict(
+                shape=list(x.shape), K=K, ms=summary(runs["kernel"])[0],
+                plain_ms=summary(runs["plain"])[0],
+                one_clip_ms=summary(runs["one clip"])[0],
+                bound=bound(4 * (x.numel() + B * K + B * C * K * stride),
+                            2 * B * C * ov * n_cand * K))
+            kernels["wsola_energy"] = dict(
+                shape=[B, K, n_cand], ms=summary(eruns)[0],
+                bound=bound(4 * (x.numel() + B * K * n_cand),
+                            2 * B * C * ov * n_cand * K))
+            t = kernels["wsola_chain"]
+            print(f"[{tag}] WSOLA chain, pitch stage, {B} clips x K={K} in "
+                  f"one launch each of chain and prologue: median "
+                  f"{t['ms']:.4f} ms beside {t['one_clip_ms']:.4f} ms for one "
+                  f"clip alone and {t['plain_ms']:.4f} ms plain; bound "
+                  f"{t['bound'][0]:.4f} ms by {t['bound'][1]}; the prologue "
+                  f"alone {kernels['wsola_energy']['ms']:.4f} ms ({card})")
+    print(f"[{tag}] batched energy prologue, every clip of both stages: max "
+          f"|kernel - plain| / plain = {energy_rel:.3e} (tol {ENERGY_REL:.0e})"
+          f" ({card})")
+    check(energy_rel <= ENERGY_REL, f"{tag}: the batched prologue disagrees")
+    kernels["wsola_err"] = worst
+    kernels["energy_rel"] = energy_rel
+
+
+def pv_batch_checks(tag: str, what: str, phase_paths, locks, counts, kernels,
+                    card: str) -> None:
+    """Phase 30's PV checks: every batched phase-path launch against the
+    plain phase path on its folded planes (>= PV_PLANE_DB), every batched
+    lock launch against the plain lock (TOL, bitwise on finite inputs), and
+    the first launch's time beside its bound and plain version."""
+    from nodey_tpu_torch.ops import cuda_pv, pv
+
+    check(len(phase_paths) == counts["pv_phase_path"]
+          and len(locks) == counts["pv_lock"],
+          f"{tag}: {what}: {len(phase_paths)} phase paths and {len(locks)} "
+          f"locks recorded, the path counted {counts}")
+    for (re, im, dpos, hop, n_fft, lock), got in phase_paths:
+        want = pv.phase_path_plain(re, im, dpos, hop, n_fft, lock)
+        db = min(plane_snr_db(w, g) for w, g in zip(want, got))
+        print(f"[{tag}] {what}: batched phase path, planes {list(re.shape)} "
+              f"(clips folded into channels), lock {lock}: SNR {db:.1f} dB "
+              f"against plain (min {PV_PLANE_DB:.0f}) ({card})")
+        check(db >= PV_PLANE_DB, f"{tag}: a batched phase path disagrees")
+        del want
+    lock_err = 0.0
+    for lock_in, got in locks:
+        err, differ, finite = lock_against_plain(got, lock_in)
+        print(f"[{tag}] {what}: batched lock, planes {list(lock_in[3].shape)}"
+              f": max|kernel - plain| = {err:.3e} (tol {TOL:.0e}), {differ} "
+              f"elements not bitwise (inputs finite: {finite}) ({card})")
+        check(err <= TOL and (differ == 0 or not finite),
+              f"{tag}: a batched lock disagrees with the plain lock")
+        lock_err = max(lock_err, err)
+    kernels[f"{what}_lock_err"] = lock_err
+    if phase_paths and "pv_phase_path" not in kernels:
+        (re, im, dpos, hop, n_fft, lock), _ = phase_paths[0]
+        runs = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn = (cuda_pv.phase_path_cuda if name == "kernel"
+                  else pv.phase_path_plain)
+            runs[name] += cuda_ms(lambda: fn(re, im, dpos, hop, n_fft, lock),
+                                  2, warmup=1)
+        kernels["pv_phase_path"] = dict(
+            shape=list(re.shape), ms=summary(runs["kernel"])[0],
+            plain_ms=summary(runs["plain"])[0],
+            bound=bound(4 * 4 * re.numel(), 33 * re.numel()))
+    if locks and "pv_lock" not in kernels:
+        lock_in, _ = locks[0]
+        runs = {"kernel": [], "plain": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn = (cuda_pv.lock_to_peaks_cuda if name == "kernel"
+                  else pv._lock_to_peaks)
+            runs[name] += cuda_ms(lambda: fn(*lock_in), 2, warmup=1)
+        kernels["pv_lock"] = dict(
+            shape=list(lock_in[3].shape), ms=summary(runs["kernel"])[0],
+            plain_ms=summary(runs["plain"])[0],
+            bound=lock_work_bound(lock_in[3].shape))
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -4030,6 +4610,8 @@ def main() -> int:
         check(streamed["config4"]["counts"]["wsola_chain"] >= 2
               and streamed["config4"]["counts"]["wsola_energy"] >= 2,
               "the WSOLA kernel did not run on the streamed config 4")
+        whole_clip_rss(cli, "14 streamed", "5node", proj_5node, short_paths,
+                       tmp, streamed["5node"]["rss"], card)
 
         # -- 15. stream times --------------------------------------------------
         for tag, proj, name, what in (
@@ -4107,6 +4689,10 @@ def main() -> int:
         timeline_paths, timeline_resample_err = timeline_phases(
             cli, card, tmp, track_path)
 
+        # -- 30. batched serving ----------------------------------------------
+        batch_paths, _batch_figures, batch_kernels = batch_phase(cli, card,
+                                                                 dev, tmp)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -4116,7 +4702,16 @@ def main() -> int:
             *pv_stream_paths.items(), *session_paths.items(),
             *tool_paths.items(), *config_paths.items(),
             *masterbus_paths.items(), *effects_paths.items(),
-            *timeline_paths.items())}
+            *timeline_paths.items(), *batch_paths.items())}
+
+    def batch8(name):
+        # The kernel's first launch on phase 30's batch of 8 x 30 s clips.
+        t = batch_kernels[name]
+        return {"shape": t["shape"], "ms": t["ms"],
+                "plain_ms": t.get("plain_ms"), "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1],
+                **({"one_clip_ms": t["one_clip_ms"]} if "one_clip_ms" in t
+                   else {})}
 
     def with_launches(entry):
         # resample_data is the polyphase kernel reached through the A/B
@@ -4140,7 +4735,9 @@ def main() -> int:
             "launches": sum(by_path("polyphase_resample").values()),
             "launches_by_path": by_path("polyphase_resample"),
             "max_abs_err": max(kernel_err, config_figures["resample_err"],
-                               timeline_resample_err),
+                               timeline_resample_err,
+                               *(v for k, v in batch_kernels.items()
+                                 if k.endswith("resample_err"))),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": resample_bound[0],
@@ -4153,6 +4750,7 @@ def main() -> int:
                 "bound_by": transpose_bound[1],
                 "library_ms": resample_times["635/504"]["conv1d"]},
             "transposition_minus3": config_figures["transposition_minus3"],
+            "batch8": batch8("polyphase_resample"),
         },
         {
             "name": "wsola_chain",
@@ -4161,7 +4759,7 @@ def main() -> int:
             "replaces": "nodey_tpu/ops/pallas_wsola.py:452",
             "launches": config4_wsola,
             "launches_by_path": by_path("wsola_chain"),
-            "max_abs_err": wsola_err,
+            "max_abs_err": max(wsola_err, batch_kernels["wsola_err"]),
             "ms": pitch_times["kernel"],
             "plain_ms": pitch_times["plain"],
             "bound_ms": pitch_times["bound"][0],
@@ -4169,6 +4767,7 @@ def main() -> int:
             "library_ms": None,
             "us_per_frame": pitch_times["us_per_frame"],
             "geometry_44100": config_figures["chain_44100"],
+            "batch8": batch8("wsola_chain"),
         },
         {
             "name": "wsola_chunk_chain",
@@ -4194,12 +4793,14 @@ def main() -> int:
             "launches": sum(by_path("wsola_energy").values()),
             "launches_by_path": by_path("wsola_energy"),
             "max_abs_err": max(e[1] for e in energy_err),
-            "max_rel_err": max(e[0] for e in energy_err),
+            "max_rel_err": max(*(e[0] for e in energy_err),
+                               batch_kernels["energy_rel"]),
             "ms": energy_times["pitch"]["kernel"],
             "plain_ms": energy_times["pitch"]["plain"],
             "bound_ms": energy_times["pitch"]["bound"][0],
             "bound_by": energy_times["pitch"]["bound"][1],
             "library_ms": None,
+            "batch8": batch8("wsola_energy"),
         },
         {
             "name": "pv_phase_path",
@@ -4215,6 +4816,7 @@ def main() -> int:
             "bound_by": pv_pitch["phase bound"][1],
             "library_ms": None,
             "passes_ms": pv_pitch["passes"],
+            "batch8": batch8("pv_phase_path"),
         },
         {
             # The main path is the streamed PV: its launches, and its times at
@@ -4226,7 +4828,8 @@ def main() -> int:
             "replaces": "nodey_tpu/ops/pallas_lock.py:126",
             "launches": pv_stream_paths["config4_pv_streamed"]["pv_lock"],
             "launches_by_path": by_path("pv_lock"),
-            "max_abs_err": max(pv_worst["lock"], stream_lock_err),
+            "max_abs_err": max(pv_worst["lock"], stream_lock_err,
+                               batch_kernels["config4_pv_options_lock_err"]),
             "shape": lock_chunk[max(lock_chunk)]["shape"],
             "ms": lock_chunk[max(lock_chunk)]["kernel"],
             "plain_ms": lock_chunk[max(lock_chunk)]["plain"],
@@ -4243,6 +4846,7 @@ def main() -> int:
                 "ms": pv_pitch["lock kernel"],
                 "plain_ms": pv_pitch["lock plain"],
                 "bound_ms": pv_pitch["lock bound"][0]},
+            "batch8": batch8("pv_lock"),
         },
         *map(with_launches, tool_entries),
     ]}))

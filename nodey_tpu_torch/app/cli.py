@@ -124,6 +124,19 @@ def _run_realtime(args, graph: Graph) -> int:
     return 0
 
 
+def _encode_progress():
+    """An export's progress callback: ``  encoded N s`` on stderr, at most
+    once per second of audio written (the JAX CLI's lines)."""
+    last = [0.0]
+
+    def progress(seconds: float) -> None:
+        if seconds - last[0] >= 1.0:
+            last[0] = seconds
+            print(f"  encoded {seconds:8.1f} s", file=sys.stderr)
+
+    return progress
+
+
 def cmd_run(args) -> int:
     graph = _load_graph(args.project)
     if args.realtime and not args.export:
@@ -131,10 +144,11 @@ def cmd_run(args) -> int:
     runner = Runner(graph, device=args.device)
     if args.export and args.stream:
         _report_streamed(args.export, runner, runner.export_streamed(
-            args.export, kbps=args.kbps))
+            args.export, kbps=args.kbps, progress=_encode_progress()))
     elif args.export:
         _report(f"exported {args.export}",
-                runner.export(args.export, kbps=args.kbps))
+                runner.export(args.export, kbps=args.kbps,
+                              progress=_encode_progress()))
     if args.preview or not args.export:
         result = runner.preview()
         if result.master is None:

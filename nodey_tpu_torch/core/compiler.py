@@ -4,6 +4,10 @@ The validated DAG is ordered host-side and every node's ``lower()`` runs
 PyTorch ops on the tensors of its inputs; edges are tensors, fan-out is
 reuse. There is no jit: ``compile_graph`` returns a callable bound to one
 device that runs the nodes in order each time it is called.
+``CompiledGraph.run_batch`` runs the same order once over a batch of clips
+(``[B, C, capacity]`` inputs): each node's lowering carries the clip axis
+itself, and a graph with a node that has no batched lowering
+(``Processor.batched``) is refused before anything runs.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import dataclasses
 import heapq
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from nodey_tpu_torch.core.errors import LogicError, ProcessorRuntimeError
@@ -42,7 +47,7 @@ class LowerCtx:
     the emitted outputs."""
 
     def __init__(self, mode: str, sources: Dict[Tuple[int, str], SourceSpec],
-                 args: Dict[str, Tuple[torch.Tensor, int]],
+                 args: Dict[str, Tuple[torch.Tensor, Any]],
                  device: torch.device):
         self.mode = mode  # "export" | "preview"
         self.device = device
@@ -58,7 +63,8 @@ class LowerCtx:
             raise LogicError(f"No source bound for node {node_id} pin {pin}")
         data, length = self._args[external_key(node_id, pin)]
         if data.dtype == torch.int16:
-            # s16 ingest wire: dequantize s/32768, exactly FFmpeg's s16->flt.
+            # s16 ingest wire: dequantize s/32768, exactly FFmpeg's s16->flt
+            # (elementwise: one clip [C, N] or a batch [B, C, N] alike).
             data = data.float() * (1.0 / 32768.0)
         return Stream(
             data=data,
@@ -141,7 +147,9 @@ class CompiledGraph:
         self.mode = mode
         self.device = device
         self.order = topo_order(graph)
-        self.input_keys = sorted(external_key(nid, pin) for nid, pin in sources)
+        self._specs = {external_key(nid, pin): spec
+                       for (nid, pin), spec in sources.items()}
+        self.input_keys = sorted(self._specs)
         # node -> [(input pin name, upstream output pin id)]
         self._wiring: Dict[int, List[Tuple[str, int]]] = {
             nid: [] for nid in self.order
@@ -159,6 +167,81 @@ class CompiledGraph:
                     f"input {key} is on {args[key][0].device}, the graph "
                     f"is bound to {self.device}"
                 )
+        return self._run(args)
+
+    def unbatched_nodes(self) -> List[Tuple[int, str]]:
+        """``(node id, identifier)`` of every node without a batched
+        lowering, in node order."""
+        return [(nid, self.graph.nodes[nid].processor.info().identifier)
+                for nid in self.order
+                if not self.graph.nodes[nid].processor.batched]
+
+    def run_batch(self, arrays: Dict[str, Any], lengths: Dict[str, Any]):
+        """Run the graph once over a batch of B clips.
+
+        ``arrays[key]`` is ``[B, C, capacity]``: a tensor on the graph's
+        device, or a numpy array, which is copied there (a tensor on
+        another device raises, as ``__call__`` does). ``lengths[key]`` is
+        the B clips' valid lengths on the host (ints, a numpy array or a
+        CPU tensor). Returns ``(outputs, output_meta)`` as ``__call__``
+        does, each stream output as ``(data [B, C, N] on the device, the B
+        lengths as a tuple of host ints)`` and each array output
+        ``[B, ...]``, all left on the device. Clip b of every output is
+        clip b's own single render.
+
+        Before anything runs, every node must have a batched lowering;
+        else a ProcessorRuntimeError names the nodes. No loop over clips
+        stands in for one. The JAX package's ``mesh=`` / ``dp_axis``
+        (clips spread over the chips of a mesh) belong to the multi-GPU
+        port and are not taken here."""
+        unbatched = self.unbatched_nodes()
+        if unbatched:
+            names = ", ".join(f"node {nid} ({ident})"
+                              for nid, ident in unbatched)
+            raise ProcessorRuntimeError(
+                "Graph cannot run as a batch",
+                "Every node of a batched run needs a batched lowering; these "
+                "have none yet (ROADMAP, section 1: the batch axis of the "
+                "remaining nodes). Render the clips one at a time instead.",
+                f"unbatched: {names}",
+            )
+        batch = None
+        args: Dict[str, Tuple[torch.Tensor, Tuple[int, ...]]] = {}
+        for key in self.input_keys:
+            data, lens = arrays[key], lengths[key]
+            if torch.is_tensor(data):
+                if data.device != self.device:
+                    raise LogicError(
+                        f"input {key} is on {data.device}, the graph is "
+                        f"bound to {self.device}")
+            else:
+                data = torch.from_numpy(np.ascontiguousarray(data))
+            if torch.is_tensor(lens) and lens.device.type != "cpu":
+                raise LogicError(
+                    f"lengths of {key} are on {lens.device}: a batch's "
+                    f"lengths stay on the host")
+            lens = tuple(int(n) for n in np.asarray(lens).reshape(-1))
+            spec = self._specs[key]
+            if (data.dim() != 3 or data.shape[1] != spec.channels
+                    or data.shape[2] != spec.capacity):
+                raise LogicError(
+                    f"input {key}: want [B, {spec.channels}, {spec.capacity}]"
+                    f", got {list(data.shape)}")
+            if batch is None:
+                batch = data.shape[0]
+            if data.shape[0] != batch or len(lens) != batch:
+                raise LogicError(
+                    f"input {key}: {data.shape[0]} clips and {len(lens)} "
+                    f"lengths, the batch has {batch}")
+            if any(not 0 <= n <= spec.capacity for n in lens):
+                raise LogicError(
+                    f"input {key}: lengths {lens} outside 0..{spec.capacity}")
+            args[key] = (data, lens)
+        args = {key: (data.to(self.device), lens)
+                for key, (data, lens) in args.items()}
+        return self._run(args)
+
+    def _run(self, args):
         ctx = LowerCtx(self.mode, self.sources, args, self.device)
         pin_values: Dict[int, Stream] = {}  # output pin id -> Stream
         for nid in self.order:

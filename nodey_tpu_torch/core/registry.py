@@ -61,6 +61,11 @@ class Processor:
     reference's field names) and ``lower(ctx, inputs) -> outputs``.
     """
 
+    # True where ``lower`` also takes batched streams (``[B, C, N]`` data
+    # with per-clip lengths) and gives each clip its single render:
+    # ``CompiledGraph.run_batch`` refuses a graph with any other node.
+    batched = False
+
     def info(self) -> ProcessorInfo:  # pragma: no cover - abstract
         raise NotImplementedError
 

@@ -2,12 +2,17 @@
 
 An edge carries a planar ``[channels, N]`` float32 tensor plus its valid
 length. The graph runs eagerly, so the length is a plain Python int and
-not a traced scalar as in the JAX package.
+not a traced scalar as in the JAX package. A batched run
+(``CompiledGraph.run_batch``) carries ``[B, channels, N]`` with one valid
+length per clip, a tuple of host ints, so that no step waits on the card
+for a length; every shape still comes from the capacity, and the lengths
+only set each clip's zero tail (``zero_tail``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -25,9 +30,11 @@ FMT_SCALE = {FMT_FLT: 1.0, FMT_S16: 32768.0, FMT_S32: 2147483648.0}
 class Stream:
     """An audio stream value.
 
-    data:     ``[channels, N]`` float32 tensor; samples at index >= length
-              are zero padding.
-    length:   number of valid samples per channel.
+    data:     ``[channels, N]`` float32 tensor, or ``[B, channels, N]``
+              for a batch of clips; samples at index >= length are zero
+              padding.
+    length:   number of valid samples per channel; for a batch, a tuple of
+              the B clips' lengths.
     rate:     sample rate in Hz.
     channels: 1 or 2.
     fmt:      origin sample-format tag.
@@ -35,7 +42,7 @@ class Stream:
     """
 
     data: torch.Tensor
-    length: int
+    length: Union[int, Tuple[int, ...]]
     rate: int
     channels: int
     fmt: str = FMT_FLT
@@ -44,6 +51,17 @@ class Stream:
     def __post_init__(self) -> None:
         if self.channels not in (1, 2):
             raise ValueError(f"channels must be 1 or 2, got {self.channels}")
+        if self.data.dim() == 3:
+            self.length = tuple(int(n) for n in self.length)
+            if len(self.length) != self.data.shape[0]:
+                raise ValueError(
+                    f"a batch of {self.data.shape[0]} clips needs as many "
+                    f"lengths, got {len(self.length)}")
+
+    @property
+    def batch(self):
+        """The number of clips of a batched stream; None for one clip."""
+        return self.data.shape[0] if self.data.dim() == 3 else None
 
     @property
     def capacity(self) -> int:
@@ -54,12 +72,40 @@ class Stream:
         kw = dict(
             length=self.length,
             rate=self.rate,
-            channels=data.shape[0],
+            channels=data.shape[-2],
             fmt=self.fmt,
             t0_us=self.t0_us,
         )
         kw.update(overrides)
         return Stream(data=data, **kw)
+
+
+def map_lengths(length, fn):
+    """``fn`` applied to one clip's length, or to each of a batch's."""
+    if isinstance(length, tuple):
+        return tuple(fn(n) for n in length)
+    return fn(length)
+
+
+def zero_tail(data: torch.Tensor, length) -> torch.Tensor:
+    """Zero ``data`` [C, N] past ``length``, or each clip of ``data``
+    [B, C, N] past its own length (a tuple), in place; returns ``data``.
+    A batch whose clips share one length takes one fill."""
+    if not isinstance(length, tuple):
+        data[..., length:] = 0.0
+    elif len(set(length)) == 1:
+        data[..., length[0]:] = 0.0
+    else:
+        for b, n in enumerate(length):
+            data[b, :, n:] = 0.0
+    return data
+
+
+def max_length(lengths: Sequence):
+    """The longest of several streams' lengths, clip by clip for batches."""
+    if isinstance(lengths[0], tuple):
+        return tuple(max(ns) for ns in zip(*lengths))
+    return max(lengths)
 
 
 class AudioStreamType:

@@ -7,8 +7,9 @@ DSP fiber -> sink pipeline (src/processor/audio-io.cpp:86-226, sink
 backpressure at :620-636). Stages:
 
   [decode threads]  one per input stream (the native StreamDecoder where
-                    the codec runtime loads; else the whole clip decoded and
-                    sliced into chunks), pushing blocks into bounded queues.
+                    the codec runtime loads; else a WAV read block by block
+                    by the Python reader), pushing blocks into bounded
+                    queues.
   [pump]            the caller's thread: fills a pinned host block per input
                     and copies it to the card with ``non_blocking=True``,
                     runs the chunk step (kernels queue on the compute
@@ -129,9 +130,11 @@ class _SourceFeed:
     """Decode-ahead thread for one input stream.
 
     ``pop`` yields ``(block [C, n], n, is_last)``. Decodes with the native
-    StreamDecoder where the codec runtime loads, so host memory stays
-    bounded; else decodes the whole clip (the WAV reader) and slices it
-    into chunks, as the JAX package does. s16 sources ride as int16
+    StreamDecoder where the codec runtime loads; else a WAV goes through
+    the Python reader one chunk at a time (``host_decode.WavBlockReader``;
+    the JAX package decodes the whole clip there), so host memory stays
+    bounded either way. Another file without the runtime is decoded whole
+    (``decode_file``, which raises for it). s16 sources ride as int16
     (round(x*32768) inverts the decoder's s/32768 exactly) and are
     dequantized on the device (chunkflow.StreamLowerCtx.external)."""
 
@@ -147,12 +150,14 @@ class _SourceFeed:
         # audio-io.cpp:234-240).
         try:
             self._decoder = host_decode.StreamDecoder(path)
-            src = self._decoder
-            self.t0_us = src.pts0_us
         except ProcessorRuntimeError:
-            src = host_decode.decode_file(path)
-            self._whole = src.data
-            self.t0_us = src.pts0_us
+            if (host_decode.load_native() is None
+                    and path.lower().endswith(".wav")):
+                self._decoder = host_decode.WavBlockReader(path)
+            else:
+                self._whole = host_decode.decode_file(path)
+        src = self._decoder if self._decoder is not None else self._whole
+        self.t0_us = src.pts0_us
         self.rate, self.channels, self.fmt = src.rate, src.channels, src.fmt
         self.chunk = max(1, int(chunk_seconds * self.rate))
         self.wire_dtype = np.int16 if self.fmt == FMT_S16 else np.float32
@@ -166,8 +171,9 @@ class _SourceFeed:
             with self._decoder as dec:
                 yield from dec.blocks(self.chunk)
         else:
-            for start in range(0, self._whole.shape[1], self.chunk):
-                yield self._whole[:, start : start + self.chunk]
+            whole = self._whole.data
+            for start in range(0, whole.shape[1], self.chunk):
+                yield whole[:, start : start + self.chunk]
 
     def _quantize(self, block: np.ndarray) -> np.ndarray:
         if self.wire_dtype is np.float32:

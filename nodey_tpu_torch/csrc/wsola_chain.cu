@@ -28,6 +28,17 @@
 // most a few thousand frames (ops/cuda_wsola.py), each block's head the
 // previous block's tail_out.
 //
+// A batch of clips (CompiledGraph.run_batch). Each clip is its own chain,
+// and its score sums over the clip's channels, so clips cannot fold into
+// the channel axis as they do in the resampler and the PV kernels. Both
+// kernels take a clip count and per-clip strides instead: the chain runs
+// one CTA per clip (blockIdx.x), each the serial loop below on its own SM,
+// so B clips take about the time of one where B single renders would take
+// B times as long (the TPU package runs vmapped clips one after another
+// through lax.map, pallas_wsola.py:331-357); the prologue's grid is
+// (frames, clips). A block of frames is one launch of each whatever B is.
+// One clip (the streaming chunk entry) is clips = 1 with strides 0.
+//
 // The energy prologue (wsola_energy_kernel). The normalizer rsqrt(energy[b])
 // depends only on the frame's window position, never on the chain's choices,
 // so it leaves the serial path: a parallel kernel over all SMs (one CTA per
@@ -258,8 +269,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 wsola_energy_kernel(const float* __restrict__ x, long long ld, int channels,
                     long long k0, long long base, long long num,
                     long long den, int seek, int overlap,
-                    float* __restrict__ inv) {
+                    float* __restrict__ inv, long long x_clip,
+                    long long inv_clip) {
   extern __shared__ float4 smem4[];
+  x += blockIdx.y * x_clip;
+  inv += blockIdx.y * inv_clip;
   float* rows = reinterpret_cast<float*>(smem4);   // [channels][row_ld]
   const int n_cand = seek + 1;
   const int span = seek + overlap;
@@ -316,16 +330,33 @@ __device__ __forceinline__ void stage_frame(float* buf, float* inv_buf,
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// One CTA an SM (minBlocksPerSM 1): with the clip offsets below, ptxas
+// otherwise holds the kernel to 32 registers (room for 2,048 threads an
+// SM), and the serial loop slows; chip_smoke.py's build phase prints the
+// registers and phase 8 the time a frame (PERF.md, row 4 of the kernels).
+__global__ void __launch_bounds__(kMaxThreads, 1)
 wsola_chain_kernel(const float* __restrict__ x, const float* head,
                    const float* __restrict__ inv, int* __restrict__ bs,
                    float* __restrict__ body, long long body_ld,
                    float* tail_out, int channels, long long ld, int frames,
                    long long k0, long long base, long long num, long long den,
-                   int seq, int seek, int overlap) {
+                   int seq, int seek, int overlap, long long x_clip,
+                   long long inv_clip, long long bs_clip,
+                   long long body_clip) {
   // head may alias tail_out (a block walk passes the previous block's tail
   // as its head): it is read once before the frame loop, written after it.
   extern __shared__ float4 smem4[];
+  {
+    // This CTA's clip: its input rows, inv rows, splices, body and tail.
+    const long long clip = blockIdx.x;
+    const long long tail_clip = static_cast<long long>(channels) * overlap;
+    x += clip * x_clip;
+    head += clip * tail_clip;
+    tail_out += clip * tail_clip;
+    inv += clip * inv_clip;
+    bs += clip * bs_clip;
+    body += clip * body_clip;
+  }
   const ChainLayout lay(seq, seek, overlap);
   const int stride = seq - overlap;
   const int n_cand = seek + 1;
@@ -490,20 +521,24 @@ int nodey_wsola_threads(int seek) { return chain_threads(seek + 1); }
 
 // inv [frames, seek + 1]: row i of frame k0 + i, read from x's columns from
 // frame_pos(k0 + i) - base (x's rows `ld` floats apart, each window inside
-// its row). One CTA per frame. Returns a cudaError_t.
+// its row). For `clips` clips, clip j's rows start x_clip floats after clip
+// j-1's and its inv rows inv_clip floats after (one clip: strides unused).
+// One CTA per frame and clip. Returns a cudaError_t.
 int nodey_wsola_energy(const float* x, long long ld, int channels, int frames,
                        long long k0, long long base, long long num,
                        long long den, int seek, int overlap, float* inv,
+                       int clips, long long x_clip, long long inv_clip,
                        void* stream) {
   const long long smem = energy_smem_bytes(channels, seek, overlap);
   cudaError_t err = cudaFuncSetAttribute(
       wsola_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  wsola_energy_kernel<<<frames, cand_threads(seek + 1),
+  wsola_energy_kernel<<<dim3(frames, clips), cand_threads(seek + 1),
                         static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(
-      x, ld, channels, k0, base, num, den, seek, overlap, inv);
+      x, ld, channels, k0, base, num, den, seek, overlap, inv, x_clip,
+      inv_clip);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -513,22 +548,28 @@ int nodey_wsola_energy(const float* x, long long ld, int channels, int frames,
 // head and tail_out [channels, overlap] (they may be one buffer), bs
 // [frames] int32, body rows `body_ld` floats apart, frame i's stride at
 // column i * (seq - overlap); all on the current device. Offline: k0 = base
-// = 0, ld = nx. Returns a cudaError_t (0 on a clean launch).
+// = 0, ld = nx. For `clips` clips (one CTA each), clip j's x, inv, bs and
+// body start x_clip, inv_clip, bs_clip and body_clip elements after clip
+// j-1's, and its head and tail_out channels * overlap floats after (one
+// clip: strides unused). Returns a cudaError_t (0 on a clean launch).
 int nodey_wsola_chain(const float* x, const float* head, const float* inv,
                       int* bs, float* body, long long body_ld,
                       float* tail_out, int channels, long long ld, int frames,
                       long long k0, long long base, long long num,
                       long long den, int seq, int seek, int overlap,
-                      void* stream) {
+                      int clips, long long x_clip, long long inv_clip,
+                      long long bs_clip, long long body_clip, void* stream) {
   const long long smem = chain_smem_bytes(channels, seq, seek, overlap);
   cudaError_t err = cudaFuncSetAttribute(
       wsola_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  wsola_chain_kernel<<<1, chain_threads(seek + 1), static_cast<size_t>(smem),
+  wsola_chain_kernel<<<clips, chain_threads(seek + 1),
+                       static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(
       x, head, inv, bs, body, body_ld, tail_out, channels, ld, frames, k0,
-      base, num, den, seq, seek, overlap);
+      base, num, den, seq, seek, overlap, x_clip, inv_clip, bs_clip,
+      body_clip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@ load, a pure-Python RIFF/WAV reader covers PCM16, PCM32 and float32 WAV;
 any other input then raises the same three-part error as the JAX package.
 :class:`StreamDecoder` is the native pull decoder with bounded memory that
 the streaming executor reads chunks from; it raises where the runtime is
-missing, and the executor then decodes the whole clip and slices it.
+missing, and the executor then reads a WAV block by block through
+:class:`WavBlockReader`, the Python reader with bounded memory.
 """
 
 from __future__ import annotations
@@ -195,58 +196,121 @@ def _no_stream(path: str, what: str = "") -> ProcessorRuntimeError:
 
 
 def _decode_wav_python(path: str) -> DecodedAudio:
-    """Minimal RIFF/WAVE reader: PCM 16/32-bit and IEEE float."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    if len(blob) < 12 or blob[:4] != b"RIFF" or blob[8:12] != b"WAVE":
-        raise _bad_structure(path)
-    pos = 12
-    fmt_chunk = None
-    data_chunk = None
-    while pos + 8 <= len(blob):
-        cid, size = blob[pos : pos + 4], struct.unpack_from("<I", blob, pos + 4)[0]
-        body = blob[pos + 8 : pos + 8 + size]
-        if cid == b"fmt ":
-            fmt_chunk = body
-        elif cid == b"data":
-            data_chunk = body
-        pos += 8 + size + (size & 1)
-    if fmt_chunk is None or data_chunk is None:
-        raise _no_stream(path)
-    if len(fmt_chunk) < 16:
-        raise _bad_structure(path, " (truncated fmt chunk)")
-    audio_fmt, channels, rate, _, _, bits = struct.unpack_from(
-        "<HHIIHH", fmt_chunk, 0
-    )
-    if channels < 1:
-        raise _no_stream(path, f" (channels={channels})")
-    if audio_fmt == 0xFFFE and len(fmt_chunk) >= 40:  # WAVE_FORMAT_EXTENSIBLE
-        audio_fmt = struct.unpack_from("<H", fmt_chunk, 24)[0]
+    """Minimal RIFF/WAVE reader: PCM 16/32-bit and IEEE float, the whole
+    clip at once (``WavBlockReader`` in one block)."""
+    with WavBlockReader(path) as reader:
+        data = reader.read(reader.num_samples)
+    if data is None:
+        data = np.zeros((reader.channels, 0), dtype=np.float32)
+    return DecodedAudio(data=data, rate=reader.rate, fmt=reader.fmt)
 
-    if audio_fmt == 1 and bits == 16:
-        raw = np.frombuffer(data_chunk, dtype="<i2")
-        data = raw.astype(np.float32) / 32768.0
-        fmt = FMT_S16
-    elif audio_fmt == 1 and bits == 32:
-        raw = np.frombuffer(data_chunk, dtype="<i4")
-        data = (raw.astype(np.float64) / 2147483648.0).astype(np.float32)
-        fmt = FMT_S32
-    elif audio_fmt == 3 and bits == 32:
-        data = np.frombuffer(data_chunk, dtype="<f4").astype(np.float32)
-        fmt = FMT_FLT
-    else:
-        raise ProcessorRuntimeError(
-            "Unsupported sample format",
-            "The WAV fallback reader supports PCM16/PCM32/float32.",
-            f"format={audio_fmt} bits={bits}",
+
+# WAV sample formats the Python reader takes: (format tag, bits) -> (origin
+# format, little-endian dtype).
+_WAV_FORMATS = {(1, 16): (FMT_S16, "<i2"), (1, 32): (FMT_S32, "<i4"),
+                (3, 32): (FMT_FLT, "<f4")}
+
+
+class WavBlockReader:
+    """The Python WAV reader (PCM16, PCM32, float32) with bounded memory:
+    the header is parsed up front (the last ``fmt `` and ``data`` chunks
+    count, a data chunk running past the file's end is cut there), and
+    ``read``/``blocks`` return the data chunk's frames a block at a time as
+    normalized planar float32, each sample converted exactly as a whole-clip
+    read converts it (s16: /32768 in float32; s32: /2^31 in float64, then
+    float32). It holds one block: what the streaming executor reads where
+    the codec runtime does not load."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "rb")
+        try:
+            self._parse(path)
+        except BaseException:
+            self._f.close()
+            raise
+        self.pts0_us = 0
+        self._next = 0
+
+    def _parse(self, path: str) -> None:
+        f = self._f
+        size_all = os.fstat(f.fileno()).st_size
+        riff = f.read(12)
+        if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
+            raise _bad_structure(path)
+        pos = 12
+        fmt_chunk = None
+        data = None   # (offset, bytes)
+        while pos + 8 <= size_all:
+            f.seek(pos)
+            cid, size = struct.unpack("<4sI", f.read(8))
+            avail = min(size, size_all - pos - 8)
+            if cid == b"fmt ":
+                fmt_chunk = f.read(avail)
+            elif cid == b"data":
+                data = (pos + 8, avail)
+            pos += 8 + size + (size & 1)
+        if fmt_chunk is None or data is None:
+            raise _no_stream(path)
+        if len(fmt_chunk) < 16:
+            raise _bad_structure(path, " (truncated fmt chunk)")
+        audio_fmt, channels, rate, _, _, bits = struct.unpack_from(
+            "<HHIIHH", fmt_chunk, 0
         )
-    n = len(data) // channels
-    planar = data[: n * channels].reshape(n, channels).T
-    return DecodedAudio(
-        data=np.ascontiguousarray(planar, dtype=np.float32),
-        rate=int(rate),
-        fmt=fmt,
-    )
+        if channels < 1:
+            raise _no_stream(path, f" (channels={channels})")
+        if audio_fmt == 0xFFFE and len(fmt_chunk) >= 40:  # EXTENSIBLE
+            audio_fmt = struct.unpack_from("<H", fmt_chunk, 24)[0]
+        if (audio_fmt, bits) not in _WAV_FORMATS:
+            raise ProcessorRuntimeError(
+                "Unsupported sample format",
+                "The WAV fallback reader supports PCM16/PCM32/float32.",
+                f"format={audio_fmt} bits={bits}",
+            )
+        self.fmt, self._dtype = _WAV_FORMATS[(audio_fmt, bits)]
+        self.channels = int(channels)
+        self.rate = int(rate)
+        self._offset, nbytes = data
+        self._frame_bytes = (bits // 8) * self.channels
+        self.num_samples = nbytes // (bits // 8) // self.channels
+
+    def read(self, max_samples: int):
+        """The next block of at most ``max_samples`` frames, planar float32
+        [channels, n]; None at the end of the data."""
+        n = min(max_samples, self.num_samples - self._next)
+        if n <= 0:
+            return None
+        self._f.seek(self._offset + self._next * self._frame_bytes)
+        raw = np.frombuffer(self._f.read(n * self._frame_bytes),
+                            dtype=self._dtype)
+        self._next += n
+        # In place where it can be: the block's only copies are the bytes
+        # read, the converted samples and the planar result.
+        if self.fmt == FMT_S16:
+            data = raw.astype(np.float32)
+            data /= 32768.0
+        elif self.fmt == FMT_S32:
+            wide = raw.astype(np.float64)
+            wide /= 2147483648.0
+            data = wide.astype(np.float32)
+        else:
+            data = raw.astype(np.float32)
+        return np.ascontiguousarray(data.reshape(n, self.channels).T,
+                                    dtype=np.float32)
+
+    def blocks(self, block_samples: int):
+        """Iterate planar blocks until the end of the data (holding no
+        reference to a block once it is handed out)."""
+        while self._next < self.num_samples:
+            yield self.read(block_samples)
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 def _wav_header(channels: int, rate: int, tag: int, bps: int,

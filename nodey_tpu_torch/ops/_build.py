@@ -104,11 +104,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "wsola_chain":
         lib.nodey_wsola_chain.argtypes = [
             vp, vp, vp, vp, vp, i64, vp, i32, i64, i32, i64, i64, i64, i64,
-            i32, i32, i32, vp,
+            i32, i32, i32, i32, i64, i64, i64, i64, vp,
         ]
         lib.nodey_wsola_chain.restype = i32
         lib.nodey_wsola_energy.argtypes = [
-            vp, i64, i32, i32, i64, i64, i64, i64, i32, i32, vp, vp,
+            vp, i64, i32, i32, i64, i64, i64, i64, i32, i32, vp, i32, i64,
+            i64, vp,
         ]
         lib.nodey_wsola_energy.restype = i32
         lib.nodey_wsola_smem_bytes.argtypes = [i32, i32, i32, i32]

@@ -36,8 +36,17 @@ def apply_filter_bank_cuda(x: torch.Tensor, G: int, M: int, W: int,
     summed over ``support`` (``resample.BankSupport`` of the [L, W] bank)
     only.
 
-    ``x`` [C, N] must already be padded so that N >= (G - 1)*M + W."""
+    ``x`` [C, N] must already be padded so that N >= (G - 1)*M + W. A batch
+    ``x`` [B, C, N] folds its clips into the kernel's rows, [B*C, N] (the
+    grid is (tiles, rows), and every row is summed alone), so a batch is
+    one launch; the result is [B, C, G*L]."""
     global launches
+    if x.dim() == 3:
+        if not x.is_contiguous():
+            raise ValueError("polyphase kernel needs a contiguous batch x")
+        y = apply_filter_bank_cuda(x.reshape(-1, x.shape[2]), G, M, W,
+                                   support)
+        return y.reshape(x.shape[0], x.shape[1], -1)
     compact, offsets = support.compact, support.offsets
     if not (x.is_cuda and x.device == compact.device == offsets.device):
         raise ValueError(
@@ -57,7 +66,8 @@ def apply_filter_bank_cuda(x: torch.Tensor, G: int, M: int, W: int,
             or tuple(compact.shape) != (nb, T, B)
             or tuple(offsets.shape) != (nb,)):
         raise ValueError(
-            f"polyphase kernel needs x [C, N] and a support of a [L, {W}] "
+            f"polyphase kernel needs x [C, N] or [B, C, N] and a support of "
+            f"a [L, {W}] "
             f"bank, [ceil(L/{B}), T, {B}] with offsets [ceil(L/{B})], got "
             f"{tuple(x.shape)}, a [{L}, {support.width}] bank, "
             f"{tuple(compact.shape)} and {tuple(offsets.shape)}"

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from nodey_tpu_torch import config
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, max_length
 from nodey_tpu_torch.ops import resample as resample_ops
 
 
@@ -39,15 +39,16 @@ def _common_grid(streams: Sequence[Stream]) -> Tuple[List[Stream], int]:
 
 def amix(streams: Sequence[Stream], volumes: Sequence[float]) -> Stream:
     """out[ch][j] = sum_i in_i[ch][j] * volumes[i] (volumes cast to float32
-    before the multiply, as in the JAX package)."""
+    before the multiply, as in the JAX package). Batched streams mix clip by
+    clip; each clip's output runs to its own longest input."""
     normed, capacity = _common_grid(streams)
-    acc = torch.zeros((2, capacity), dtype=torch.float32,
-                      device=normed[0].data.device)
+    acc = torch.zeros((*normed[0].data.shape[:-2], 2, capacity),
+                      dtype=torch.float32, device=normed[0].data.device)
     for s, vol in zip(normed, volumes):
         acc = acc + _pad_to(s.data, capacity) * float(np.float32(vol))
     return Stream(
         data=acc,
-        length=max(s.length for s in normed),
+        length=max_length([s.length for s in normed]),
         rate=config.AMIX_STD_SAMPLE_RATE,
         channels=2,
         fmt=FMT_FLT,

@@ -26,6 +26,14 @@ option, as the JAX package does; nothing falls back.
 Bases are float64 host designs cast to float32 (the JAX package's host
 branch). Lengths are host ints.
 
+A batch of clips ``[B, C, N]`` (``pv_stretch_at_rate`` with a tuple of
+lengths) shares the geometry, which depends on the capacity alone. Each
+clip's GEMMs and plain phase math run on a single clip's shapes, so a
+clip's bits are its single render's; the planes of all clips fold into
+the kernels' channel rows, [B*C, K, bins], so the phase path (or the lock)
+is one launch whatever B is. Every pass of both kernels works row by row,
+and the transient detector sums over bins, never over channels.
+
 The streaming step (``pv_stream_plan``, ``pv_stream_init``,
 ``pv_stream_step``) runs the same passes on each chunk's ready frames with
 the plain phase math in torch, locks through ``lock_phases`` (the lock
@@ -46,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+from nodey_tpu_torch.core.stream import map_lengths, zero_tail
 from nodey_tpu_torch.ops.stft import _dft_matrices
 
 # Spectral-flux threshold for transient phase reset (the velocity node's
@@ -129,16 +138,19 @@ def _bases(n_fft: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
-def _analysis(data: torch.Tensor, pos: np.ndarray, pad_to: int, n_fft: int):
+def _analysis(data: torch.Tensor, pos: np.ndarray, pad_to: int, n_fft: int,
+              out=None):
     """(re, im) [C, K, bins]: the windowed real DFT of every frame
-    ``data[:, pos_k : pos_k + n_fft]``, gathered in chunks of frames."""
+    ``data[:, pos_k : pos_k + n_fft]``, gathered in chunks of frames (into
+    ``out``, two [C, K, bins] planes, where given)."""
     C, N = data.shape
     K = len(pos)
     bins = n_fft // 2 + 1
     w, cos_m, sin_m = _bases(n_fft, data.device)[:3]
     x = F.pad(data, (0, max(0, pad_to - N)))
-    re = data.new_empty((C, K, bins))
-    im = data.new_empty((C, K, bins))
+    if out is None:
+        out = data.new_empty((C, K, bins)), data.new_empty((C, K, bins))
+    re, im = out
     offsets = torch.arange(n_fft, device=data.device)
     starts = torch.from_numpy(pos.astype(np.int64)).to(data.device)
     for k0 in range(0, K, _FRAME_CHUNK):
@@ -485,15 +497,29 @@ def _pv_impl(data: torch.Tensor, tempo: float, rate: int, lock: bool = True,
     output [C, (K+3)*hop]. ``transient`` snaps onset frames (normalized
     positive spectral flux above PV_TRANSIENT_FLUX) back to their analysis
     phase, a segment boundary of the prefix; ``formant_ratio`` pre-warps
-    the magnitudes for a downstream resample by that ratio."""
+    the magnitudes for a downstream resample by that ratio. A batch
+    [B, C, N] gives [B, C, (K+3)*hop] (``_pv_batch``)."""
+    if data.dim() == 3:
+        return _pv_batch(data, tempo, rate, lock, transient, formant_ratio)
     C, N = data.shape
     n_fft, hop, pos, dpos, pad_to = _pv_geometry(N, tempo, rate)
-    re, im = _analysis(data, pos, pad_to, n_fft)
     if not transient and formant_ratio == 1.0:
+        re, im = _analysis(data, pos, pad_to, n_fft)
         re_y, im_y = phase_path(re, im, dpos, hop, n_fft, lock)
         del re, im
         return _pv_synth(re_y, im_y, n_fft, hop)
+    cos_phi, sin_phi, ph, mag = _option_planes(
+        data, pos, pad_to, dpos, hop, n_fft, transient, formant_ratio)
+    if lock:
+        cos_phi, sin_phi = lock_phases(cos_phi, sin_phi, ph, mag)
+    return _pv_synth(mag * cos_phi, mag * sin_phi, n_fft, hop)
 
+
+def _option_planes(data, pos, pad_to, dpos, hop: int, n_fft: int,
+                   transient: bool, formant_ratio: float):
+    """(cos_phi, sin_phi, ph, mag) [C, K, bins] of one clip on the option
+    paths, before the lock: the plain phase math in torch."""
+    re, im = _analysis(data, pos, pad_to, n_fft)
     mag, ph = _magnitude_phase(re, im)
     del re, im
     reset = None
@@ -503,12 +529,62 @@ def _pv_impl(data: torch.Tensor, tempo: float, rate: int, lock: bool = True,
     if formant_ratio != 1.0:
         mag = _formant_correction(mag, n_fft, formant_ratio)
     cos_phi, sin_phi = _synthesis_phasors(ph, dpos, hop, n_fft, reset)
+    return cos_phi, sin_phi, ph, mag
+
+
+def _folds_clips(t: torch.Tensor) -> bool:
+    """Whether a batch's planes go to the phase path and the lock folded
+    into rows, [B*C, K, bins]: one kernel launch on a CUDA tensor. On the
+    CPU the plain twins go clip by clip, as a single render calls them:
+    their elementwise transcendentals round an element by where it falls
+    in the vectorized loop, so folded planes would move a clip's last
+    bits."""
+    return t.is_cuda
+
+
+def _pv_batch(data: torch.Tensor, tempo: float, rate: int, lock: bool,
+              transient: bool, formant_ratio: float):
+    """``_pv_impl`` of a batch [B, C, N]: each clip's analysis, option math
+    and synthesis on a single clip's shapes, its planes written into the
+    batch's [B, C, K, bins] planes, and the phase path or the lock launched
+    once on them folded to [B*C, K, bins] (on the CPU, their plain twins
+    clip by clip)."""
+    B, C, N = data.shape
+    n_fft, hop, pos, dpos, pad_to = _pv_geometry(N, tempo, rate)
+    K, bins = len(pos), n_fft // 2 + 1
+
+    def folded(fn, *planes):
+        if _folds_clips(planes[0]):
+            return [p.view(B, C, K, bins) for p in fn(
+                *(p.view(B * C, K, bins) for p in planes))]
+        return [torch.stack(out) for out in zip(
+            *(fn(*(p[b] for p in planes)) for b in range(B)))]
+
+    if not transient and formant_ratio == 1.0:
+        re = data.new_empty((B, C, K, bins))
+        im = data.new_empty((B, C, K, bins))
+        for b in range(B):
+            _analysis(data[b], pos, pad_to, n_fft, out=(re[b], im[b]))
+        ry, iy = folded(lambda r, i: phase_path(r, i, dpos, hop, n_fft, lock),
+                        re, im)
+        del re, im
+        return torch.stack([_pv_synth(ry[b], iy[b], n_fft, hop)
+                            for b in range(B)])
+    planes = data.new_empty((4, B, C, K, bins))  # cos_phi, sin_phi, ph, mag
+    for b in range(B):
+        for dst, src in zip(planes[:, b], _option_planes(
+                data[b], pos, pad_to, dpos, hop, n_fft, transient,
+                formant_ratio)):
+            dst.copy_(src)
+    cos_phi, sin_phi, ph, mag = planes
     if lock:
-        cos_phi, sin_phi = lock_phases(cos_phi, sin_phi, ph, mag)
-    return _pv_synth(mag * cos_phi, mag * sin_phi, n_fft, hop)
+        cos_phi, sin_phi = folded(lock_phases, *planes)
+    del ph
+    return torch.stack([_pv_synth(mag[b] * cos_phi[b], mag[b] * sin_phi[b],
+                                  n_fft, hop) for b in range(B)])
 
 
-def pv_stretch_at_rate(data: torch.Tensor, length: int, tempo: float,
+def pv_stretch_at_rate(data: torch.Tensor, length, tempo: float,
                        rate: int, lock: bool = True, transient: bool = False,
                        formant_ratio: float = 1.0):
     """Stretch [C, N] float32 by ``tempo`` (>1 = faster/shorter).
@@ -516,15 +592,18 @@ def pv_stretch_at_rate(data: torch.Tensor, length: int, tempo: float,
     Same contract as ``stretch.wsola_stretch_at_rate``: returns ``(out [C,
     (K+3)*hop], out_length)`` with out_length = min(floor(length/tempo),
     width) by the shared exact integer scaling, zeros past it. Identity
-    when tempo == 1 (so a formant pre-warp needs a running tempo stage)."""
+    when tempo == 1 (so a formant pre-warp needs a running tempo stage). A
+    batch [B, C, N] with a tuple of lengths gives each clip's."""
     if tempo == 1.0:
         return data, length
     from nodey_tpu_torch.ops.stretch import _scale_length_exact
 
     out = _pv_impl(data, float(tempo), int(rate), lock=lock,
                    transient=transient, formant_ratio=float(formant_ratio))
-    out_length = min(_scale_length_exact(length, float(tempo)), out.shape[1])
-    out[:, out_length:] = 0.0  # a fresh tensor: zero in place
+    width = out.shape[-1]
+    out_length = map_lengths(
+        length, lambda n: min(_scale_length_exact(n, float(tempo)), width))
+    zero_tail(out, out_length)  # a fresh tensor: zero in place
     return out, out_length
 
 

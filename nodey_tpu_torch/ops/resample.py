@@ -18,6 +18,12 @@ R > 1 and R == 1 alike; a CPU tensor takes the plain PyTorch versions
 below, ported from the JAX package's XLA branches (the dense bank; they
 ignore the support). There is no fallback from one to the other.
 
+A batch of clips, ``[B, C, N]``, takes the same path: the kernel folds the
+clips into its rows (one launch whatever B is), and the plain version
+computes each clip on its own, on the GEMM shapes of a single clip (a
+CPU GEMM's result for a row depends on how many rows it is given, and a
+batched clip must equal its single render bitwise).
+
 Not ported yet: the relay-era formulation switch (``resolve_form``,
 ``form_override``, the ``transposed`` form), ``compat="swr"`` banks (a set
 ``NODEY_RESAMPLE_COMPAT`` raises, ``bank_spec``) and
@@ -36,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, map_lengths, zero_tail
 
 # libswresample default rematrix gain (-3 dB mono upmix).
 SQRT1_2 = 0.7071067811865476
@@ -221,7 +227,8 @@ def _device_bank(in_rate: int, out_rate: int, device: torch.device):
 
 def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
     """``(x, G, M, W, bank, support)`` that ``resample_data`` hands
-    ``apply_filter_bank`` for ``data`` [C, N]: the padded input, the number
+    ``apply_filter_bank`` for ``data`` [C, N] (or a batch [B, C, N]): the
+    padded input, the number
     of output groups, the input stride, the window width, and the bank and
     its tap support on ``data``'s device."""
     L, M = _rational(in_rate, out_rate)
@@ -232,7 +239,7 @@ def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
             f"(max {MAX_PHASES}).",
             "resample_data",
         )
-    N = data.shape[1]
+    N = data.shape[-1]
     G = -(-(-(-N * L // M)) // L)  # groups of L outputs
     _, left, W = bank_spec(in_rate, out_rate)
     bank, support = _device_bank(in_rate, out_rate, data.device)
@@ -244,7 +251,8 @@ def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
 
 def resample_data(data: torch.Tensor, in_rate: int,
                   out_rate: int) -> torch.Tensor:
-    """Resample [C, N] float32 to ceil(N*L/M) output samples.
+    """Resample [C, N] (or [B, C, N]) float32 to ceil(N*L/M) output
+    samples.
 
     Also the counterpart of ``nodey_tpu/ops/pallas_resample.py::
     resample_data_pallas``, the TPU's ungrouped kernel (one [128, W] x
@@ -254,14 +262,15 @@ def resample_data(data: torch.Tensor, in_rate: int,
     if in_rate == out_rate:
         return data
     x, G, M, W, bank, support = bank_operands(data, in_rate, out_rate)
-    n_out = -(-data.shape[1] * bank.shape[0] // M)
-    return apply_filter_bank(x, G, M, W, bank, support)[:, :n_out]
+    n_out = -(-data.shape[-1] * bank.shape[0] // M)
+    return apply_filter_bank(x, G, M, W, bank, support)[..., :n_out]
 
 
 def apply_filter_bank(x: torch.Tensor, G: int, M: int, W: int,
                       bank: torch.Tensor,
                       support: BankSupport) -> torch.Tensor:
-    """``y[c, g*L + p] = sum_w x[c, g*M + w] * bank[p, w]`` -> [C, G*L].
+    """``y[c, g*L + p] = sum_w x[c, g*M + w] * bank[p, w]`` -> [C, G*L]
+    (``x`` [B, C, N] -> [B, C, G*L]).
 
     A CUDA tensor launches the polyphase kernel on ``support``, the bank's
     tap support (or raises); a CPU tensor takes the plain version on the
@@ -283,7 +292,12 @@ def apply_filter_bank_plain(x: torch.Tensor, G: int, M: int, W: int,
                             bank: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch versions of the JAX package's ``apply_filter_bank``
     branches: the grouped superblock GEMM for R > 1, and for R == 1 the
-    patch GEMM (many small shifts) or the decomposed per-shift GEMM."""
+    patch GEMM (many small shifts) or the decomposed per-shift GEMM. A
+    batch ``x`` [B, C, N] goes clip by clip, each on a single clip's
+    GEMM shapes."""
+    if x.dim() == 3:
+        return torch.stack([apply_filter_bank_plain(clip, G, M, W, bank)
+                            for clip in x])
     C = x.shape[0]
     L = bank.shape[0]
     R = group_factor(L, M)
@@ -355,14 +369,14 @@ def _apply_grouped_superblock(x: torch.Tensor, G: int, M: int, W: int,
 
 
 def resample_stream(stream: Stream, out_rate: int) -> Stream:
-    """Resample a Stream, tracking valid length; the tail beyond the valid
-    output length is zeroed."""
+    """Resample a Stream, tracking valid length (each clip's, for a batch);
+    the tail beyond the valid output length is zeroed."""
     if stream.rate == out_rate:
         return stream
     L, M = _rational(stream.rate, out_rate)
     data = resample_data(stream.data, stream.rate, out_rate)
-    n_out_len = _out_length(stream.length, L, M)
-    data[:, n_out_len:] = 0.0  # ``data`` is a fresh tensor: zero in place
+    n_out_len = map_lengths(stream.length, lambda n: _out_length(n, L, M))
+    zero_tail(data, n_out_len)  # ``data`` is a fresh tensor: zero in place
     return Stream(
         data=data,
         length=n_out_len,
@@ -377,7 +391,7 @@ def to_stereo(stream: Stream) -> Stream:
     """Channel-normalize to stereo with swr's default -3 dB mono upmix."""
     if stream.channels == 2:
         return stream
-    data = torch.cat([stream.data, stream.data], dim=0) * SQRT1_2
+    data = torch.cat([stream.data, stream.data], dim=-2) * SQRT1_2
     return stream.with_data(data, fmt=FMT_FLT)
 
 

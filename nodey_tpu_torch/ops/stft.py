@@ -70,21 +70,37 @@ def device_constants(n_fft: int, device: torch.device) -> None:
 
 def magnitude_spectrogram(stream: Stream, n_fft: int = 1024,
                           hop: int = 512) -> torch.Tensor:
-    """``[channels, frames, n_fft//2 + 1]`` float32 magnitudes.
+    """``[channels, frames, n_fft//2 + 1]`` float32 magnitudes
+    (``[B, channels, frames, bins]`` for a batched stream).
 
     The frame count comes from the padded capacity, not the valid length,
     as in the JAX package, so both produce the same shape; frames past the
-    valid length hold window-of-padding values."""
+    valid length hold window-of-padding values. A batch's clips go one by
+    one through the single clip's GEMMs (whose per-row results depend on
+    the GEMM's shape), each into its slice of the output."""
     data = stream.data
+    if data.dim() == 2:
+        return _magnitudes(data, n_fft, hop)
+    N = data.shape[-1]
+    num_frames = max(0, (N - n_fft) // hop + 1)
+    out = data.new_empty((*data.shape[:2], num_frames, n_fft // 2 + 1))
+    for clip, dst in zip(data, out):
+        _magnitudes(clip, n_fft, hop, out=dst)
+    return out
+
+
+def _magnitudes(data: torch.Tensor, n_fft: int, hop: int,
+                out=None) -> torch.Tensor:
+    """The magnitudes of one clip [C, N] (into ``out`` where given)."""
     C, N = data.shape
     num_frames = max(0, (N - n_fft) // hop + 1)
     bins = n_fft // 2 + 1
     if num_frames == 0:
-        return data.new_zeros((C, 0, bins))
+        return data.new_zeros((C, 0, bins)) if out is None else out
     if n_fft > GEMM_MAX_N_FFT:
         frames = data.unfold(-1, n_fft, hop)  # [C, num_frames, n_fft] view
         window = _device_window(n_fft, data.device)
-        return torch.fft.rfft(frames * window, dim=-1).abs()
+        return torch.abs(torch.fft.rfft(frames * window, dim=-1), out=out)
     basis = _device_basis(n_fft, data.device)
     if n_fft % hop == 0:
         # frame f = concat(segs[f + i] for i < k), so the windowed DFT of
@@ -104,4 +120,4 @@ def magnitude_spectrogram(stream: Stream, n_fft: int = 1024,
                + torch.arange(n_fft, device=data.device)[None, :])
         y = torch.matmul(data[:, idx], basis)
     re, im = y[..., :bins], y[..., bins:]
-    return torch.sqrt(re * re + im * im)
+    return torch.sqrt(re * re + im * im, out=out)

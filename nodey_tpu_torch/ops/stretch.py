@@ -16,8 +16,12 @@ stages:
 
 Window parameters are SoundTouch's classic defaults (sequence 40 ms, seek
 15 ms, overlap 8 ms) with linear crossfades, as in the JAX package.
-Lengths are host ints. Not ported yet: the streaming steps
-(``wsola_stream_plan``/``_step``, ``pv_stream_*``).
+Lengths are host ints. A batch of clips ``[B, C, N]`` with a tuple of
+per-clip lengths runs both stages at once (one chain launch over all clips
+on the card, clips folded into the resampler's and the PV kernels' rows),
+every shape from the shared capacity and each clip's length and zero tail
+its own. The streaming steps live in :mod:`nodey_tpu_torch.ops.chunkops`
+and ``pv.pv_stream_*``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, map_lengths, zero_tail
 from nodey_tpu_torch.ops import pv
 from nodey_tpu_torch.ops import resample as resample_ops
 from nodey_tpu_torch.ops import wsola
@@ -69,7 +73,8 @@ def wsola_stretch_at_rate(data: torch.Tensor, length: int, tempo: float,
 
     Returns ``(out [C, overlap + K*stride], out_length)`` with out_length =
     min(floor(length / tempo), width) and zeros past it. Identity when
-    tempo == 1."""
+    tempo == 1. A batch [B, C, N] with a tuple of lengths gives [B, C,
+    width] and each clip's length."""
     if tempo == 1.0:
         return data, length
     return _wsola_impl(data, length, float(tempo), int(rate))
@@ -91,16 +96,18 @@ def wsola_geometry(width: int, tempo: float, rate: int) -> dict:
                 pad_to=pad_to)
 
 
-def _wsola_impl(data: torch.Tensor, length: int, tempo: float, rate: int):
-    geo = wsola_geometry(data.shape[1], tempo, rate)
+def _wsola_impl(data: torch.Tensor, length, tempo: float, rate: int):
+    geo = wsola_geometry(data.shape[-1], tempo, rate)
     K, num, den = geo["K"], geo["num"], geo["den"]
     seq, seek, overlap = geo["seq"], geo["seek"], geo["overlap"]
-    x = F.pad(data, (0, max(0, geo["pad_to"] - data.shape[1])))
-    head = x[:, :overlap]
+    x = F.pad(data, (0, max(0, geo["pad_to"] - data.shape[-1])))
+    head = x[..., :overlap]
     _bs, body = wsola.wsola_chain(x, head, K, num, den, seq, seek, overlap)
-    out = torch.cat([head, body], dim=1)
-    out_length = min(_scale_length_exact(length, tempo), out.shape[1])
-    out[:, out_length:] = 0.0  # ``out`` is a fresh tensor: zero in place
+    out = torch.cat([head, body], dim=-1)
+    width = out.shape[-1]
+    out_length = map_lengths(
+        length, lambda n: min(_scale_length_exact(n, tempo), width))
+    zero_tail(out, out_length)  # ``out`` is a fresh tensor: zero in place
     return out, out_length
 
 
@@ -112,9 +119,10 @@ def _rational_factor(factor: float, max_den: int = 600):
     return frac.numerator, frac.denominator
 
 
-def transpose_rate(data: torch.Tensor, length: int, factor: float):
-    """Resample [C, N] by ``factor`` (>1 = fewer samples, higher pitch when
-    relabeled at the same nominal rate); zeros past the new length."""
+def transpose_rate(data: torch.Tensor, length, factor: float):
+    """Resample [C, N] (or a batch [B, C, N]) by ``factor`` (>1 = fewer
+    samples, higher pitch when relabeled at the same nominal rate); zeros
+    past the new length (each clip's)."""
     if factor == 1.0:
         return data, length
     num, den = _rational_factor(factor)
@@ -123,8 +131,10 @@ def transpose_rate(data: torch.Tensor, length: int, factor: float):
     # Consume `num` input samples per `den` output samples: in_rate=num,
     # out_rate=den in resampler terms.
     out = resample_ops.resample_data(data, num, den)
-    out_length = (length // num) * den + ((length % num) * den + num - 1) // num
-    out[:, out_length:] = 0.0  # a fresh tensor from the resampler
+    out_length = map_lengths(
+        length,
+        lambda n: (n // num) * den + ((n % num) * den + num - 1) // num)
+    zero_tail(out, out_length)  # a fresh tensor from the resampler
     return out, out_length
 
 

@@ -24,7 +24,11 @@ is input sample ``base``, seeded from a carried tail: that is
 after its last frame (the JAX step slices it out of the snapshot itself).
 ``wsola_chain`` and ``wsola_chunk_chain`` send a CUDA tensor to the
 hand-written kernel (:mod:`nodey_tpu_torch.ops.cuda_wsola`) and a CPU
-tensor to the plain versions; neither falls back to the other. On the card
+tensor to the plain versions; neither falls back to the other. The offline
+chain also takes a batch of clips, ``x`` [B, C, N] with ``head``
+[B, C, overlap]: the kernel runs one CTA per clip in the same launch (a
+clip's score sums over its channels, so clips cannot fold into them), and
+the plain version runs the clips one after another. On the card
 the normalizers ``rsqrt(energy + 1e-9)`` come from a parallel prologue
 kernel before the serial chain runs; ``wsola_energy_plain`` is its plain
 version.
@@ -80,9 +84,9 @@ def check_window(x: torch.Tensor, K: int, num: int, den: int, seq: int,
         return
     first = frame_pos(k0, num, den) - base
     need = frame_pos(k0 + K - 1, num, den) - base + seek + seq
-    if first < 0 or x.shape[1] < need:
+    if first < 0 or x.shape[-1] < need:
         raise ValueError(
-            f"WSOLA chain: x has {x.shape[1]} samples from input sample "
+            f"WSOLA chain: x has {x.shape[-1]} samples from input sample "
             f"{base}, frames {k0}..{k0 + K - 1}'s window reads columns "
             f"{first}..{need}"
         )
@@ -110,7 +114,12 @@ def wsola_energy_plain(x: torch.Tensor, k0: int, base: int, K: int, num: int,
     b of frames k0 .. k0+K-1 (frames and columns as in
     ``wsola_chunk_chain_plain``), ``best_offset``'s energy formulation (one
     conv1d of the squared window with ones) batched over frames: the plain
-    version of the chain kernel's energy prologue."""
+    version of the chain kernel's energy prologue. A batch ``x`` [B, C, N]
+    gives [B, K, seek+1], clip by clip."""
+    if x.dim() == 3:
+        return torch.stack([
+            wsola_energy_plain(clip, k0, base, K, num, den, seq, seek,
+                               overlap) for clip in x])
     check_window(x, K, num, den, seq, seek, k0=k0, base=base)
     C, span = x.shape[0], seek + overlap
     ones = torch.ones((1, C, overlap), dtype=x.dtype, device=x.device)
@@ -164,7 +173,13 @@ def wsola_chain_plain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
                       den: int, seq: int, seek: int, overlap: int):
     """``(bs int32 [K], body float32 [C, K*stride])`` of the whole chain
     (frames 0 .. K-1 of ``x`` [C, N], which must cover frame K-1's
-    window)."""
+    window). A batch ``x`` [B, C, N], ``head`` [B, C, overlap] gives
+    ``(bs [B, K], body [B, C, K*stride])``, each clip's chain run alone."""
+    if x.dim() == 3:
+        chains = [wsola_chain_plain(xb, hb, K, num, den, seq, seek, overlap)
+                  for xb, hb in zip(x, head)]
+        return (torch.stack([bs for bs, _ in chains]),
+                torch.stack([body for _, body in chains]))
     bs, body, _ = wsola_chunk_chain_plain(x, head, 0, 0, K, num, den, seq,
                                           seek, overlap)
     return bs, body
@@ -292,8 +307,9 @@ def _check_device(x: torch.Tensor) -> None:
 
 def wsola_chain(x: torch.Tensor, head: torch.Tensor, K: int, num: int,
                 den: int, seq: int, seek: int, overlap: int):
-    """``(bs, body)`` of the chain: a CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes the plain version."""
+    """``(bs, body)`` of the chain over ``x`` [C, N] or a batch [B, C, N]: a
+    CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version."""
     if x.is_cuda:
         from nodey_tpu_torch.ops import cuda_wsola
 

@@ -32,6 +32,8 @@ _DESCRIPTION = """Multi-Channel Audio Mixer
 
 
 class AudioAmix(Processor):
+    batched = True  # per-clip resample, elementwise sum, per-clip max length
+
     def __init__(self) -> None:
         self.input_num: int = 2
         self.volumes: List[float] = []

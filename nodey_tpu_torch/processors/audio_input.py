@@ -39,6 +39,8 @@ def _bad_field(field: str) -> ProcessorRuntimeError:
 class AudioInput(Processor):
     """Singleton source node with one output pin per file slot."""
 
+    batched = True  # each slot's external input is [B, C, capacity]
+
     def __init__(self) -> None:
         self.file_paths: List[str] = [""]
 

@@ -34,6 +34,8 @@ _DESCRIPTION = """Audio Output Processor
 class AudioOutput(Processor):
     """Singleton sink node (reference: src/processor/audio-io.cpp:429-446)."""
 
+    batched = True
+
     def info(self) -> ProcessorInfo:
         return ProcessorInfo(
             identifier="audio_output",

@@ -29,6 +29,8 @@ _DESCRIPTION = """Audio Volume Adjuster
 
 
 class AudioVol(Processor):
+    batched = True  # elementwise on any shape
+
     def __init__(self) -> None:
         self.volume: float = 1.0
 

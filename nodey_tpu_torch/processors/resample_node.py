@@ -18,6 +18,8 @@ from nodey_tpu_torch.ops import resample as resample_ops
 
 
 class AudioResample(Processor):
+    batched = True  # clips fold into the resampler's rows
+
     def __init__(self) -> None:
         self.target_rate: int = 48_000
 

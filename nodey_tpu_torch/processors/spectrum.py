@@ -18,6 +18,8 @@ from nodey_tpu_torch.ops import stft as stft_ops
 
 
 class AudioSpectrum(Processor):
+    batched = True  # [B, C, frames, bins], each clip's GEMMs as alone
+
     def __init__(self) -> None:
         self.n_fft: int = 1024
         self.hop: int = 512

@@ -69,6 +69,8 @@ class _SoundTouchBase(Processor):
     writes them only when not default and project files stay
     byte-compatible)."""
 
+    batched = True  # both tempo algorithms and the transposition
+
     def __init__(self) -> None:
         self.algorithm: str = "wsola"
         self.pv_transient: bool = False

@@ -1,0 +1,303 @@
+"""Batched serving (``CompiledGraph.run_batch``) of the port on the CPU.
+
+Graphs come from bench.py's graph functions (configs 1, 3 and 4, with its
+tones, written by the port's WAV writer) and ``_flagship_graph`` (the
+5-node graph), carried into the port by ``graph_from_jax``. Each batch
+holds three clips of different content (bench.py's ``_tone`` at other
+seeds and pitches, a noise floor on both channels) and different lengths
+(0.5 s, 71% and 33% of it, in a capacity of 32,768 samples), as s16
+samples.
+
+- Every clip of the port's ``run_batch`` is bitwise the port's own single
+  render of that clip (``CompiledGraph.__call__``), master, length and
+  spectrum, for configs 1 and 3, the 5-node graph and config 4 on WSOLA,
+  on the phase vocoder, and on the phase vocoder with ``pv_transient`` and
+  ``preserve_formants``; the tail past each clip's length is zero.
+- The port's ``run_batch`` against the JAX package's ``run_batch`` (its
+  vmap, on the CPU) on the same samples, at the bars of the single-clip
+  tests of those graphs: tests/test_batch.py's volume graph bitwise (the
+  gain's float32 product, tests/test_torch_gain.py); the 5-node graph and
+  config 4 on WSOLA within 2e-6 (tests/test_torch_slice.py,
+  tests/test_torch_config4.py: the resampler's sums run in another order),
+  the spectrum >= 100 dB. Config 4 on the phase vocoder against the JAX
+  package is in tests/test_torch_batch_pv.py.
+- A graph with a node that has no batched lowering is refused before
+  anything runs, naming the node; malformed batches are refused.
+"""
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+import bench
+from conftest import snr_db
+from nodey_tpu.core import compiler as jcompiler
+from nodey_tpu.core import registry as jregistry
+from nodey_tpu.processors.audio_output import AudioOutput as JAudioOutput
+from nodey_tpu.processors.audio_vol import AudioVol as JAudioVol
+from nodey_tpu.processors.resample_node import AudioResample as JAudioResample
+from nodey_tpu.processors.reverb import AudioReverb as JAudioReverb
+from nodey_tpu_torch.convert import graph_from_jax
+from nodey_tpu_torch.core import compiler
+from nodey_tpu_torch.core.errors import LogicError, ProcessorRuntimeError
+from nodey_tpu_torch.core.registry import (processor_map,
+                                           register_all_processors)
+from nodey_tpu_torch.core.runner import Runner
+from nodey_tpu_torch.core.stream import (Stream, map_lengths, max_length,
+                                         zero_tail)
+from nodey_tpu_torch.host import decode as host_decode
+from nodey_tpu_torch.ops import resample as tr
+
+SECONDS = 0.5
+CAPACITY = 32_768     # every input's (0.5 s at 44.1 or 48 kHz fits)
+SHARES = (1.0, 0.71, 0.33)
+TOL = 2e-6
+SPECTRUM_DB = 100.0
+BATCHED = {"audio_input", "audio_volume_adjust", "audio_amix",
+           "audio_spectrum", "audio_output", "audio_resample",
+           "pitch_modifier", "velocity_modifier"}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's eager CPU ops on one thread (see
+    tests/test_torch_effects.py)."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
+def _write_tracks(tmp, count, seconds, rate, channels):
+    """bench._write_tracks with the port's WAV writer: the same tones."""
+    n = int(rate * seconds)
+    paths = []
+    for i in range(count):
+        path = f"{tmp}/track{i}.wav"
+        host_decode.write_wav_s16(
+            path, bench._tone(n, rate, 220.0 * (i + 1), channels, i), rate)
+        paths.append(path)
+    return paths
+
+
+def _flagship(tmp, seconds):
+    graph, _ = graft._flagship_graph(_write_tracks(tmp, 2, seconds, 44_100, 2))
+    return graph, "export"
+
+
+def _volume(tmp, seconds):
+    """tests/test_batch.py's graph: input -> volume 2.0 -> output."""
+    g, src = bench._new_graph(_write_tracks(tmp, 1, seconds, 48_000, 2))
+    vol = g.add_node(JAudioVol())
+    g.nodes[vol].processor.set_volume(2.0)
+    out = g.add_node(JAudioOutput())
+    g.add_link(bench._pin(g, src, "output_0"), bench._pin(g, vol, "input"))
+    g.add_link(bench._pin(g, vol, "output"), bench._pin(g, out, "input"))
+    return g, "export"
+
+
+def _config4_pv_options(tmp, seconds):
+    g, mode = bench.config4_pv(tmp, seconds)
+    for node in g.nodes.values():
+        if node.processor.info().identifier in ("pitch_modifier",
+                                                "velocity_modifier"):
+            node.processor.pv_transient = True
+        if node.processor.info().identifier == "pitch_modifier":
+            node.processor.preserve_formants = True
+    return g, mode
+
+
+GRAPHS = {"config1": bench.config1_passthrough,
+          "config3": bench.config3_two_track_mix,
+          "5node": _flagship,
+          "config4_wsola": bench.config4_resample_pitch_tempo,
+          "config4_pv": bench.config4_pv,
+          "config4_pv_options": _config4_pv_options,
+          "volume": _volume}
+
+
+def _batch(sources):
+    """Three clips per input: bench tones at other seeds and pitches with a
+    noise floor, s16, each zero past its own length."""
+    arrays, lengths = {}, {}
+    for j, ((nid, pin), spec) in enumerate(sorted(sources.items())):
+        n = int(spec.rate * SECONDS)
+        clips = np.zeros((len(SHARES), spec.channels, spec.capacity),
+                         dtype=np.int16)
+        lens = []
+        for b, share in enumerate(SHARES):
+            m = int(n * share)
+            tone = bench._tone(m, spec.rate, 180.0 + 70.0 * b + 30.0 * j,
+                               spec.channels, seed=10 * j + b)
+            noise = np.random.default_rng(100 + 10 * j + b).standard_normal(
+                (spec.channels, m))
+            clips[b, :, :m] = np.round(
+                (tone + 0.05 * noise) * 32768.0).clip(-32768, 32767)
+            lens.append(m)
+        key = compiler.external_key(nid, pin)
+        arrays[key] = clips
+        lengths[key] = tuple(lens)
+    return arrays, lengths
+
+
+@contextlib.contextmanager
+def _bench_writes_with_the_port():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench, "_write_tracks", _write_tracks)
+        yield
+
+
+def _compiled(name, tmp):
+    """(JAX graph, the port's CompiledGraph on the CPU, mode, sources)."""
+    with _bench_writes_with_the_port():
+        jg, mode = GRAPHS[name](str(tmp), SECONDS)
+    tg = graph_from_jax(jg)
+    _, _, sources = Runner(tg, device="cpu").decode()
+    sources = {key: dataclasses.replace(spec, capacity=CAPACITY)
+               for key, spec in sources.items()}
+    return jg, compiler.compile_graph(tg, sources, mode, "cpu"), mode, sources
+
+
+def test_each_clip_is_bitwise_its_single_render(tmp_path):
+    for name in ("config1", "config3", "5node", "config4_wsola", "config4_pv",
+                 "config4_pv_options"):
+        tmp = tmp_path / name
+        tmp.mkdir()
+        _check_clips(*_compiled(name, tmp)[1:])
+
+
+def _check_clips(compiled, mode, sources):
+    """Each clip of ``compiled``'s batch against its own single render."""
+    arrays, lengths = _batch(sources)
+    outs, meta = compiled.run_batch(arrays, lengths)
+    key = "master" if mode == "export" else "preview"
+    data, lens = outs[key]
+    assert data.shape[0] == len(SHARES) and isinstance(lens, tuple)
+    for b in range(len(SHARES)):
+        single, single_meta = compiled({
+            k: (torch.from_numpy(arrays[k][b]), lengths[k][b])
+            for k in compiled.input_keys})
+        assert single_meta == meta
+        for out_key, value in single.items():
+            if isinstance(value, tuple):
+                assert outs[out_key][1][b] == value[1]
+                assert torch.equal(outs[out_key][0][b], value[0]), out_key
+            else:
+                assert torch.equal(outs[out_key][b], value), out_key
+        assert not data[b, :, lens[b]:].any()
+    # Each clip's own length, not the batch's longest.
+    assert len(set(lens)) == len(SHARES)
+
+
+def _jax_run_batch(jg, mode, sources, arrays, lengths):
+    sources = {key: jcompiler.SourceSpec(**dataclasses.asdict(spec))
+               for key, spec in sources.items()}
+    jout = jcompiler.compile_graph(jg, sources, mode=mode).run_batch(
+        arrays, {k: np.asarray(v, dtype=np.int32) for k, v in lengths.items()})
+    return {k: (np.asarray(v[0]), np.asarray(v[1])) if isinstance(v, tuple)
+            else np.asarray(v) for k, v in jout.items()}
+
+
+def test_run_batch_matches_the_jax_run_batch(tmp_path):
+    for name in ("volume", "5node", "config4_wsola"):
+        tmp = tmp_path / name
+        tmp.mkdir()
+        _check_jax(name, *_compiled(name, tmp))
+
+
+def _check_jax(name, jg, compiled, mode, sources):
+    """``compiled``'s batch against the JAX package's ``run_batch``."""
+    arrays, lengths = _batch(sources)
+    want = _jax_run_batch(jg, mode, sources, arrays, lengths)
+    outs, _ = compiled.run_batch(arrays, lengths)
+    data, lens = outs["master"]
+    jdata, jlens = want["master"]
+    assert list(lens) == jlens.tolist()
+    for b, n in enumerate(lens):
+        got, ref = data[b, :, :n].numpy(), jdata[b, :, :n]
+        assert np.isfinite(got).all()
+        if name == "volume":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            assert np.abs(got - ref).max() <= TOL
+    for key, spectrum in want.items():
+        if key.startswith("spectrum_"):
+            assert outs[key].shape == spectrum.shape
+            for b in range(len(SHARES)):
+                assert snr_db(spectrum[b], outs[key][b].numpy()) >= SPECTRUM_DB
+
+
+def test_run_batch_refuses_what_it_cannot_run(tmp_path, monkeypatch):
+    """Eight node types are batched; a graph with any other (input ->
+    resample -> reverb -> output) is refused before the resampler ahead of
+    the reverb runs; malformed batches are refused."""
+    register_all_processors()
+    assert {ident for ident, info in processor_map.items()
+            if info.generate().batched} == BATCHED
+    jregistry.register_all_processors()
+    g, src = bench._new_graph(_write_tracks(str(tmp_path), 1, SECONDS,
+                                            44_100, 2))
+    rs = g.add_node(JAudioResample())
+    g.nodes[rs].processor.target_rate = 48_000
+    rv = g.add_node(JAudioReverb())
+    out = g.add_node(JAudioOutput())
+    g.add_link(bench._pin(g, src, "output_0"), bench._pin(g, rs, "input"))
+    g.add_link(bench._pin(g, rs, "output"), bench._pin(g, rv, "input"))
+    g.add_link(bench._pin(g, rv, "output"), bench._pin(g, out, "input"))
+    tg = graph_from_jax(g)
+    _, _, sources = Runner(tg, device="cpu").decode()
+    compiled = compiler.compile_graph(tg, sources, "export", "cpu")
+    calls = []
+    monkeypatch.setattr(tr, "apply_filter_bank",
+                        lambda *a: calls.append(a))
+    arrays, lengths = _batch(sources)
+    with pytest.raises(ProcessorRuntimeError) as err:
+        compiled.run_batch(arrays, lengths)
+    assert f"node {rv} (audio_reverb)" in err.value.detail
+    assert "ROADMAP" in err.value.explanation
+    assert compiled.unbatched_nodes() == [(rv, "audio_reverb")]
+    assert calls == []
+    monkeypatch.undo()
+
+    tmp = tmp_path / "config1"
+    tmp.mkdir()
+    _, compiled, _, sources = _compiled("config1", tmp)
+    arrays, lengths = _batch(sources)
+    [key] = compiled.input_keys
+    with pytest.raises(LogicError, match="lengths"):
+        compiled.run_batch(arrays, {key: lengths[key][:2]})
+    with pytest.raises(LogicError, match="want"):
+        compiled.run_batch({key: arrays[key][0]}, {key: lengths[key][:1]})
+    with pytest.raises(LogicError, match="outside"):
+        compiled.run_batch(arrays, {key: (1, 2, 10**9)})
+    # Tensors on the graph's device run as numpy does; lengths may be a
+    # host tensor.
+    outs, _ = compiled.run_batch({key: torch.from_numpy(arrays[key])},
+                                 {key: torch.tensor(lengths[key])})
+    ref, _ = compiled.run_batch(arrays, lengths)
+    assert torch.equal(outs["master"][0], ref["master"][0])
+    assert outs["master"][1] == ref["master"][1]
+
+
+def test_a_batched_stream_keeps_each_clips_length():
+    one = Stream(data=torch.ones((2, 8)), length=5, rate=8_000, channels=2)
+    batch = Stream(data=torch.ones((3, 2, 8)), length=[8, 5, 2], rate=8_000,
+                   channels=2)
+    assert one.batch is None and batch.batch == 3
+    assert batch.length == (8, 5, 2) and batch.capacity == 8
+    assert batch.with_data(batch.data[:, :1]).channels == 1
+    with pytest.raises(ValueError, match="lengths"):
+        Stream(data=torch.ones((3, 2, 8)), length=(8, 5), rate=8_000,
+               channels=2)
+    tails = zero_tail(batch.data.clone(), batch.length)
+    assert tails.sum(dim=(1, 2)).tolist() == [16.0, 10.0, 4.0]
+    assert zero_tail(one.data.clone(), one.length).sum().item() == 10.0
+    assert zero_tail(batch.data.clone(), (3, 3, 3)).sum().item() == 18.0
+    assert map_lengths((8, 5, 2), lambda n: 2 * n) == (16, 10, 4)
+    assert map_lengths(5, lambda n: 2 * n) == 10
+    assert max_length([(8, 5, 2), (1, 7, 3)]) == (8, 7, 3)
+    assert max_length([4, 9]) == 9

@@ -780,3 +780,86 @@ def test_pv_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="rows of 1 to 4097"):
         cuda_pv.lock_to_peaks_cuda(wide, wide, wide, wide)
     assert (cuda_pv.phase_path_launches, cuda_pv.lock_launches) == before
+
+
+# -- batched serving: a clip axis on the resampler, the WSOLA chain and its
+#    prologue, the phase path and the lock ------------------------------------
+
+
+@pytest.mark.cuda
+def test_batched_kernels_take_the_clip_axis(cuda_device, monkeypatch):
+    for in_rate, out_rate in ((44_100, 48_000), (635, 504)):
+        _check_batched_resampler(cuda_device, in_rate, out_rate)
+    for K, block in ((300, None), (37, 16)):
+        with monkeypatch.context() as patch:
+            if block is not None:
+                patch.setattr(cuda_wsola, "BLOCK_FRAMES", block)
+            _check_batched_chain(cuda_device, K)
+    for kwargs, kernel in (({}, "phase_path_launches"),
+                           ({"transient": True, "formant_ratio": 1.26},
+                            "lock_launches")):
+        _check_batched_pv(cuda_device, kwargs, kernel)
+
+
+def _check_batched_resampler(cuda_device, in_rate, out_rate):
+    """[B, C, N] folds into the kernel's rows: one launch, each clip
+    bitwise its own launch, within 2e-6 of the batched plain version."""
+    data = torch.stack([_data(cuda_device, 40_001, seed=b) for b in range(3)])
+    x, G, M, W, bank, support = tr.bank_operands(data, in_rate, out_rate)
+    before = cuda_resample.launches
+    got = cuda_resample.apply_filter_bank_cuda(x, G, M, W, support)
+    torch.cuda.synchronize()
+    assert cuda_resample.launches == before + 1
+    for b in range(3):
+        one = cuda_resample.apply_filter_bank_cuda(x[b].contiguous(), G, M, W,
+                                                   support)
+        assert torch.equal(got[b], one)
+    want = tr.apply_filter_bank_plain(x, G, M, W, bank)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= TOL
+
+
+def _check_batched_chain(cuda_device, K):
+    """Three clips in one chain launch and one prologue launch per block:
+    each clip's splices, body and tail bitwise its single launch's, and its
+    splices those of the plain chain."""
+    blocks = -(-K // cuda_wsola.BLOCK_FRAMES)
+    clips = [_wsola_operands(cuda_device, 8_000, 1.25, K, 2, seed=b)
+             for b in range(3)]
+    args = clips[0][2]
+    x = torch.stack([c[0] for c in clips])
+    head = torch.stack([c[1] for c in clips])
+    before = (cuda_wsola.launches, cuda_wsola.energy_launches)
+    bs, body, tail = cuda_wsola.wsola_chunk_chain_cuda(x, head, 0, 0, *args)
+    torch.cuda.synchronize()
+    assert (cuda_wsola.launches, cuda_wsola.energy_launches) == (
+        before[0] + blocks, before[1] + blocks)
+    assert bs.shape == (3, K) and tail.shape == head.shape
+    for b in range(3):
+        one = cuda_wsola.wsola_chunk_chain_cuda(x[b], head[b], 0, 0, *args)
+        assert all(torch.equal(o, g[b]) for o, g in zip(one, (bs, body, tail)))
+    pbs, pbody = wsola.wsola_chain_plain(x, head, *args)
+    assert torch.equal(bs, pbs)
+    assert (body - pbody).abs().max().item() <= TOL
+    inv = cuda_wsola.wsola_energy_cuda(x, 0, 0, K, *args[1:])
+    want = wsola.wsola_energy_plain(x, 0, 0, K, *args[1:])
+    assert inv.shape == want.shape == (3, K, args[4] + 1)
+    assert ((inv - want).abs() / want).max().item() <= 1e-5
+
+
+def _check_batched_pv(cuda_device, kwargs, kernel):
+    """The PV of three clips: one launch of its kernel, each clip bitwise
+    its single render, each clip's length its own."""
+    rng = np.random.default_rng(12)
+    data = torch.from_numpy((0.3 * rng.standard_normal((3, 2, 24_000))).astype(
+        np.float32)).to(cuda_device)
+    lengths = (24_000, 17_000, 8_000)
+    for b, n in enumerate(lengths):
+        data[b, :, n:] = 0.0
+    before = getattr(cuda_pv, kernel)
+    out, out_len = pv.pv_stretch_at_rate(data, lengths, 0.8, 48_000, **kwargs)
+    assert getattr(cuda_pv, kernel) == before + 1
+    for b, n in enumerate(lengths):
+        one, one_len = pv.pv_stretch_at_rate(data[b], n, 0.8, 48_000, **kwargs)
+        assert out_len[b] == one_len
+        assert torch.equal(out[b], one)
