@@ -276,8 +276,30 @@ Phases, in order; the first failure exits non-zero:
                kernel's batched time beside its bound (the chain also beside
                one clip alone); (f) each batched render launches each
                kernel as often as one clip's render; (g) a graph with a node
-               that has no batched lowering (the reverb) makes run_batch
+               that has no batched lowering (the delay) makes run_batch
                raise before any launch.
+ 31. batch-configs — run_batch on BASELINE configs 2, 5 (preview), 6 and
+               7, each on 8 x 30 s clips of different content (bench.py's
+               tone at seeds 30-37 and other pitches; config 5's four inputs
+               each their own; in config 6 the second clip 40 dB down), decoded
+               and compiled by Runner: each clip bitwise its own single
+               render (master or preview, spectrum, length, a zero tail);
+               each batch launching each kernel as often as one clip's
+               render; every batched resampler launch within 2e-6 of plain,
+               config 5's chain (check_chain per clip, near ties on at most
+               0.1% of a clip's frames or one, splices equal to the single
+               renders') and its prologue (1e-5 relative); each batch
+               beside eight single renders of the same clips (CUDA events,
+               the median of back-to-back calls on inputs uploaded once;
+               config 7's both under torch.profiler too); config 5's
+               batched transposition (kernel, plain, conv1d) and chain
+               beside their bounds; the scan and DFT GEMMs and the loudness
+               gate's sums folded over the clips vs clip by clip (times, and
+               whether bitwise). Then, checked bitwise only: config
+               6 on clips of 30, 21.3 and 9.7 s in one capacity; graph A on
+               8 sibilant clips, the second 40 dB down; the peak graph (44.1
+               kHz -> resample 48 kHz -> gain 4 -> limiter -1 dB -> normalize
+               peak -3 dBFS), the second clip 40 dB down; split -> bimix_v2.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
@@ -285,7 +307,7 @@ preview, the chunked render; phases 22-24's: each config's CLI render, the
 streamed exports of configs 2 and 5, config 2's chunked render; phases
 25-29's: each graph's CLI render and streamed export, config 7's chunked
 render, reverse's fallback exports; phase 30's: each batched render, and
-the refused one). Streamed exports that phases 14 and 22-29 repeat at 100 s
+the refused one; phase 31's: each batched render). Streamed exports that phases 14 and 22-29 repeat at 100 s
 and 300 s also print each export's host RSS (sampled every 5 ms): its rise
 above its start at 300 s must stay within 64 MiB of the one at 100 s. The
 line before the last is one JSON object describing the kernels; the last
@@ -409,6 +431,9 @@ BATCH_ITERS = 10                 # timed run_batch calls (median)
 BATCH_SPECTRUM_REL = 2e-6        # a batched clip's spectrum vs its single
 BATCH_PV_DB = 90.0               # a batched PV clip vs its single render
 BATCH_LENGTHS_S = (30.0, 21.3, 9.7)  # phase 30 (d): one capacity, 3 lengths
+BATCH_SEED = 30                  # phase 31's clips: bench tones, seeds 30-
+BATCH_QUIET = 10.0 ** (-40 / 20)  # ... its second clip's scale, -40 dB
+PEAK_DB = -3.0                   # phase 31's peak graph: normalize target
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -918,12 +943,13 @@ def near_tie(x, head, bs, k: int, other: int, geo, k0: int = 0,
 
 
 def check_chain(tag: str, x, head, geo, card: str, out=None,
-                phase: str = "6 wsola"):
+                phase: str = "6 wsola", min_ties: int = 0):
     """The kernel's chain on (x, head) against the plain version: every
     frame's choice given the kernel's previous one, and the audio given all
     of them. ``out``: the kernel's (bs, body) from a launch already made on
-    these operands (else it launches here). Returns (bs, body, max|body -
-    plain|)."""
+    these operands (else it launches here). At most TIE_SHARE of K frames,
+    or ``min_ties`` where that is more, may differ, each a near tie.
+    Returns (bs, body, max|body - plain|)."""
     import numpy as np
     import torch
 
@@ -940,12 +966,14 @@ def check_chain(tag: str, x, head, geo, card: str, out=None,
             for k in differ]
     worst = max(gaps, default=0.0)
     K = geo["K"]
+    ties = max(min_ties, math.floor(TIE_SHARE * K))
     print(f"[{phase}] {tag}: K={K}, x {list(x.shape)}: {len(differ)} frames "
           f"choose otherwise than the plain scoring given the kernel's "
-          f"previous choice (max share {TIE_SHARE:g}), worst float64 gap "
+          f"previous choice (at most {ties}, the larger of {TIE_SHARE:g} "
+          f"of K and {min_ties}), worst float64 gap "
           f"{worst:.3e} of the frame's max |score| (max {TIE_REL:g}); "
           f"max|body - plain assembly| = {err:.3e} (tol {TOL:.0e}) ({card})")
-    check(len(differ) <= TIE_SHARE * K, f"{tag}: {len(differ)} frames differ")
+    check(len(differ) <= ties, f"{tag}: {len(differ)} frames differ")
     check(worst <= TIE_REL, f"{tag}: a differing frame is no near tie")
     check(err <= TOL, f"{tag}: kernel audio disagrees with the plain assembly")
     return bs, body, err
@@ -2730,20 +2758,27 @@ def masterbus_track(directory: str, seconds: int, tag: str,
     as an s16 WAV; with ``sibilant`` a 6.5 kHz burst over [1/3, 1/2) of the
     clip and the clip 50 dB down over [2/3, 5/6) of it, so the de-esser and
     the gate act. Returns its path."""
-    import numpy as np
-
     from nodey_tpu_torch.host.decode import write_wav_s16
 
     n = MASTER_RATE * seconds
     x = bench_tone(n, MASTER_RATE, 220.0, 2, 0)
     if sibilant:
-        ess = np.arange(n // 3, n // 2)
-        x[:, ess] += (0.3 * np.sin(2 * np.pi * 6_500.0 * ess / MASTER_RATE)
-                      ).astype(np.float32)
-        x[:, 2 * n // 3: 5 * n // 6] *= np.float32(0.003)
+        add_sibilance(x)
     path = os.path.join(directory, f"master_{tag}.wav")
     write_wav_s16(path, x, MASTER_RATE)
     return path
+
+
+def add_sibilance(x) -> None:
+    """A 6.5 kHz burst over [1/3, 1/2) of the 48 kHz clip ``x`` [C, n] and
+    the clip 50 dB down over [2/3, 5/6) of it, in place."""
+    import numpy as np
+
+    n = x.shape[1]
+    ess = np.arange(n // 3, n // 2)
+    x[:, ess] += (0.3 * np.sin(2 * np.pi * 6_500.0 * ess / MASTER_RATE)
+                  ).astype(np.float32)
+    x[:, 2 * n // 3: 5 * n // 6] *= np.float32(0.003)
 
 
 def config6_graph(paths):
@@ -3615,16 +3650,18 @@ def batch_and_singles(key: str, clips, lengths, dev):
 def check_clips(tag: str, what: str, outs, singles, card: str,
                 min_db=None) -> None:
     """Each clip of a batched render against its own single render: the
-    lengths equal, the master bitwise (or, given ``min_db``, at least that
-    SNR over the clip's length), each spectrum within BATCH_SPECTRUM_REL of
-    its largest value, the tail past each clip's length zero."""
+    lengths equal, the master (or the preview) bitwise (or, given
+    ``min_db``, at least that SNR over the clip's length), each spectrum
+    within BATCH_SPECTRUM_REL of its largest value, the tail past each
+    clip's length zero."""
     import numpy as np
     import torch
 
-    data, lens = outs["master"]
+    key = "master" if "master" in outs else "preview"
+    data, lens = outs[key]
     worst_db, spectrum_rel, bitwise = math.inf, 0.0, True
     for b, single in enumerate(singles):
-        one, n = single["master"]
+        one, n = single[key]
         check(lens[b] == n, f"{tag}: {what} clip {b}: length {lens[b]}, its "
                             f"single render {n}")
         check(not bool(data[b, :, n:].any()),
@@ -3639,7 +3676,7 @@ def check_clips(tag: str, what: str, outs, singles, card: str,
                 spectrum_rel = max(spectrum_rel, float(
                     (outs[k][b] - v).abs().max() / v.abs().max()))
     print(f"[{tag}] {what}: each of {len(singles)} clips against its own "
-          f"single render: lengths {list(lens)} equal, tails zero, masters "
+          f"single render: lengths {list(lens)} equal, tails zero, {key}s "
           f"{'bitwise' if bitwise else f'{worst_db:.1f} dB at worst'}"
           + (f", spectra max|diff| / max {spectrum_rel:.3e} (tol "
              f"{BATCH_SPECTRUM_REL:g})" if any(k.startswith("spectrum_")
@@ -3668,8 +3705,8 @@ def batch_phase(cli, card: str, dev, tmp: str):
     from nodey_tpu_torch.ops import resample as tr
     from nodey_tpu_torch.processors.audio_input import AudioInput
     from nodey_tpu_torch.processors.audio_output import AudioOutput
+    from nodey_tpu_torch.processors.delay import AudioDelay
     from nodey_tpu_torch.processors.resample_node import AudioResample
-    from nodey_tpu_torch.processors.reverb import AudioReverb
 
     tag = "30 batch"
     t0 = time.perf_counter()
@@ -3837,11 +3874,11 @@ def batch_phase(cli, card: str, dev, tmp: str):
     g.update_node_pin(src)
     rs = g.add_node(AudioResample())
     g.nodes[rs].processor.set_target_rate(48_000)
-    rv = g.add_node(AudioReverb())
+    dl = g.add_node(AudioDelay())
     out = g.add_node(AudioOutput())
     g.add_link(_pin(g, src, "output_0"), _pin(g, rs, "input"))
-    g.add_link(_pin(g, rs, "output"), _pin(g, rv, "input"))
-    g.add_link(_pin(g, rv, "output"), _pin(g, out, "input"))
+    g.add_link(_pin(g, rs, "output"), _pin(g, dl, "input"))
+    g.add_link(_pin(g, dl, "output"), _pin(g, out, "input"))
     runner = Runner(g, device=CARD)
     arrays, _, sources = runner.decode()
     compiled = runner.compile(sources, "export")
@@ -3856,12 +3893,12 @@ def batch_phase(cli, card: str, dev, tmp: str):
     except ProcessorRuntimeError as exc:
         refused = exc
     counts = read_counts()
-    print(f"[{tag}] input -> resample -> reverb -> output: run_batch "
+    print(f"[{tag}] input -> resample -> delay -> output: run_batch "
           f"{'raised: ' + refused.detail if refused else 'DID NOT RAISE'}; "
           f"launches {counts}; device memory allocated "
           f"{torch.cuda.memory_allocated() - before} bytes more ({card})")
-    check(refused is not None and "audio_reverb" in refused.detail,
-          f"{tag}: a graph with the reverb was not refused")
+    check(refused is not None and "audio_delay" in refused.detail,
+          f"{tag}: a graph with the delay was not refused")
     check(sum(counts.values()) == 0, f"{tag}: the refused batch launched "
                                      f"{counts}")
     paths["refused_batch"] = counts
@@ -3871,11 +3908,14 @@ def batch_phase(cli, card: str, dev, tmp: str):
 
 
 def wsola_batch_checks(tag: str, chains, single_chains, kernels,
-                       card: str) -> None:
-    """Phase 30's WSOLA checks: every batched chain launch, clip by clip,
-    against the plain scoring and assembly (check_chain), each clip's
-    splices equal to its single render's, the batched energy prologue
-    against its plain version, and both kernels' batched times."""
+                       card: str, prefix: str = "", min_ties: int = 0) -> None:
+    """Phases 30 and 31's WSOLA checks: every batched chain launch, clip by
+    clip, against the plain scoring and assembly (check_chain, each clip's
+    near ties at most TIE_SHARE of its K or ``min_ties``), each clip's
+    splices equal to its single render's (``single_chains``: every single
+    render's chains, clip by clip, as many a render as ``chains``), the
+    batched energy prologue against its plain version, and both kernels'
+    batched times of the first stage, under ``prefix`` in ``kernels``."""
     import torch
 
     from nodey_tpu_torch.ops import cuda_wsola, wsola
@@ -3887,9 +3927,9 @@ def wsola_batch_checks(tag: str, chains, single_chains, kernels,
         for b in range(B):
             _, _, err = check_chain(f"batched chain {stage}, clip {b}", x[b],
                                     head[b], geo, card, out=(bs[b], body[b]),
-                                    phase=tag)
+                                    phase=tag, min_ties=min_ties)
             worst = max(worst, err)
-            single_bs = single_chains[2 * b + stage][3][0]
+            single_bs = single_chains[len(chains) * b + stage][3][0]
             check(torch.equal(single_bs, bs[b]),
                   f"{tag}: chain {stage} clip {b}: splices differ from its "
                   f"single render's")
@@ -3912,29 +3952,30 @@ def wsola_batch_checks(tag: str, chains, single_chains, kernels,
                 runs[name] += cuda_ms(fn, 1, warmup=1)
             eruns = cuda_ms(lambda: cuda_wsola.wsola_energy_cuda(
                 x, 0, 0, K, *args[1:]), 3)
-            kernels["wsola_chain"] = dict(
+            kernels[prefix + "wsola_chain"] = dict(
                 shape=list(x.shape), K=K, ms=summary(runs["kernel"])[0],
                 plain_ms=summary(runs["plain"])[0],
                 one_clip_ms=summary(runs["one clip"])[0],
                 bound=bound(4 * (x.numel() + B * K + B * C * K * stride),
                             2 * B * C * ov * n_cand * K))
-            kernels["wsola_energy"] = dict(
+            kernels[prefix + "wsola_energy"] = dict(
                 shape=[B, K, n_cand], ms=summary(eruns)[0],
                 bound=bound(4 * (x.numel() + B * K * n_cand),
                             2 * B * C * ov * n_cand * K))
-            t = kernels["wsola_chain"]
+            t = kernels[prefix + "wsola_chain"]
             print(f"[{tag}] WSOLA chain, pitch stage, {B} clips x K={K} in "
                   f"one launch each of chain and prologue: median "
                   f"{t['ms']:.4f} ms beside {t['one_clip_ms']:.4f} ms for one "
                   f"clip alone and {t['plain_ms']:.4f} ms plain; bound "
                   f"{t['bound'][0]:.4f} ms by {t['bound'][1]}; the prologue "
-                  f"alone {kernels['wsola_energy']['ms']:.4f} ms ({card})")
+                  f"alone {kernels[prefix + 'wsola_energy']['ms']:.4f} ms "
+                  f"({card})")
     print(f"[{tag}] batched energy prologue, every clip of both stages: max "
           f"|kernel - plain| / plain = {energy_rel:.3e} (tol {ENERGY_REL:.0e})"
           f" ({card})")
     check(energy_rel <= ENERGY_REL, f"{tag}: the batched prologue disagrees")
-    kernels["wsola_err"] = worst
-    kernels["energy_rel"] = energy_rel
+    kernels[prefix + "wsola_err"] = worst
+    kernels[prefix + "energy_rel"] = energy_rel
 
 
 def pv_batch_checks(tag: str, what: str, phase_paths, locks, counts, kernels,
@@ -3990,6 +4031,299 @@ def pv_batch_checks(tag: str, what: str, phase_paths, locks, counts, kernels,
             shape=list(lock_in[3].shape), ms=summary(runs["kernel"])[0],
             plain_ms=summary(runs["plain"])[0],
             bound=lock_work_bound(lock_in[3].shape))
+
+
+def batch_configs_phase(cli, card: str, dev, tmp: str):
+    """Phase 31 (see the module docstring): BASELINE configs 2, 5, 6 and 7,
+    graph A, the peak graph and split -> bimix_v2 through
+    ``CompiledGraph.run_batch``. Returns (the launch counts by path, the
+    figures: each timed batch beside eight single renders of its clips, by
+    CUDA events, and config 5's batched launches of the resampler, the
+    chain and the prologue held against their plain versions, with their
+    times and bounds)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.ops import cuda_resample, scans
+    from nodey_tpu_torch.ops import resample as tr
+
+    tag = "31 batch-configs"
+    t0 = time.perf_counter()
+    paths, figures, kernels = {}, {}, {}
+
+    def run_case(what, make_graph, rate, inputs, mode, quiet=False,
+                 sibilant=False, lengths_s=None, timed=True, profiled=False):
+        """The graph on a batch of clips (BATCH of BATCH_SECONDS, or one a
+        length of ``lengths_s``) beside their single renders: launch
+        counts, every clip bitwise its single render, every resampler and
+        chain launch against plain, with ``timed`` both by CUDA events, and
+        with ``profiled`` both under torch.profiler. Returns the batch's
+        resampler launches."""
+        lengths_s = lengths_s or (BATCH_SECONDS,) * BATCH
+        signals = []
+        for j in range(inputs):
+            row = []
+            for b, seconds in enumerate(lengths_s):
+                x = bench_tone(rate * BATCH_SECONDS, rate,
+                               160.0 + 25.0 * b + 60.0 * j, 2,
+                               BATCH_SEED + 10 * j + b)
+                if sibilant:
+                    add_sibilance(x)
+                if quiet and b == 1:
+                    x *= np.float32(BATCH_QUIET)
+                row.append(x[:, : int(rate * seconds)])
+            signals.append(row)
+        tracks = []
+        for j, row in enumerate(signals):
+            path = os.path.join(tmp, f"batch31_{what}_{j}.wav")
+            write_wav_s16(path, row[0], rate)
+            tracks.append(path)
+        runner = Runner(make_graph(tracks), device=CARD)
+        arrays, _, sources = runner.decode()
+        compiled = runner.compile(sources, mode)
+        check(len(compiled.input_keys) == inputs,
+              f"{tag}: {what}: inputs {compiled.input_keys}")
+        bargs, blens = {}, {}
+        for key, row in zip(compiled.input_keys, signals):
+            bargs[key] = torch.from_numpy(
+                s16_clips(row, arrays[key].shape[1])).to(dev)
+            blens[key] = tuple(sig.shape[1] for sig in row)
+        singles_args = [{key: (bargs[key][b], blens[key][b])
+                         for key in compiled.input_keys}
+                        for b in range(len(lengths_s))]
+        resamples, chains, gemms = [], [], []
+        gemm = scans._gemm
+
+        def counted_gemm(v, m, clips=False):
+            gemms.append(v.shape[0] if clips else 1)
+            return gemm(v, m, clips)
+
+        zero_counts()
+        scans._gemm = counted_gemm
+        try:
+            with recorded_launches(resamples=resamples, chains=chains):
+                outs, meta = compiled.run_batch(bargs, blens)
+        finally:
+            scans._gemm = gemm
+        counts = paths[f"{what}_batch"] = read_counts()
+        if gemms:
+            print(f"[{tag}] {what}: {len(gemms)} scan and DFT GEMMs, run "
+                  f"clip by clip as {sum(gemms)} matmuls ({card})")
+        single_chains, singles = [], []
+        for b, args in enumerate(singles_args):
+            zero_counts()
+            with recorded_launches(chains=single_chains):
+                singles.append(compiled(args)[0])
+            if b == 0:
+                single_counts = read_counts()
+                print(f"[{tag}] {what}: launches of the batch {counts}, of "
+                      f"one clip's render {single_counts} ({card})")
+                check(counts == single_counts, f"{tag}: {what}: the batch "
+                      f"launched {counts}, one clip {single_counts}")
+        check_clips(tag, f"{what}, {len(lengths_s)} clips of "
+                         f"{sorted(set(lengths_s), reverse=True)} s"
+                         + (", the second 40 dB down" if quiet else ""),
+                    outs, singles, card)
+        key = "master" if mode == "export" else "preview"
+        audio_s = sum(outs[key][1]) / meta[key]["rate"]
+        del outs, singles
+        if counts["polyphase_resample"]:
+            kernels[f"{what}_resample_err"] = check_resamples(
+                f"{tag} {what}", resamples, counts["polyphase_resample"],
+                card)
+        if counts["wsola_chain"]:
+            check(len(chains) == counts["wsola_chain"]
+                  == counts["wsola_energy"],
+                  f"{tag}: {what}: {len(chains)} batched chains recorded, "
+                  f"counted {counts}")
+            # K = 821 here: 0.1% of a clip's frames rounds down to none,
+            # so each clip may hold one near tie.
+            wsola_batch_checks(f"{tag} {what}", chains, single_chains,
+                               kernels, card, prefix=f"{what}_", min_ties=1)
+        del chains, single_chains
+        if timed:
+            runs = {"batch": [], "singles": []}
+            for name in ("batch", "singles", "singles", "batch"):
+                fn = ((lambda: compiled.run_batch(bargs, blens))
+                      if name == "batch"
+                      else (lambda: [compiled(a) for a in singles_args]))
+                runs[name] += cuda_ms(fn, BATCH_ITERS // 2, warmup=1)
+            med, lo, hi, count = summary(runs["batch"])
+            smed, slo, shi, scount = summary(runs["singles"])
+            if profiled:
+                profile_render(lambda: compiled.run_batch(bargs, blens),
+                               card, tag, f"{what} batch", top=8)
+                profile_render(lambda: [compiled(a) for a in singles_args],
+                               card, tag, f"{what} {len(lengths_s)} singles",
+                               top=8)
+            figures[f"{what}_batch{len(lengths_s)}_ms"] = med
+            figures[f"{what}_{len(lengths_s)}_singles_ms"] = smed
+            print(f"[{tag}] {what} ({mode}), {len(lengths_s)} clips: "
+                  f"run_batch median {med:.4f} ms (min {lo:.4f}, max "
+                  f"{hi:.4f}, n={count}); {len(lengths_s)} single renders "
+                  f"of the same clips median {smed:.4f} ms (min {slo:.4f}, "
+                  f"max {shi:.4f}, n={scount}), {smed / med:.2f}x the "
+                  f"batch's time; RTF {audio_s / (med / 1e3):.1f} audio-s "
+                  f"({audio_s:.3f} of output) per device-s batched (CUDA "
+                  f"events) ({card})")
+        del bargs, singles_args, compiled, runner
+        return resamples
+
+    run_case("config2", config2_graph, RATE, 1, "export")
+    resamples = run_case("config5", config5_graph, RATE, 4, "preview")
+    # Config 5's batched -3 semitone transposition: its time beside its
+    # bound, the plain version and F.conv1d.
+    to_48k = tr._rational(RATE, MASTER_RATE)
+    [(tx, G, M, W, bank, support)] = [
+        args for args, _ in resamples
+        if (args[4].shape[0], args[2]) != to_48k]
+    del resamples
+    rows = tx.reshape(-1, tx.shape[-1])
+    transpose_bound = resample_work_bound(rows, G, M, bank)
+    times = time_resampler(
+        tag, f"config 5's batched transposition {bank.shape[0]}/{M}, x "
+        f"{list(tx.shape)} (clips folded into rows)", {
+            "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
+                                        tx, G, M, W, support),
+            "plain": functools.partial(tr.apply_filter_bank_plain, tx, G, M,
+                                       W, bank),
+            "conv1d": functools.partial(F.conv1d, rows.view(-1, 1,
+                                                            rows.shape[-1]),
+                                        bank.view(-1, 1, W), stride=M)},
+        ("plain", "conv1d", "kernel", "kernel", "conv1d", "plain"), 5, card,
+        transpose_bound)
+    kernels["config5_transposition"] = dict(
+        shape=list(tx.shape), ms=times["kernel"], plain_ms=times["plain"],
+        library_ms=times["conv1d"], bound=transpose_bound)
+    del tx, rows
+    run_case("config6", config6_graph, MASTER_RATE, 1, "export", quiet=True)
+    run_case("config6_lengths", config6_graph, MASTER_RATE, 1, "export",
+             quiet=True, lengths_s=BATCH_LENGTHS_S, timed=False)
+    run_case("config7", config7_graph, MASTER_RATE, 1, "export",
+             profiled=True)
+    run_case("graph_a", graph_a, MASTER_RATE, 1, "export", quiet=True,
+             sibilant=True, timed=False)
+    run_case("peak", peak_graph, RATE, 1, "export", quiet=True, timed=False)
+    run_case("bimix_v2", bimix_v2_graph, RATE, 1, "export", timed=False)
+    figures["gemm_fold"] = gemm_fold_probe(tag, dev, card)
+    torch.cuda.synchronize()
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[31 figures] {json.dumps(figures)}")
+    return paths, figures, kernels
+
+
+def gemm_fold_probe(tag: str, dev, card: str) -> dict:
+    """What running the batch's GEMMs clip by clip costs: config 6's scan
+    GEMM ([B, 2, blocks, 256] x [256, 256], B clips of BATCH_SECONDS at 48
+    kHz) and config 7's forward and inverse DFT GEMMs ([B, 2, hops, 4096]
+    x [4096, 2049], [B, 2, hops, 4098] x [4098, 4096]) on random data,
+    folded into one matmul and clip by clip (``scans._gemm``): both times
+    (CUDA events, medians) and whether the folded result is bitwise the
+    clip-by-clip one. Then the loudness gate's float sums, which the batch
+    runs over all clips at once: the 100 ms hop sums ([B, 2, hops, 4800]
+    summed over the last axis) and ``integrated_lufs`` on B clips of other
+    lengths, each against the clips one at a time."""
+    import torch
+
+    from nodey_tpu_torch.ops import loudness, reverb, scans
+
+    n = MASTER_RATE * BATCH_SECONDS
+    hops = -(-(n + reverb.ir_length(MASTER_RATE, 1.8, 20.0) - 1)
+             // reverb.PARTITION)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cases = {"scan 256": ((-(-n // 256), 256), 256),
+             "dft forward": ((hops, 2 * reverb.PARTITION), 2049),
+             "dft inverse": ((hops, 4098), 2 * reverb.PARTITION)}
+    out = {}
+    for name, ((rows, k), cols) in cases.items():
+        v = torch.randn((BATCH, 2, rows, k), generator=gen, device=dev)
+        m = torch.randn((k, cols), generator=gen, device=dev)
+        same = torch.equal(scans._gemm(v, m), scans._gemm(v, m, clips=True))
+        runs = {"folded": [], "clip by clip": []}
+        for order in ("folded", "clip by clip", "clip by clip", "folded"):
+            runs[order] += cuda_ms(lambda: scans._gemm(
+                v, m, clips=order == "clip by clip"), 3, warmup=1)
+        med = {k: summary(r)[0] for k, r in runs.items()}
+        out[name] = dict(shape=[list(v.shape), list(m.shape)],
+                         folded_ms=med["folded"],
+                         clip_ms=med["clip by clip"], bitwise=same)
+        print(f"[{tag}] GEMM {name} {list(v.shape)} x {list(m.shape)}: "
+              f"folded {med['folded']:.4f} ms, clip by clip "
+              f"{med['clip by clip']:.4f} ms ({BATCH} launches); folded "
+              f"{'bitwise' if same else 'NOT bitwise'} the clip-by-clip "
+              f"result ({card})")
+        del v, m
+    x = 0.1 * torch.randn((BATCH, 2, n), generator=gen, device=dev)
+    lengths = tuple(n - b * (n // (2 * BATCH)) for b in range(BATCH))
+    hop = loudness.block_geometry(MASTER_RATE, n)[0]
+    zz = x[..., : n // hop * hop].reshape(BATCH, 2, -1, hop) ** 2
+    sums_same = torch.equal(zz.sum(dim=-1),
+                            torch.stack([clip.sum(dim=-1) for clip in zz]))
+    del zz
+    fns = {"batch": lambda: loudness.integrated_lufs(x, lengths, MASTER_RATE,
+                                                     clips=True),
+           "clip by clip": lambda: torch.stack([
+               loudness.integrated_lufs(x[b], lengths[b], MASTER_RATE)
+               for b in range(BATCH)])}
+    same = torch.equal(fns["batch"](), fns["clip by clip"]())
+    runs = {"batch": [], "clip by clip": []}
+    for order in ("batch", "clip by clip", "clip by clip", "batch"):
+        runs[order] += cuda_ms(fns[order], 3, warmup=1)
+    med = {k: summary(r)[0] for k, r in runs.items()}
+    out["loudness"] = dict(shape=list(x.shape), batch_ms=med["batch"],
+                           clip_ms=med["clip by clip"], hop_sums=sums_same,
+                           bitwise=same)
+    print(f"[{tag}] loudness gate on {list(x.shape)}, lengths "
+          f"{list(lengths)}: hop sums over the batch "
+          f"{'bitwise' if sums_same else 'NOT bitwise'} each clip's alone; "
+          f"integrated_lufs of the batch {med['batch']:.4f} ms, clip by clip "
+          f"{med['clip by clip']:.4f} ms, the batch's "
+          f"{'bitwise' if same else 'NOT bitwise'} the clips' ({card})")
+    return out
+
+
+def peak_graph(paths):
+    """Phase 31's peak graph: a 44.1 kHz track -> resample to 48 kHz ->
+    gain 4 -> audio_limiter (-1 dB: acting on every clip but a quiet one) ->
+    audio_normalize (peak, -3 dBFS) -> output."""
+    from nodey_tpu_torch.processors.limiter import AudioLimiter
+    from nodey_tpu_torch.processors.normalize import AudioNormalize
+    from nodey_tpu_torch.processors.resample_node import AudioResample
+
+    g, src = _input_graph(paths[:1])
+    rs = AudioResample()
+    rs.set_target_rate(MASTER_RATE)
+    lim = AudioLimiter()
+    lim.set_threshold_db(LIMITER_DB)
+    norm = AudioNormalize()
+    norm.set_mode("peak")
+    norm.set_param("target_db", PEAK_DB)
+    prev = _pin(g, src, "output_0")
+    for nid in (g.add_node(rs), _gain(g, 4.0), g.add_node(lim),
+                g.add_node(norm)):
+        g.add_link(prev, _pin(g, nid, "input"))
+        prev = _pin(g, nid, "output")
+    _output(g, prev)
+    return g
+
+
+def bimix_v2_graph(paths):
+    """Phase 31's split -> bimix_v2 graph: the 44.1 kHz stereo track ->
+    audio_split -> audio_bimix_v2 -> output."""
+    from nodey_tpu_torch.processors.bimix import AudioBimixV2
+    from nodey_tpu_torch.processors.split import AudioSplit
+
+    g, src = _input_graph(paths[:1])
+    split = g.add_node(AudioSplit())
+    merge = g.add_node(AudioBimixV2())
+    g.add_link(_pin(g, src, "output_0"), _pin(g, split, "input"))
+    g.add_link(_pin(g, split, "output_l"), _pin(g, merge, "input_l"))
+    g.add_link(_pin(g, split, "output_r"), _pin(g, merge, "input_r"))
+    _output(g, _pin(g, merge, "output"))
+    return g
 
 
 def main() -> int:
@@ -4693,6 +5027,10 @@ def main() -> int:
         batch_paths, _batch_figures, batch_kernels = batch_phase(cli, card,
                                                                  dev, tmp)
 
+        # -- 31. batched serving of configs 2, 5, 6 and 7 ---------------------
+        configs_paths, _configs_figures, configs_kernels = (
+            batch_configs_phase(cli, card, dev, tmp))
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -4702,11 +5040,13 @@ def main() -> int:
             *pv_stream_paths.items(), *session_paths.items(),
             *tool_paths.items(), *config_paths.items(),
             *masterbus_paths.items(), *effects_paths.items(),
-            *timeline_paths.items(), *batch_paths.items())}
+            *timeline_paths.items(), *batch_paths.items(),
+            *configs_paths.items())}
 
-    def batch8(name):
-        # The kernel's first launch on phase 30's batch of 8 x 30 s clips.
-        t = batch_kernels[name]
+    def batch8(name, source=None):
+        # The kernel's first launch on phase 30's batch of 8 x 30 s clips (or
+        # on phase 31's, from ``source``).
+        t = (source or batch_kernels)[name]
         return {"shape": t["shape"], "ms": t["ms"],
                 "plain_ms": t.get("plain_ms"), "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1],
@@ -4736,7 +5076,8 @@ def main() -> int:
             "launches_by_path": by_path("polyphase_resample"),
             "max_abs_err": max(kernel_err, config_figures["resample_err"],
                                timeline_resample_err,
-                               *(v for k, v in batch_kernels.items()
+                               *(v for k, v in {**batch_kernels,
+                                                **configs_kernels}.items()
                                  if k.endswith("resample_err"))),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -4751,6 +5092,10 @@ def main() -> int:
                 "library_ms": resample_times["635/504"]["conv1d"]},
             "transposition_minus3": config_figures["transposition_minus3"],
             "batch8": batch8("polyphase_resample"),
+            "batch8_config5_transposition": {
+                **batch8("config5_transposition", configs_kernels),
+                "library_ms": configs_kernels["config5_transposition"][
+                    "library_ms"]},
         },
         {
             "name": "wsola_chain",
@@ -4759,7 +5104,8 @@ def main() -> int:
             "replaces": "nodey_tpu/ops/pallas_wsola.py:452",
             "launches": config4_wsola,
             "launches_by_path": by_path("wsola_chain"),
-            "max_abs_err": max(wsola_err, batch_kernels["wsola_err"]),
+            "max_abs_err": max(wsola_err, batch_kernels["wsola_err"],
+                               configs_kernels["config5_wsola_err"]),
             "ms": pitch_times["kernel"],
             "plain_ms": pitch_times["plain"],
             "bound_ms": pitch_times["bound"][0],
@@ -4768,6 +5114,7 @@ def main() -> int:
             "us_per_frame": pitch_times["us_per_frame"],
             "geometry_44100": config_figures["chain_44100"],
             "batch8": batch8("wsola_chain"),
+            "batch8_config5": batch8("config5_wsola_chain", configs_kernels),
         },
         {
             "name": "wsola_chunk_chain",
@@ -4794,13 +5141,15 @@ def main() -> int:
             "launches_by_path": by_path("wsola_energy"),
             "max_abs_err": max(e[1] for e in energy_err),
             "max_rel_err": max(*(e[0] for e in energy_err),
-                               batch_kernels["energy_rel"]),
+                               batch_kernels["energy_rel"],
+                               configs_kernels["config5_energy_rel"]),
             "ms": energy_times["pitch"]["kernel"],
             "plain_ms": energy_times["pitch"]["plain"],
             "bound_ms": energy_times["pitch"]["bound"][0],
             "bound_by": energy_times["pitch"]["bound"][1],
             "library_ms": None,
             "batch8": batch8("wsola_energy"),
+            "batch8_config5": batch8("config5_wsola_energy", configs_kernels),
         },
         {
             "name": "pv_phase_path",

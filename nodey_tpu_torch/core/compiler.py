@@ -7,7 +7,12 @@ device that runs the nodes in order each time it is called.
 ``CompiledGraph.run_batch`` runs the same order once over a batch of clips
 (``[B, C, capacity]`` inputs): each node's lowering carries the clip axis
 itself, and a graph with a node that has no batched lowering
-(``Processor.batched``) is refused before anything runs.
+(``Processor.batched``) is refused before anything runs. Nineteen node
+types have one: every node of the BASELINE configs 1-7 (input, output,
+gain, amix, spectrum, resample, pitch, velocity, split, both bimix nodes,
+the EQ, filter, compressor, limiter, gate, de-esser, normalize and reverb);
+the delay, tremolo, chorus, phaser, pan, width, fade, generator,
+crossfade, trim and reverse nodes do not yet.
 """
 
 from __future__ import annotations
@@ -191,9 +196,10 @@ class CompiledGraph:
 
         Before anything runs, every node must have a batched lowering;
         else a ProcessorRuntimeError names the nodes. No loop over clips
-        stands in for one. The JAX package's ``mesh=`` / ``dp_axis``
-        (clips spread over the chips of a mesh) belong to the multi-GPU
-        port and are not taken here."""
+        stands in for one: inside a lowering only the GEMMs, whose bits
+        follow their shape, go clip by clip. The JAX package's
+        ``mesh=`` / ``dp_axis`` (clips spread over the chips of a mesh)
+        belong to the multi-GPU port and are not taken here."""
         unbatched = self.unbatched_nodes()
         if unbatched:
             names = ", ".join(f"node {nid} ({ident})"
@@ -202,7 +208,10 @@ class CompiledGraph:
                 "Graph cannot run as a batch",
                 "Every node of a batched run needs a batched lowering; these "
                 "have none yet (ROADMAP, section 1: the batch axis of the "
-                "remaining nodes). Render the clips one at a time instead.",
+                "channel-strip nodes, delay, tremolo, chorus, phaser, pan, "
+                "width and fade, then of the timeline's generator, "
+                "crossfade, trim and reverse). Render the clips one at a "
+                "time instead.",
                 f"unbatched: {names}",
             )
         batch = None

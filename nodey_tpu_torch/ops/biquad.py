@@ -22,6 +22,10 @@ puts the sections' pole tables for a chunk width on the device at plan
 time; a chunk step (``cascade_stream_step``) then copies nothing from the
 host and waits on nothing: its valid count is a host int. The sharded
 functions of the JAX module are not ported.
+
+The offline cascade also takes a batch of clips, ``[B, C, N]`` with one
+host length a clip: the scans' passes run on all clips, their GEMMs clip
+by clip (``scans._gemm``), and each clip is re-masked past its own length.
 """
 
 from __future__ import annotations
@@ -197,7 +201,7 @@ def _fir3(x: torch.Tensor, b0: float, b1: float, b2: float,
 def _inject(mr, mi, mp_r, mp_i, pole, n: int):
     """m + p^(k+1) * m_prev for k = 0..n-1, on split re/im planes."""
     pw_r, pw_i = scans.device_powers(pole, n, mr.device)
-    mp_r, mp_i = mp_r[:, None], mp_i[:, None]
+    mp_r, mp_i = mp_r[..., None], mp_i[..., None]
     return (mr + pw_r * mp_r - pw_i * mp_i,
             mi + pw_i * mp_r + pw_r * mp_i)
 
@@ -216,42 +220,45 @@ def _sec_init_state(sec: Section, channels: int, device: torch.device):
             zeros(channels))                     # y carry
 
 
-def _sec_apply(x: torch.Tensor, sec: Section, state):
-    """Filter [C, N] through one section from ``state`` (None = silence
-    history; the init-carry scans are skipped entirely); returns
-    (y, new_state)."""
+def _sec_apply(x: torch.Tensor, sec: Section, state, clips: bool = False):
+    """Filter [C, N] (or, with ``clips``, a batch [B, C, N]) through one
+    section from ``state`` (None = silence history; the init-carry scans
+    are skipped entirely); returns (y, new_state)."""
     c = sec.coef
     n = x.shape[-1]
     if sec.conj:
         mr, mi = scans.rot_scan(_f32(sec.g.real) * x, _f32(sec.g.imag) * x,
-                                sec.p)
+                                sec.p, clips)
         if state is None:
-            mp_r = x.new_zeros((x.shape[0],))
+            mp_r = x.new_zeros(x.shape[:-1])
         else:
-            mp_r = state[:, 0]
-            mr, mi = _inject(mr, mi, mp_r, state[:, 1], sec.p, n)
-        m_excl_r = torch.cat([mp_r[:, None], mr[:, :-1]], dim=-1)
+            mp_r = state[..., 0]
+            mr, mi = _inject(mr, mi, mp_r, state[..., 1], sec.p, n)
+        m_excl_r = torch.cat([mp_r[..., None], mr[..., :-1]], dim=-1)
         y = _f32(c.b0) * x + 2.0 * m_excl_r
-        return y, torch.stack([mr[:, -1], mi[:, -1]], dim=-1)
+        return y, torch.stack([mr[..., -1], mi[..., -1]], dim=-1)
     h, t_prev, y_prev = state if state is not None else (None,) * 3
     p1, p2 = _real_poles(sec)
     w = _fir3(x, c.b0, c.b1, c.b2, h)
-    t = scans.ar1_scan(w, p1)
+    t = scans.ar1_scan(w, p1, clips)
     if t_prev is not None:
-        t = t + scans.device_powers(sec.p, n, x.device)[0] * t_prev[:, None]
-    y = scans.ar1_scan(t, p2)
+        t = t + scans.device_powers(sec.p, n, x.device)[0] * t_prev[..., None]
+    y = scans.ar1_scan(t, p2, clips)
     if y_prev is not None:
-        y = y + scans.device_powers(sec.p2, n, x.device)[0] * y_prev[:, None]
+        y = y + scans.device_powers(sec.p2, n, x.device)[0] * y_prev[..., None]
     new_h = (torch.cat([h, x], dim=-1) if h is not None else x)[..., -2:]
-    return y, (new_h, t[:, -1], y[:, -1])
+    return y, (new_h, t[..., -1], y[..., -1])
 
 
-def cascade_apply(x: torch.Tensor, sections: List[Section], states=None):
-    """Apply a section cascade; returns (y, [new_state per section])."""
+def cascade_apply(x: torch.Tensor, sections: List[Section], states=None,
+                  clips: bool = False):
+    """Apply a section cascade to [C, N] (or, with ``clips``, a batch [B,
+    C, N]: the scans' GEMMs clip by clip); returns (y, [new_state per
+    section])."""
     new_states = []
     for i, sec in enumerate(sections):
         st = None if states is None else states[i]
-        x, s = _sec_apply(x, sec, st)
+        x, s = _sec_apply(x, sec, st, clips)
         new_states.append(s)
     return x, new_states
 
@@ -262,7 +269,8 @@ def cascade_stream(stream: Stream, sections: List[Section]) -> Stream:
     Stream invariant (zeros at index >= length) holds downstream."""
     if not sections:
         return stream
-    out, _ = cascade_apply(stream.data, sections)
+    out, _ = cascade_apply(stream.data, sections,
+                           clips=stream.batch is not None)
     return stream.with_data(mask_tail(out, stream.length), fmt=FMT_FLT)
 
 

@@ -24,6 +24,10 @@ valid sample (device tensors, so a step reads nothing back); the chunk's
 valid count is a host int. ``*_stream_prepare`` puts the host decay
 curves for a chunk width on the device at plan time. The sharded
 functions of the JAX module are not ported.
+
+The offline forms also take a batch of clips, ``[B, C, N]``: each clip's
+detector links its own channels (axis -2), never the other clips, and its
+attack scan's GEMMs run on one clip's shapes (``scans._gemm``).
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ _PEAK_FLOOR = float(np.float32(1e-26))    # keeps log(0) out
 
 
 def _log_peak(x: torch.Tensor) -> torch.Tensor:
-    """The stereo-linked peak of [C, N] in the floored log domain."""
-    peak = x.abs().amax(dim=0)
+    """The stereo-linked peak of [C, N] in the floored log domain ([N]; a
+    batch [B, C, N] gives each clip's, [B, N])."""
+    peak = x.abs().amax(dim=-2)
     return torch.clamp_min(torch.log(torch.clamp_min(peak, _PEAK_FLOOR)),
                            float(_LOG_FLOOR))
 
@@ -85,15 +90,16 @@ def limiter_params(threshold_db: float, release_ms: float, rate: int):
 
 def limit_block(data: torch.Tensor, threshold: float, c: float,
                 carry_log=None):
-    """Limit [C, N] float32 samples; returns (out, env_log [N], env_log at
-    the last column). ``carry_log`` is the envelope (log) just before this
-    block's first sample, or None for clip start."""
+    """Limit [C, N] (or a batch [B, C, N]) float32 samples; returns (out,
+    env_log [N] (or [B, N]), env_log at the last column). ``carry_log`` is
+    the envelope (log) just before this block's first sample, or None for
+    clip start."""
     env_log = envelope_log_scan(_log_peak(data), c)
     if carry_log is not None:
         env_log = _merge_env_carry(env_log, carry_log, c)
     env = torch.exp(env_log)
     g = torch.clamp_max(torch.div(_f32(threshold), env), 1.0)
-    return data * g[None, :], env_log, env_log[-1]
+    return data * g.unsqueeze(-2), env_log, env_log[..., -1]
 
 
 def limit_stream(stream: Stream, threshold_db: float,
@@ -155,13 +161,15 @@ def compressor_params(threshold_db: float, ratio: float, knee_db: float,
     )
 
 
-def one_pole_log_scan(e: torch.Tensor, alpha: float, init) -> torch.Tensor:
+def one_pole_log_scan(e: torch.Tensor, alpha: float, init,
+                      clips: bool = False) -> torch.Tensor:
     """s[n] = alpha*s[n-1] + (1-alpha)*e[n] with s[-1] = ``init``: an AR(1)
     with pole alpha on (1-alpha)*e plus the init's decay curve
     alpha^(n+1), computed on the host in float64 and cached on the device
-    (it underflows to 0 once the init is forgotten)."""
+    (it underflows to 0 once the init is forgotten). ``e`` is [N], or with
+    ``clips`` a batch's [B, N] (the scan's GEMMs clip by clip)."""
     a32 = np.float32(alpha)
-    v = scans.ar1_scan(float(np.float32(1.0) - a32) * e, alpha)
+    v = scans.ar1_scan(float(np.float32(1.0) - a32) * e, alpha, clips)
     w = scans.device_powers(alpha, e.shape[-1], e.device)[0]
     return v + w * init
 
@@ -183,13 +191,14 @@ def compressor_gain_db(level_db: torch.Tensor,
 
 
 def _detect(key: torch.Tensor, alpha: float, c: float, carry_env=None,
-            carry_s=None):
-    """The two-stage detector on ``key`` [C, N]: (env_log, s_log)."""
+            carry_s=None, clips: bool = False):
+    """The two-stage detector on ``key`` [C, N] (or, with ``clips``, [B, C,
+    N]): (env_log, s_log), each [N] (or [B, N])."""
     env_log = envelope_log_scan(_log_peak(key), c)
     if carry_env is not None:
         env_log = _merge_env_carry(env_log, carry_env, c)
     init = float(_LOG_FLOOR) if carry_s is None else carry_s
-    return env_log, one_pole_log_scan(env_log, alpha, init)
+    return env_log, one_pole_log_scan(env_log, alpha, init, clips)
 
 
 def _db_gain(g_db: torch.Tensor) -> torch.Tensor:
@@ -197,14 +206,15 @@ def _db_gain(g_db: torch.Tensor) -> torch.Tensor:
 
 
 def compress_block(data: torch.Tensor, p: CompressorParams, carry_env=None,
-                   carry_s=None):
-    """Compress [C, N] float32; returns (out, env_log, s_log).
-    ``carry_env``/``carry_s`` are the detector states just before this
-    block's first sample (None = clip start: both at the floor)."""
-    env_log, s_log = _detect(data, p.alpha, p.c, carry_env, carry_s)
+                   carry_s=None, clips: bool = False):
+    """Compress [C, N] float32 (or, with ``clips``, [B, C, N]); returns
+    (out, env_log, s_log). ``carry_env``/``carry_s`` are the detector
+    states just before this block's first sample (None = clip start: both
+    at the floor)."""
+    env_log, s_log = _detect(data, p.alpha, p.c, carry_env, carry_s, clips)
     g_db = compressor_gain_db(s_log * _f32(_NAT_TO_DB), p)
     gain = _f32(p.makeup) * _db_gain(g_db)
-    return data * gain[None, :], env_log, s_log
+    return data * gain.unsqueeze(-2), env_log, s_log
 
 
 def compress_stream(stream: Stream, threshold_db: float, ratio: float,
@@ -215,7 +225,8 @@ def compress_stream(stream: Stream, threshold_db: float, ratio: float,
     0 * gain == 0)."""
     p = compressor_params(threshold_db, ratio, knee_db, attack_ms,
                           release_ms, makeup_db, stream.rate)
-    out, _env, _s = compress_block(stream.data, p)
+    out, _env, _s = compress_block(stream.data, p,
+                                   clips=stream.batch is not None)
     return stream.with_data(out, fmt=FMT_FLT)
 
 
@@ -289,12 +300,12 @@ def gate_gain_db(level_db: torch.Tensor, p: GateParams) -> torch.Tensor:
 
 
 def gate_block(data: torch.Tensor, p: GateParams, carry_env=None,
-               carry_s=None):
-    """Gate [C, N] float32; returns (out, env_log, s_log) — the
-    compressor's detector with the gate's curve."""
-    env_log, s_log = _detect(data, p.alpha, p.c, carry_env, carry_s)
+               carry_s=None, clips: bool = False):
+    """Gate [C, N] float32 (or, with ``clips``, [B, C, N]); returns (out,
+    env_log, s_log) — the compressor's detector with the gate's curve."""
+    env_log, s_log = _detect(data, p.alpha, p.c, carry_env, carry_s, clips)
     gain = _db_gain(gate_gain_db(s_log * _f32(_NAT_TO_DB), p))
-    return data * gain[None, :], env_log, s_log
+    return data * gain.unsqueeze(-2), env_log, s_log
 
 
 def gate_stream(stream: Stream, threshold_db: float, ratio: float,
@@ -303,7 +314,8 @@ def gate_stream(stream: Stream, threshold_db: float, ratio: float,
     """Offline gate over a whole Stream."""
     p = gate_params(threshold_db, ratio, range_db, attack_ms,
                     release_ms, stream.rate)
-    out, _env, _s = gate_block(stream.data, p)
+    out, _env, _s = gate_block(stream.data, p,
+                               clips=stream.batch is not None)
     return stream.with_data(out, fmt=FMT_FLT)
 
 
@@ -337,13 +349,14 @@ def deesser_params(threshold_db: float, ratio: float, attack_ms: float,
 
 
 def deess_block(x: torch.Tensor, band: torch.Tensor, p: CompressorParams,
-                carry_env=None, carry_s=None):
-    """De-ess [C, N] float32 given its sidechain band; returns
-    (out, env_log, s_log): the compressor's detector on ``band``, applied
-    as band subtraction out = x - (1 - g) * band."""
-    env_log, s_log = _detect(band, p.alpha, p.c, carry_env, carry_s)
+                carry_env=None, carry_s=None, clips: bool = False):
+    """De-ess [C, N] float32 (or, with ``clips``, [B, C, N]) given its
+    sidechain band; returns (out, env_log, s_log): the compressor's
+    detector on ``band``, applied as band subtraction out = x - (1 - g) *
+    band."""
+    env_log, s_log = _detect(band, p.alpha, p.c, carry_env, carry_s, clips)
     g = _db_gain(compressor_gain_db(s_log * _f32(_NAT_TO_DB), p))
-    return x - (1.0 - g)[None, :] * band, env_log, s_log
+    return x - (1.0 - g).unsqueeze(-2) * band, env_log, s_log
 
 
 def deesser_sections(freq: float, q: float, rate: int):
@@ -357,9 +370,10 @@ def deess_stream(stream: Stream, threshold_db: float, ratio: float,
     sections = deesser_sections(freq, q, stream.rate)
     p = deesser_params(threshold_db, ratio, attack_ms, release_ms,
                        stream.rate)
+    clips = stream.batch is not None
     x = mask_tail(stream.data, stream.length)
-    band, _ = bq.cascade_apply(x, sections)
-    out, _, _ = deess_block(x, band, p)
+    band, _ = bq.cascade_apply(x, sections, clips=clips)
+    out, _, _ = deess_block(x, band, p, clips=clips)
     return stream.with_data(mask_tail(out, stream.length), fmt=FMT_FLT)
 
 

@@ -17,8 +17,14 @@ of nodey_tpu.ops.loudness), behind ``audio_normalize``.
    sum), channel weights 1.0 for mono and stereo.
 
 The measurement stays on the device (no value is read back to the host);
-the gain is a 0-dim tensor. Whole-clip by construction, so the node
-refuses chunk streaming and the export falls back to the offline render.
+the gain is a float32 tensor of shape [1, 1], which broadcasts against the
+clip's [C, N]. Whole-clip by construction, so the node refuses chunk
+streaming and the export falls back to the offline render.
+
+A batch of clips (``[B, C, N]``, a tuple of host lengths, ``clips``) gives
+a [B, 1, 1] gain, each clip's from its own samples and its own valid
+blocks: the K-weighting's GEMMs run clip by clip (ops/scans.py), the block
+sums and the gates over the whole batch.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import List, Tuple
 
 import torch
 
+from nodey_tpu_torch.core.stream import map_lengths, zero_tail
 from nodey_tpu_torch.ops import biquad as bq
 from nodey_tpu_torch.ops.scans import mask_tail
 
@@ -97,44 +104,47 @@ def _scalar(value: float, device: torch.device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
-def integrated_lufs(data: torch.Tensor, length: int,
-                    rate: int) -> torch.Tensor:
+def integrated_lufs(data: torch.Tensor, length, rate: int,
+                    clips: bool = False) -> torch.Tensor:
     """Integrated loudness (LKFS) of ``data`` [C, N] with valid prefix
     ``length``, a float32 0-dim tensor on ``data``'s device; silent or
-    short clips (no gated block) give ``_SILENCE_FLOOR``."""
+    short clips (no gated block) give ``_SILENCE_FLOOR``. With ``clips``,
+    a batch [B, C, N] with a tuple of B lengths gives [B], each clip's
+    own."""
     sections = bq.prepare_all(k_weight_coeffs(rate))
     cap = data.shape[-1]
-    z, _ = bq.cascade_apply(mask_tail(data, length), sections)
+    z, _ = bq.cascade_apply(mask_tail(data, length), sections, clips=clips)
 
     hop, per_block, n_hops = block_geometry(rate, cap)
     if n_hops < per_block:
-        return _scalar(_SILENCE_FLOOR, data.device)
+        return _scalar(_SILENCE_FLOOR, data.device).expand(data.shape[:-2])
     # Per-channel hop-chunk power sums, then 4-hop block means.
-    zz = z[:, : n_hops * hop] ** 2
-    hop_sums = zz.reshape(z.shape[0], n_hops, hop).sum(dim=-1)
+    zz = z[..., : n_hops * hop] ** 2
+    hop_sums = zz.reshape(*z.shape[:-1], n_hops, hop).sum(dim=-1)
     n_blocks = n_hops - per_block + 1
     w = torch.stack([
-        hop_sums[:, i: i + n_blocks] for i in range(per_block)
-    ]).sum(dim=0)                               # [C, n_blocks]
+        hop_sums[..., i: i + n_blocks] for i in range(per_block)
+    ]).sum(dim=0)                               # [.., C, n_blocks]
     ms = w / float(per_block * hop)
-    power = ms.sum(dim=0)                       # channel weights 1.0
-    # A block is measurable only if it lies inside the valid prefix.
-    n_valid_blocks = min(max(length // hop - per_block + 1, 0), n_blocks)
-    valid = torch.zeros(n_blocks, dtype=torch.bool, device=data.device)
-    valid[:n_valid_blocks] = True
+    power = ms.sum(dim=-2)                      # channel weights 1.0
+    # A block is measurable only if it lies inside its clip's valid prefix.
+    n_valid = map_lengths(
+        length, lambda n: min(max(n // hop - per_block + 1, 0), n_blocks))
+    valid = zero_tail(torch.ones_like(ms[..., :1, :], dtype=torch.bool),
+                      n_valid)[..., 0, :]
 
     floor = 10.0 ** ((ABS_GATE_LKFS - _OFFSET) / 10.0)
     l_abs = valid & (power > floor)
 
     def gated_mean(mask):
-        cnt = mask.sum()
-        s = torch.where(mask, power, 0.0).sum()
+        cnt = mask.sum(dim=-1)
+        s = torch.where(mask, power, 0.0).sum(dim=-1)
         return s / torch.clamp_min(cnt, 1).to(torch.float32), cnt
 
     m_abs, c_abs = gated_mean(l_abs)
     # Relative gate: 10 LU below the absolute-gated mean loudness.
     rel_floor = m_abs * float(10.0 ** (-REL_GATE_LU / 10.0))
-    l_rel = l_abs & (power > rel_floor)
+    l_rel = l_abs & (power > rel_floor[..., None])
     m_rel, c_rel = gated_mean(l_rel)
     lufs = _OFFSET + (10.0 / math.log(10.0)) * torch.log(
         torch.clamp_min(m_rel, 1e-30))
@@ -142,23 +152,25 @@ def integrated_lufs(data: torch.Tensor, length: int,
                        _scalar(_SILENCE_FLOOR, data.device))
 
 
-def normalize_gain_lufs(data: torch.Tensor, length: int, rate: int,
-                        target_db: float) -> torch.Tensor:
+def normalize_gain_lufs(data: torch.Tensor, length, rate: int,
+                        target_db: float,
+                        clips: bool = False) -> torch.Tensor:
     """Linear gain bringing integrated loudness to ``target_db`` LUFS;
-    1.0 for silence (nothing to scale to)."""
-    measured = integrated_lufs(data, length, rate)
+    1.0 for silence (nothing to scale to). [1, 1], or [B, 1, 1] for a
+    batch (``clips``)."""
+    measured = integrated_lufs(data, length, rate, clips)
     gain = torch.exp((math.log(10.0) / 20.0) * (float(target_db) - measured))
     return torch.where(measured <= _SILENCE_FLOOR + 1.0,
-                       _scalar(1.0, data.device), gain)
+                       _scalar(1.0, data.device), gain)[..., None, None]
 
 
-def normalize_gain_peak(data: torch.Tensor, length: int,
+def normalize_gain_peak(data: torch.Tensor, length,
                         target_db: float) -> torch.Tensor:
     """Linear gain bringing the sample peak to ``target_db`` dBFS; 1.0
-    for silence."""
-    if length <= 0:
-        return _scalar(1.0, data.device)
-    peak = data[:, :length].abs().amax()
+    for silence. [1, 1], or for a batch [B, C, N] with B lengths [B, 1, 1],
+    each from its own clip's peak (a maximum: exact in any order)."""
+    peak = zero_tail(data.abs(), map_lengths(length, lambda n: max(n, 0))
+                     ).amax(dim=(-2, -1), keepdim=True)
     target = float(10.0 ** (float(target_db) / 20.0))
     return torch.where(peak > 0.0,
                        torch.div(target, torch.clamp_min(peak, 1e-30)),

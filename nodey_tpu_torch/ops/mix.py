@@ -5,7 +5,10 @@ Every mixer input is normalized to 48 kHz stereo float by the resampler
 (the reference's per-input SwrContext, audio-amix.cpp:206-243,
 audio-bimix.cpp:196-243), with libswresample's -3 dB mono upmix, then
 combined elementwise with float32 weights. Early-ending inputs contribute
-zero padding; the output runs to the longest input.
+zero padding; the output runs to the longest input. A batch of clips
+(``[B, C, N]``, one host length a clip) takes the same ops: channels are
+the second axis from the end, and each clip's output runs to its own
+longest input (``max_length``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from nodey_tpu_torch import config
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream, max_length
+from nodey_tpu_torch.core.stream import (FMT_FLT, Stream, map_lengths,
+                                         max_length)
 from nodey_tpu_torch.ops import resample as resample_ops
 
 
@@ -60,7 +64,7 @@ def _side_mono(stream: Stream) -> Stream:
     """One bimix side: 48 kHz stereo through the resampler, then the mean of
     its two channels (audio-bimix.cpp:310-316 / 620-629)."""
     s = resample_ops.to_rate_and_stereo(stream, config.BIMIX_STD_SAMPLE_RATE)
-    return s.with_data((s.data[0:1] + s.data[1:2]) * 0.5)
+    return s.with_data((s.data[..., 0:1, :] + s.data[..., 1:2, :]) * 0.5)
 
 
 def bimix(left: Stream, right: Stream, bias: float) -> Stream:
@@ -72,10 +76,10 @@ def bimix(left: Stream, right: Stream, bias: float) -> Stream:
     out = torch.cat([
         _pad_to(mono_l.data, capacity) * float(np.float32(1.0 - bias)),
         _pad_to(mono_r.data, capacity) * float(np.float32(1.0 + bias)),
-    ], dim=0)
+    ], dim=-2)
     return Stream(
         data=out,
-        length=max(mono_l.length, mono_r.length),
+        length=max_length([mono_l.length, mono_r.length]),
         rate=config.BIMIX_STD_SAMPLE_RATE,
         channels=2,
         fmt=FMT_FLT,
@@ -100,8 +104,9 @@ def bimix_v2(left: Stream, right: Stream) -> Stream:
         return F.pad(mono.data, (off, capacity - off - mono.capacity))
 
     return Stream(
-        data=torch.cat([place(mono_l, off_l), place(mono_r, off_r)], dim=0),
-        length=max(off_l + mono_l.length, off_r + mono_r.length),
+        data=torch.cat([place(mono_l, off_l), place(mono_r, off_r)], dim=-2),
+        length=max_length([map_lengths(mono_l.length, lambda n: off_l + n),
+                           map_lengths(mono_r.length, lambda n: off_r + n)]),
         rate=rate,
         channels=2,
         fmt=FMT_FLT,
@@ -115,5 +120,5 @@ def split_channels(stream: Stream) -> Tuple[Stream, Stream]:
     clamp-then-truncate path."""
     if stream.channels == 1:
         return stream, stream
-    return (stream.with_data(stream.data[0:1]),
-            stream.with_data(stream.data[1:2]))
+    return (stream.with_data(stream.data[..., 0:1, :]),
+            stream.with_data(stream.data[..., 1:2, :]))

@@ -24,6 +24,12 @@ the device per device (``_device_mats``, ``_device_partitions``);
 ``reverb_stream_prepare`` fills both at plan time, so a chunk step copies
 nothing from the host. Counts (valid lengths, the tail still to flush) are
 host ints.
+
+The offline reverb also takes a batch of clips, ``[B, C, N]`` with one host
+length a clip: the delay line's in-place passes run on every clip at once
+(elementwise, so each clip's bits are its single render's), the three DFT
+GEMMs clip by clip on one clip's shapes (``scans._gemm``), and each clip
+grows by the IR's tail from its own length.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, map_lengths
 from nodey_tpu_torch.ops import scans
 from nodey_tpu_torch.ops.scans import f32 as _f32, mask_tail
 
@@ -175,47 +181,49 @@ def partitions(rate: int, channels: int, decay_s: float, pre_delay_ms: float,
 
 
 def _segments(x: torch.Tensor) -> torch.Tensor:
-    """[C, T*P] -> overlap-save segments [C, T, F]: each hop is the
-    previous P-block concatenated with the current one (zeros before the
-    array start)."""
-    c = x.shape[0]
+    """[..., C, T*P] -> overlap-save segments [..., C, T, F]: each hop is
+    the previous P-block concatenated with the current one (zeros before
+    the array start)."""
     t = x.shape[-1] // PARTITION
-    blocks = x.reshape(c, t, PARTITION)
-    prev = F.pad(blocks[:, :-1], (0, 0, 1, 0))
+    blocks = x.reshape(*x.shape[:-1], t, PARTITION)
+    prev = F.pad(blocks[..., :-1, :], (0, 0, 1, 0))
     return torch.cat([prev, blocks], dim=-1)
 
 
 def partitioned_conv(x: torch.Tensor, hr: torch.Tensor, hi: torch.Tensor,
-                     out_len: int) -> torch.Tensor:
-    """Linear convolution of ``x`` [C, N] with the partitioned IR spectra
-    (``hr``, ``hi`` [C, K, BINS] on x's device); returns [C, out_len] where
-    ``out_len`` <= N_padded + K*P (callers pass N + L - 1)."""
-    c, n = x.shape
+                     out_len: int, clips: bool = False) -> torch.Tensor:
+    """Linear convolution of ``x`` [C, N] (or, with ``clips``, a batch [B,
+    C, N]: the DFT GEMMs clip by clip) with the partitioned IR spectra
+    (``hr``, ``hi`` [C, K, BINS] on x's device); returns [C, out_len] (or
+    [B, C, out_len]) where ``out_len`` <= N_padded + K*P (callers pass N +
+    L - 1)."""
+    lead, n = x.shape[:-1], x.shape[-1]
     k = hr.shape[1]
     t = -(-out_len // PARTITION)
     need = t * PARTITION
-    x = F.pad(x, (0, need - n)) if need > n else x[:, :need]
-    seg = _segments(x)                                   # [C, T, F]
+    x = F.pad(x, (0, need - n)) if need > n else x[..., :need]
+    seg = _segments(x)                                   # [.., C, T, F]
     cos_m, msin_m, inv = _device_mats(x.device)
-    xr = scans._gemm(seg, cos_m)
-    xi = scans._gemm(seg, msin_m)
+    xr = scans._gemm(seg, cos_m, clips)
+    xi = scans._gemm(seg, msin_m, clips)
     del seg
     # Frequency-domain delay line: Y[t] = sum_k X[t-k] (*) H[k], accumulated
     # in place into the shifted slices of one [Yr | Yi] plane (complex
     # product in split-real form; per element the JAX loop's order,
     # ((y + xr hr) - xi hi) and ((y + xr hi) + xi hr), k ascending).
-    y = torch.zeros((c, t, 2 * _BINS), dtype=torch.float32, device=x.device)
+    y = torch.zeros((*lead, t, 2 * _BINS), dtype=torch.float32,
+                    device=x.device)
     yr, yi = y[..., :_BINS], y[..., _BINS:]
     for kk in range(min(k, t)):
-        sxr, sxi = xr[:, :t - kk], xi[:, :t - kk]
+        sxr, sxi = xr[..., :t - kk, :], xi[..., :t - kk, :]
         hrk = hr[:, kk][:, None, :]                      # [C, 1, BINS]
         hik = hi[:, kk][:, None, :]
-        yr[:, kk:].addcmul_(sxr, hrk).addcmul_(sxi, hik, value=-1.0)
-        yi[:, kk:].addcmul_(sxr, hik).addcmul_(sxi, hrk)
+        yr[..., kk:, :].addcmul_(sxr, hrk).addcmul_(sxi, hik, value=-1.0)
+        yi[..., kk:, :].addcmul_(sxr, hik).addcmul_(sxi, hrk)
     del xr, xi
-    out = scans._gemm(y, inv)
+    out = scans._gemm(y, inv, clips)
     # Overlap-save: the last P samples of each hop are valid.
-    return out[..., PARTITION:].reshape(c, t * PARTITION)[:, :out_len]
+    return out[..., PARTITION:].reshape(*lead, t * PARTITION)[..., :out_len]
 
 
 # -- offline ---------------------------------------------------------------------
@@ -226,7 +234,8 @@ def reverb_stream(stream: Stream, decay_s: float, pre_delay_ms: float,
     """Offline reverb over a whole Stream. Output length grows by the IR
     tail (L - 1) when wet > 0; the capacity grows with it. Padding past
     the valid length is re-masked to exact zeros (the DFT path leaves
-    ~-140 dB cancellation noise there)."""
+    ~-140 dB cancellation noise there). A batch's clips each grow from
+    their own lengths; the capacity grows as one clip's."""
     if float(wet) == 0.0:
         out = stream.data if float(dry) == 1.0 else _f32(dry) * stream.data
         return stream.with_data(out, fmt=FMT_FLT)
@@ -235,10 +244,11 @@ def reverb_stream(stream: Stream, decay_s: float, pre_delay_ms: float,
     ln_total = ir_length(stream.rate, decay_s, pre_delay_ms)
     cap_out = stream.capacity + -(-ln_total // PARTITION) * PARTITION
     x = mask_tail(stream.data, stream.length)
-    wetpath = partitioned_conv(x, hr, hi, cap_out)
+    wetpath = partitioned_conv(x, hr, hi, cap_out,
+                               clips=stream.batch is not None)
     drypath = F.pad(x, (0, cap_out - stream.capacity))
     y = _f32(dry) * drypath + _f32(wet) * wetpath
-    out_len = stream.length + ln_total - 1
+    out_len = map_lengths(stream.length, lambda n: n + ln_total - 1)
     return Stream(
         data=mask_tail(y, out_len), length=out_len, rate=stream.rate,
         channels=stream.channels, fmt=FMT_FLT, t0_us=stream.t0_us,

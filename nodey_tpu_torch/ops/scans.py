@@ -30,6 +30,12 @@ device, with the pole products carried beside the values.
 No complex dtype reaches the device: the complex modal scan runs on split
 re/im float32 planes with the complex algebra done on the host.
 
+A batch of clips (``clips``: the first axis holds them) runs every pass
+on all clips at once but the blocked GEMMs, which go clip by clip on one
+clip's shapes: a GEMM's per-row bits depend on its row count (MKL's and
+cuBLAS's kernel choice), and each clip must stay bitwise its single
+render.
+
 Host tables are cached on the device per (pole, width, device)
 (``_device_powers``, ``_device_table``): an eager port would otherwise
 recompute them on every call, and a chunk step would copy them to the
@@ -46,6 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nodey_tpu_torch.core.stream import map_lengths, zero_tail
+
 _W = 256                  # block width: [.., W] x [W, W] GEMM tiles
 _BLOCK_THRESHOLD = 2048   # auto: doubling below, blocked at/above
 _NEG = np.float32(-3.0e38)  # effective max identity (floored log domain)
@@ -57,13 +65,15 @@ def f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def mask_tail(x: torch.Tensor, n: int) -> torch.Tensor:
+def mask_tail(x: torch.Tensor, n) -> torch.Tensor:
     """``x`` with every sample at index >= ``n`` along the last axis set to
-    zero (a new tensor, unless nothing is masked)."""
-    if n >= x.shape[-1]:
+    zero (a new tensor, unless nothing is masked); for a batch ``x`` [B, C,
+    N], ``n`` is the clips' lengths (a tuple) and each clip is masked past
+    its own."""
+    n = map_lengths(n, lambda m: max(m, 0))
+    if np.min(n) >= x.shape[-1]:
         return x
-    n = max(n, 0)
-    return F.pad(x[..., :n], (0, x.shape[-1] - n))
+    return zero_tail(x.clone(), n)
 
 
 def _form(n: int) -> str:
@@ -142,15 +152,23 @@ def _shift(t: torch.Tensor, d: int, value: float = 0.0) -> torch.Tensor:
     return F.pad(t[..., :-d], (d, 0), value=value)
 
 
-def _gemm(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _gemm(v: torch.Tensor, m: torch.Tensor,
+          clips: bool = False) -> torch.Tensor:
     """[..., B, W] x [W, W] in full float32 (the JAX package's
-    precision=HIGHEST): TF32 must be off."""
+    precision=HIGHEST): TF32 must be off. With ``clips``, ``v``'s first
+    axis holds a batch's clips and each clip's GEMM runs on a single
+    clip's shapes, into its slice of the output."""
     precision = torch.get_float32_matmul_precision()
     if precision != "highest":
         raise RuntimeError(
             "the scan GEMMs need full float32 matmuls; "
             f"float32_matmul_precision is {precision!r}")
-    return torch.matmul(v, m)
+    if not clips:
+        return torch.matmul(v, m)
+    out = v.new_empty(v.shape[:-1] + m.shape[-1:])
+    for clip, dst in zip(v, out):
+        torch.matmul(clip, m, out=dst)
+    return out
 
 
 # -- AR(1): t[n] = p t[n-1] + x[n], zero init -----------------------------------
@@ -168,10 +186,10 @@ def _ar1_doubling(x: torch.Tensor, pole) -> torch.Tensor:
     return t
 
 
-def _ar1_blocked(x: torch.Tensor, pole) -> torch.Tensor:
+def _ar1_blocked(x: torch.Tensor, pole, clips: bool = False) -> torch.Tensor:
     xb, b, n = _blocks(x, _W)
     u = _device_table(complex(pole), _W, x.device)[0]
-    t = _gemm(xb, u)
+    t = _gemm(xb, u, clips)
     # Exclusive block-carry prefix (tiny: [.., B]) with step weight p^W.
     p_w = np.complex128(complex(pole)) ** _W
     s = t[..., -1]
@@ -185,11 +203,12 @@ def _ar1_blocked(x: torch.Tensor, pole) -> torch.Tensor:
     return t.reshape(t.shape[:-2] + (b * _W,))[..., :n]
 
 
-def ar1_scan(x: torch.Tensor, pole) -> torch.Tensor:
+def ar1_scan(x: torch.Tensor, pole, clips: bool = False) -> torch.Tensor:
     """Inclusive t[n] = pole * t[n-1] + x[n] with zero init along the
-    last axis (real pole, f32 x)."""
+    last axis (real pole, f32 x); ``clips``: x's first axis is a batch's
+    clips (``_gemm``)."""
     if _form(x.shape[-1]) == "blocked":
-        return _ar1_blocked(x, pole)
+        return _ar1_blocked(x, pole, clips)
     return _ar1_doubling(x, pole)
 
 
@@ -212,12 +231,13 @@ def _rot_doubling(xr: torch.Tensor, xi: torch.Tensor, pole):
     return tr, ti
 
 
-def _rot_blocked(xr: torch.Tensor, xi: torch.Tensor, pole):
+def _rot_blocked(xr: torch.Tensor, xi: torch.Tensor, pole,
+                 clips: bool = False):
     xrb, b, n = _blocks(xr, _W)
     xib, _, _ = _blocks(xi, _W)
     ur, ui = _device_table(complex(pole), _W, xr.device)
-    tr = _gemm(xrb, ur) - _gemm(xib, ui)
-    ti = _gemm(xrb, ui) + _gemm(xib, ur)
+    tr = _gemm(xrb, ur, clips) - _gemm(xib, ui, clips)
+    ti = _gemm(xrb, ui, clips) + _gemm(xib, ur, clips)
     # Exclusive block-carry prefix: rotation doubling over [.., B].
     p_w = np.complex128(complex(pole)) ** _W
     sr, si = tr[..., -1], ti[..., -1]
@@ -239,11 +259,11 @@ def _rot_blocked(xr: torch.Tensor, xi: torch.Tensor, pole):
     return tr.reshape(shape)[..., :n], ti.reshape(shape)[..., :n]
 
 
-def rot_scan(xr: torch.Tensor, xi: torch.Tensor, pole):
+def rot_scan(xr: torch.Tensor, xi: torch.Tensor, pole, clips: bool = False):
     """The complex modal scan m[n] = p m[n-1] + x[n] on split re/im f32
-    tensors."""
+    tensors; ``clips`` as for ``ar1_scan``."""
     if _form(xr.shape[-1]) == "blocked":
-        return _rot_blocked(xr, xi, pole)
+        return _rot_blocked(xr, xi, pole, clips)
     return _rot_doubling(xr, xi, pole)
 
 

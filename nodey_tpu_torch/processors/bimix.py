@@ -120,6 +120,8 @@ class _BimixStreamBase(Processor):
 
 
 class AudioBimix(_BimixStreamBase):
+    batched = True  # per-side resample, channel axis -2, per-clip lengths
+
     def __init__(self) -> None:
         # Default: include/processor/audio-bimix.hpp:36.
         self.bias: float = 0.0
@@ -175,6 +177,8 @@ class AudioBimix(_BimixStreamBase):
 
 class AudioBimixV2(_BimixStreamBase):
     """Time-aligned variant; no parameters (audio-bimix.cpp:444-449)."""
+
+    batched = True  # one placement for every clip, per-clip lengths
 
     def _prefills(self, specs) -> list:
         # Each side starts at its own timestamp on the shared grid (the

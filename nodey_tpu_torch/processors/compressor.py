@@ -33,6 +33,8 @@ _DESCRIPTION = """Compressor
 
 
 class AudioCompressor(Processor):
+    batched = True  # each clip's detector on its own channels
+
     def __init__(self) -> None:
         self.threshold_db: float = -18.0
         self.ratio: float = 4.0

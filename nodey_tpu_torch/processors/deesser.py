@@ -35,6 +35,8 @@ _DESCRIPTION = """De-esser
 
 
 class AudioDeesser(Processor):
+    batched = True  # each clip's band and detector its own
+
     _CLAMPS = {
         "threshold_db": (-60.0, 0.0),
         "ratio": (1.0, 20.0),

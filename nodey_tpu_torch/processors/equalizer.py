@@ -51,6 +51,8 @@ class _BiquadNode(Processor):
     """Shared lowering: subclasses provide ``_design(rate) ->
     [BiquadCoef]``."""
 
+    batched = True  # the scans on every clip, their GEMMs clip by clip
+
     def _design(self, rate: int):
         raise NotImplementedError
 

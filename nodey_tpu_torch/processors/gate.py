@@ -32,6 +32,8 @@ _DESCRIPTION = """Noise Gate
 
 
 class AudioGate(Processor):
+    batched = True  # each clip's detector on its own channels
+
     def __init__(self) -> None:
         self.threshold_db: float = -50.0
         self.ratio: float = 4.0

@@ -32,6 +32,8 @@ _DESCRIPTION = """Peak Limiter
 
 
 class AudioLimiter(Processor):
+    batched = True  # each clip's envelope on its own channels
+
     def __init__(self) -> None:
         self.threshold_db: float = -1.0
         self.release_ms: float = 50.0

@@ -39,6 +39,8 @@ _DESCRIPTION = """Normalize
 
 
 class AudioNormalize(Processor):
+    batched = True  # each clip measured on its own, a [B, 1, 1] gain
+
     _CLAMPS = {"target_db": (-60.0, 0.0)}
     _MODES = ("lufs", "peak")
 
@@ -109,7 +111,8 @@ class AudioNormalize(Processor):
             )
         else:
             gain = ld.normalize_gain_lufs(
-                stream.data, stream.length, stream.rate, self.target_db
+                stream.data, stream.length, stream.rate, self.target_db,
+                clips=stream.batch is not None,
             )
         return {"output": stream.with_data(
             stream.data * gain, fmt="flt"

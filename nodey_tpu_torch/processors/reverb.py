@@ -33,6 +33,8 @@ _DESCRIPTION = """Reverb
 
 
 class AudioReverb(Processor):
+    batched = True  # the FDL on every clip, its GEMMs clip by clip
+
     _CLAMPS = {
         "decay_s": (0.1, 8.0),
         "pre_delay_ms": (0.0, 200.0),

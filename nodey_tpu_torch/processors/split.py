@@ -17,6 +17,8 @@ from nodey_tpu_torch.ops import mix as mix_ops
 
 
 class AudioSplit(Processor):
+    batched = True  # channels sliced on the second axis from the end
+
     def info(self) -> ProcessorInfo:
         return ProcessorInfo(
             identifier="audio_split",
