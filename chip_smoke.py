@@ -276,8 +276,8 @@ Phases, in order; the first failure exits non-zero:
                kernel's batched time beside its bound (the chain also beside
                one clip alone); (f) each batched render launches each
                kernel as often as one clip's render; (g) a graph with a node
-               that has no batched lowering (the delay) makes run_batch
-               raise before any launch.
+               that has no batched lowering (the delay, its own taken away)
+               makes run_batch raise before any launch.
  31. batch-configs — run_batch on BASELINE configs 2, 5 (preview), 6 and
                7, each on 8 x 30 s clips of different content (bench.py's
                tone at seeds 30-37 and other pitches; config 5's four inputs
@@ -300,6 +300,27 @@ Phases, in order; the first failure exits non-zero:
                8 sibilant clips, the second 40 dB down; the peak graph (44.1
                kHz -> resample 48 kHz -> gain 4 -> limiter -1 dB -> normalize
                peak -3 dBFS), the second clip 40 dB down; split -> bimix_v2.
+ 32. batch-effects — run_batch on the eleven node types that configs 1-7
+               do not hold, each graph on 8 x 30 s clips (bench.py's tone at
+               seeds 40-47, the second input's at 50-57) decoded and
+               compiled by Runner, beside eight single renders of the same
+               clips (CUDA events, the median of back-to-back calls on
+               inputs uploaded once): (a) examples/channel_strip.py's chain
+               (gate, EQ, compressor, phaser, width, pan, delay 240 ms /
+               0.35, reverb 1.2 s, fade, limiter); (b) tremolo -> chorus;
+               (d) examples/projects/crossfade_splice.json on 8 pairs of
+               clips; (f) a 44.1 kHz input and a 48 kHz triangle generator
+               (30 s) -> amix 0.6 / 0.4, its batched resampler launch (the
+               clips folded into rows) within 2e-6 of plain and timed
+               beside its bound, the plain version and F.conv1d. Checked
+               bitwise only, on clips of 30, 21.3 and 9.7 s in one capacity:
+               (c) every channel node in one chain, the fade anchored at
+               each clip's own end; (e) trim (1 s to 25 s) -> reverse. For
+               each, every clip bitwise its own single render (master,
+               length, a zero tail) and the batch launching each kernel as
+               often as one clip's render. (g) generator -> output: run_batch
+               refuses it (no external input) before any launch or
+               allocation.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
@@ -307,7 +328,8 @@ preview, the chunked render; phases 22-24's: each config's CLI render, the
 streamed exports of configs 2 and 5, config 2's chunked render; phases
 25-29's: each graph's CLI render and streamed export, config 7's chunked
 render, reverse's fallback exports; phase 30's: each batched render, and
-the refused one; phase 31's: each batched render). Streamed exports that phases 14 and 22-29 repeat at 100 s
+the refused one; phases 31-32's: each batched render, and phase 32's
+refused one). Streamed exports that phases 14 and 22-29 repeat at 100 s
 and 300 s also print each export's host RSS (sampled every 5 ms): its rise
 above its start at 300 s must stay within 64 MiB of the one at 100 s. The
 line before the last is one JSON object describing the kernels; the last
@@ -3366,12 +3388,13 @@ def generator_trim_graph(waveform: str):
     return g
 
 
-def mixed_rate_graph(paths):
+def mixed_rate_graph(paths, seconds=SECONDS):
     """Phase 29's graph (c): the 44.1 kHz track and a 48 kHz triangle
-    generator (97 Hz, -18 dB, SECONDS) -> audio_amix 0.6 / 0.4 -> output."""
+    generator (97 Hz, -18 dB, ``seconds``) -> audio_amix 0.6 / 0.4 ->
+    output (phase 32's (f) on BATCH_SECONDS)."""
     g, src = _input_graph(paths[:1])
     gen = _generator(g, waveform="triangle", freq=97.0, level_db=-18.0,
-                     duration_s=SECONDS, rate=MASTER_RATE, channels=2)
+                     duration_s=seconds, rate=MASTER_RATE, channels=2)
     amix = _amix(g, (0.6, 0.4))
     g.add_link(_pin(g, src, "output_0"), _pin(g, amix, "input_1"))
     g.add_link(_pin(g, gen, "output"), _pin(g, amix, "input_2"))
@@ -3688,6 +3711,37 @@ def check_clips(tag: str, what: str, outs, singles, card: str,
           f"{tag}: {what}: a clip's spectrum disagrees with its single render")
 
 
+def refused_batch(tag: str, what: str, compiled, arrays, lengths,
+                  detail: str, card: str) -> dict:
+    """``compiled.run_batch(arrays, lengths)`` must raise a
+    ProcessorRuntimeError whose detail holds ``detail``, before any launch
+    or device allocation. Returns the path's launch counts."""
+    import torch
+
+    from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    try:
+        compiled.run_batch(arrays, lengths)
+        refused = None
+    except ProcessorRuntimeError as exc:
+        refused = exc
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    counts = read_counts()
+    print(f"[{tag}] {what}: run_batch "
+          f"{'raised: ' + refused.detail if refused else 'DID NOT RAISE'}; "
+          f"launches {counts}; device memory allocated {grew} bytes more "
+          f"({card})")
+    check(refused is not None and detail in refused.detail,
+          f"{tag}: {what} was not refused")
+    check(sum(counts.values()) == 0 and grew == 0,
+          f"{tag}: the refused batch launched {counts}, allocated {grew}")
+    return counts
+
+
 def batch_phase(cli, card: str, dev, tmp: str):
     """Phase 30 (see the module docstring): batched serving through
     ``CompiledGraph.run_batch``. Returns (the launch counts by path, the
@@ -3697,7 +3751,6 @@ def batch_phase(cli, card: str, dev, tmp: str):
     import numpy as np
     import torch
 
-    from nodey_tpu_torch.core.errors import ProcessorRuntimeError
     from nodey_tpu_torch.core.graph import Graph
     from nodey_tpu_torch.core.runner import Runner
     from nodey_tpu_torch.host.decode import write_wav_s16
@@ -3879,29 +3932,16 @@ def batch_phase(cli, card: str, dev, tmp: str):
     g.add_link(_pin(g, src, "output_0"), _pin(g, rs, "input"))
     g.add_link(_pin(g, rs, "output"), _pin(g, dl, "input"))
     g.add_link(_pin(g, dl, "output"), _pin(g, out, "input"))
+    # Every node type has a batched lowering: this delay's is taken away.
+    g.nodes[dl].processor.batched = False
     runner = Runner(g, device=CARD)
     arrays, _, sources = runner.decode()
     compiled = runner.compile(sources, "export")
     [key] = arrays
     bargs, blens, _ = batch_and_singles(key, clips, cut, dev)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    zero_counts()
-    try:
-        compiled.run_batch(bargs, blens)
-        refused = None
-    except ProcessorRuntimeError as exc:
-        refused = exc
-    counts = read_counts()
-    print(f"[{tag}] input -> resample -> delay -> output: run_batch "
-          f"{'raised: ' + refused.detail if refused else 'DID NOT RAISE'}; "
-          f"launches {counts}; device memory allocated "
-          f"{torch.cuda.memory_allocated() - before} bytes more ({card})")
-    check(refused is not None and "audio_delay" in refused.detail,
-          f"{tag}: a graph with the delay was not refused")
-    check(sum(counts.values()) == 0, f"{tag}: the refused batch launched "
-                                     f"{counts}")
-    paths["refused_batch"] = counts
+    paths["refused_batch"] = refused_batch(
+        tag, "input -> resample -> delay (its batched lowering taken away) "
+        "-> output", compiled, bargs, blens, f"node {dl} (audio_delay)", card)
     print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
     print(f"[30 figures] {json.dumps(figures)}")
     return paths, figures, kernels
@@ -4033,6 +4073,138 @@ def pv_batch_checks(tag: str, what: str, phase_paths, locks, counts, kernels,
             bound=lock_work_bound(lock_in[3].shape))
 
 
+def run_batch_case(tag: str, card: str, dev, tmp: str, paths: dict,
+                   figures: dict, kernels: dict, what: str, make_graph,
+                   rate: int, inputs: int, mode: str, quiet=False,
+                   sibilant=False, lengths_s=None, timed=True,
+                   profiled=False, seed=BATCH_SEED):
+    """Phases 31 and 32: the graph (``make_graph`` on one track per input,
+    clip 0 of each, which Runner decodes for the capacity) on a batch of
+    clips (BATCH of BATCH_SECONDS, or one a length of ``lengths_s``;
+    bench tones from ``seed`` on) beside their single renders: launch
+    counts into ``paths[what + "_batch"]``, every clip bitwise its single
+    render, every resampler and chain launch against plain (into
+    ``kernels``), with ``timed`` both by CUDA events (into ``figures``),
+    and with ``profiled`` both under torch.profiler. Returns the batch's
+    resampler launches."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.ops import scans
+
+    lengths_s = lengths_s or (BATCH_SECONDS,) * BATCH
+    signals = []
+    for j in range(inputs):
+        row = []
+        for b, seconds in enumerate(lengths_s):
+            x = bench_tone(rate * BATCH_SECONDS, rate,
+                           160.0 + 25.0 * b + 60.0 * j, 2,
+                           seed + 10 * j + b)
+            if sibilant:
+                add_sibilance(x)
+            if quiet and b == 1:
+                x *= np.float32(BATCH_QUIET)
+            row.append(x[:, : int(rate * seconds)])
+        signals.append(row)
+    tracks = []
+    for j, row in enumerate(signals):
+        path = os.path.join(tmp, f"batch_{what}_{j}.wav")
+        write_wav_s16(path, row[0], rate)
+        tracks.append(path)
+    runner = Runner(make_graph(tracks), device=CARD)
+    arrays, _, sources = runner.decode()
+    compiled = runner.compile(sources, mode)
+    check(len(compiled.input_keys) == inputs,
+          f"{tag}: {what}: inputs {compiled.input_keys}")
+    bargs, blens = {}, {}
+    for key, row in zip(compiled.input_keys, signals):
+        bargs[key] = torch.from_numpy(
+            s16_clips(row, arrays[key].shape[1])).to(dev)
+        blens[key] = tuple(sig.shape[1] for sig in row)
+    singles_args = [{key: (bargs[key][b], blens[key][b])
+                     for key in compiled.input_keys}
+                    for b in range(len(lengths_s))]
+    resamples, chains, gemms = [], [], []
+    gemm = scans._gemm
+
+    def counted_gemm(v, m, clips=False):
+        gemms.append(v.shape[0] if clips else 1)
+        return gemm(v, m, clips)
+
+    zero_counts()
+    scans._gemm = counted_gemm
+    try:
+        with recorded_launches(resamples=resamples, chains=chains):
+            outs, meta = compiled.run_batch(bargs, blens)
+    finally:
+        scans._gemm = gemm
+    counts = paths[f"{what}_batch"] = read_counts()
+    if gemms:
+        print(f"[{tag}] {what}: {len(gemms)} scan and DFT GEMMs, run "
+              f"clip by clip as {sum(gemms)} matmuls ({card})")
+    single_chains, singles = [], []
+    for b, args in enumerate(singles_args):
+        zero_counts()
+        with recorded_launches(chains=single_chains):
+            singles.append(compiled(args)[0])
+        if b == 0:
+            single_counts = read_counts()
+            print(f"[{tag}] {what}: launches of the batch {counts}, of "
+                  f"one clip's render {single_counts} ({card})")
+            check(counts == single_counts, f"{tag}: {what}: the batch "
+                  f"launched {counts}, one clip {single_counts}")
+    check_clips(tag, f"{what}, {len(lengths_s)} clips of "
+                     f"{sorted(set(lengths_s), reverse=True)} s"
+                     + (", the second 40 dB down" if quiet else ""),
+                outs, singles, card)
+    key = "master" if mode == "export" else "preview"
+    audio_s = sum(outs[key][1]) / meta[key]["rate"]
+    del outs, singles
+    if counts["polyphase_resample"]:
+        kernels[f"{what}_resample_err"] = check_resamples(
+            f"{tag} {what}", resamples, counts["polyphase_resample"],
+            card)
+    if counts["wsola_chain"]:
+        check(len(chains) == counts["wsola_chain"]
+              == counts["wsola_energy"],
+              f"{tag}: {what}: {len(chains)} batched chains recorded, "
+              f"counted {counts}")
+        # K = 821 here: 0.1% of a clip's frames rounds down to none,
+        # so each clip may hold one near tie.
+        wsola_batch_checks(f"{tag} {what}", chains, single_chains,
+                           kernels, card, prefix=f"{what}_", min_ties=1)
+    del chains, single_chains
+    if timed:
+        runs = {"batch": [], "singles": []}
+        for name in ("batch", "singles", "singles", "batch"):
+            fn = ((lambda: compiled.run_batch(bargs, blens))
+                  if name == "batch"
+                  else (lambda: [compiled(a) for a in singles_args]))
+            runs[name] += cuda_ms(fn, BATCH_ITERS // 2, warmup=1)
+        med, lo, hi, count = summary(runs["batch"])
+        smed, slo, shi, scount = summary(runs["singles"])
+        if profiled:
+            profile_render(lambda: compiled.run_batch(bargs, blens),
+                           card, tag, f"{what} batch", top=8)
+            profile_render(lambda: [compiled(a) for a in singles_args],
+                           card, tag, f"{what} {len(lengths_s)} singles",
+                           top=8)
+        figures[f"{what}_batch{len(lengths_s)}_ms"] = med
+        figures[f"{what}_{len(lengths_s)}_singles_ms"] = smed
+        print(f"[{tag}] {what} ({mode}), {len(lengths_s)} clips: "
+              f"run_batch median {med:.4f} ms (min {lo:.4f}, max "
+              f"{hi:.4f}, n={count}); {len(lengths_s)} single renders "
+              f"of the same clips median {smed:.4f} ms (min {slo:.4f}, "
+              f"max {shi:.4f}, n={scount}), {smed / med:.2f}x the "
+              f"batch's time; RTF {audio_s / (med / 1e3):.1f} audio-s "
+              f"({audio_s:.3f} of output) per device-s batched (CUDA "
+              f"events) ({card})")
+    del bargs, singles_args, compiled, runner
+    return resamples
+
+
 def batch_configs_phase(cli, card: str, dev, tmp: str):
     """Phase 31 (see the module docstring): BASELINE configs 2, 5, 6 and 7,
     graph A, the peak graph and split -> bimix_v2 through
@@ -4041,136 +4213,19 @@ def batch_configs_phase(cli, card: str, dev, tmp: str):
     CUDA events, and config 5's batched launches of the resampler, the
     chain and the prologue held against their plain versions, with their
     times and bounds)."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from nodey_tpu_torch.core.runner import Runner
-    from nodey_tpu_torch.host.decode import write_wav_s16
-    from nodey_tpu_torch.ops import cuda_resample, scans
+    from nodey_tpu_torch.ops import cuda_resample
     from nodey_tpu_torch.ops import resample as tr
 
     tag = "31 batch-configs"
     t0 = time.perf_counter()
     paths, figures, kernels = {}, {}, {}
 
-    def run_case(what, make_graph, rate, inputs, mode, quiet=False,
-                 sibilant=False, lengths_s=None, timed=True, profiled=False):
-        """The graph on a batch of clips (BATCH of BATCH_SECONDS, or one a
-        length of ``lengths_s``) beside their single renders: launch
-        counts, every clip bitwise its single render, every resampler and
-        chain launch against plain, with ``timed`` both by CUDA events, and
-        with ``profiled`` both under torch.profiler. Returns the batch's
-        resampler launches."""
-        lengths_s = lengths_s or (BATCH_SECONDS,) * BATCH
-        signals = []
-        for j in range(inputs):
-            row = []
-            for b, seconds in enumerate(lengths_s):
-                x = bench_tone(rate * BATCH_SECONDS, rate,
-                               160.0 + 25.0 * b + 60.0 * j, 2,
-                               BATCH_SEED + 10 * j + b)
-                if sibilant:
-                    add_sibilance(x)
-                if quiet and b == 1:
-                    x *= np.float32(BATCH_QUIET)
-                row.append(x[:, : int(rate * seconds)])
-            signals.append(row)
-        tracks = []
-        for j, row in enumerate(signals):
-            path = os.path.join(tmp, f"batch31_{what}_{j}.wav")
-            write_wav_s16(path, row[0], rate)
-            tracks.append(path)
-        runner = Runner(make_graph(tracks), device=CARD)
-        arrays, _, sources = runner.decode()
-        compiled = runner.compile(sources, mode)
-        check(len(compiled.input_keys) == inputs,
-              f"{tag}: {what}: inputs {compiled.input_keys}")
-        bargs, blens = {}, {}
-        for key, row in zip(compiled.input_keys, signals):
-            bargs[key] = torch.from_numpy(
-                s16_clips(row, arrays[key].shape[1])).to(dev)
-            blens[key] = tuple(sig.shape[1] for sig in row)
-        singles_args = [{key: (bargs[key][b], blens[key][b])
-                         for key in compiled.input_keys}
-                        for b in range(len(lengths_s))]
-        resamples, chains, gemms = [], [], []
-        gemm = scans._gemm
-
-        def counted_gemm(v, m, clips=False):
-            gemms.append(v.shape[0] if clips else 1)
-            return gemm(v, m, clips)
-
-        zero_counts()
-        scans._gemm = counted_gemm
-        try:
-            with recorded_launches(resamples=resamples, chains=chains):
-                outs, meta = compiled.run_batch(bargs, blens)
-        finally:
-            scans._gemm = gemm
-        counts = paths[f"{what}_batch"] = read_counts()
-        if gemms:
-            print(f"[{tag}] {what}: {len(gemms)} scan and DFT GEMMs, run "
-                  f"clip by clip as {sum(gemms)} matmuls ({card})")
-        single_chains, singles = [], []
-        for b, args in enumerate(singles_args):
-            zero_counts()
-            with recorded_launches(chains=single_chains):
-                singles.append(compiled(args)[0])
-            if b == 0:
-                single_counts = read_counts()
-                print(f"[{tag}] {what}: launches of the batch {counts}, of "
-                      f"one clip's render {single_counts} ({card})")
-                check(counts == single_counts, f"{tag}: {what}: the batch "
-                      f"launched {counts}, one clip {single_counts}")
-        check_clips(tag, f"{what}, {len(lengths_s)} clips of "
-                         f"{sorted(set(lengths_s), reverse=True)} s"
-                         + (", the second 40 dB down" if quiet else ""),
-                    outs, singles, card)
-        key = "master" if mode == "export" else "preview"
-        audio_s = sum(outs[key][1]) / meta[key]["rate"]
-        del outs, singles
-        if counts["polyphase_resample"]:
-            kernels[f"{what}_resample_err"] = check_resamples(
-                f"{tag} {what}", resamples, counts["polyphase_resample"],
-                card)
-        if counts["wsola_chain"]:
-            check(len(chains) == counts["wsola_chain"]
-                  == counts["wsola_energy"],
-                  f"{tag}: {what}: {len(chains)} batched chains recorded, "
-                  f"counted {counts}")
-            # K = 821 here: 0.1% of a clip's frames rounds down to none,
-            # so each clip may hold one near tie.
-            wsola_batch_checks(f"{tag} {what}", chains, single_chains,
-                               kernels, card, prefix=f"{what}_", min_ties=1)
-        del chains, single_chains
-        if timed:
-            runs = {"batch": [], "singles": []}
-            for name in ("batch", "singles", "singles", "batch"):
-                fn = ((lambda: compiled.run_batch(bargs, blens))
-                      if name == "batch"
-                      else (lambda: [compiled(a) for a in singles_args]))
-                runs[name] += cuda_ms(fn, BATCH_ITERS // 2, warmup=1)
-            med, lo, hi, count = summary(runs["batch"])
-            smed, slo, shi, scount = summary(runs["singles"])
-            if profiled:
-                profile_render(lambda: compiled.run_batch(bargs, blens),
-                               card, tag, f"{what} batch", top=8)
-                profile_render(lambda: [compiled(a) for a in singles_args],
-                               card, tag, f"{what} {len(lengths_s)} singles",
-                               top=8)
-            figures[f"{what}_batch{len(lengths_s)}_ms"] = med
-            figures[f"{what}_{len(lengths_s)}_singles_ms"] = smed
-            print(f"[{tag}] {what} ({mode}), {len(lengths_s)} clips: "
-                  f"run_batch median {med:.4f} ms (min {lo:.4f}, max "
-                  f"{hi:.4f}, n={count}); {len(lengths_s)} single renders "
-                  f"of the same clips median {smed:.4f} ms (min {slo:.4f}, "
-                  f"max {shi:.4f}, n={scount}), {smed / med:.2f}x the "
-                  f"batch's time; RTF {audio_s / (med / 1e3):.1f} audio-s "
-                  f"({audio_s:.3f} of output) per device-s batched (CUDA "
-                  f"events) ({card})")
-        del bargs, singles_args, compiled, runner
-        return resamples
+    def run_case(*args, **kwargs):
+        return run_batch_case(tag, card, dev, tmp, paths, figures, kernels,
+                              *args, **kwargs)
 
     run_case("config2", config2_graph, RATE, 1, "export")
     resamples = run_case("config5", config5_graph, RATE, 4, "preview")
@@ -4212,6 +4267,104 @@ def batch_configs_phase(cli, card: str, dev, tmp: str):
     torch.cuda.synchronize()
     print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
     print(f"[31 figures] {json.dumps(figures)}")
+    return paths, figures, kernels
+
+
+# Phase 32's graph (c): every channel node in one chain, the fade anchored
+# at each clip's own end.
+CHANNEL_NODES = [
+    ("audio_phaser", dict(rate_hz=0.4, f_min_hz=300.0, f_max_hz=2500.0,
+                          wet=0.5)),
+    ("audio_width", dict(width=1.4)),
+    ("audio_pan", dict(pan=-0.25)),
+    ("audio_delay", dict(delay_ms=240.0, feedback=0.35, wet=0.18)),
+    ("audio_tremolo", dict(rate_hz=5.0, depth=0.5)),
+    ("audio_chorus", {}),
+    ("audio_fade", dict(in_ms=120.0, out_ms=600.0, anchor_end=True)),
+]
+BATCH_TRIM_S = (1.0, 25.0)       # phase 32 (e): trim's start and end
+
+
+def batch_effects_phase(cli, card: str, dev, tmp: str):
+    """Phase 32 (see the module docstring): the channel nodes, the
+    crossfade, trim, reverse and the generator through
+    ``CompiledGraph.run_batch``. Returns (the launch counts by path, the
+    figures: each timed batch beside eight single renders of its clips, by
+    CUDA events, and the mixed-rate batch's resampler launch held against
+    its plain version, with its time, bound and library call)."""
+    import torch.nn.functional as F
+
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.ops import cuda_resample
+    from nodey_tpu_torch.ops import resample as tr
+
+    tag = "32 batch-effects"
+    t0 = time.perf_counter()
+    paths, figures, kernels = {}, {}, {}
+
+    def run_case(*args, **kwargs):
+        return run_batch_case(tag, card, dev, tmp, paths, figures, kernels,
+                              *args, seed=40, **kwargs)
+
+    def splice(tracks):
+        shipped = os.path.join(ROOT, "examples", "projects",
+                               "crossfade_splice.json")
+        return cli._load_graph(project_with_tracks(
+            shipped, tracks, os.path.join(tmp, "batch_splice.json")))
+
+    run_case("example_strip", lambda p: _chain(p, EXAMPLE_STRIP),
+             MASTER_RATE, 1, "export")
+    run_case("modfx", lambda p: _chain(p, MODFX_CHAIN), MASTER_RATE, 1,
+             "export")
+    run_case("channel_nodes_lengths", lambda p: _chain(p, CHANNEL_NODES),
+             MASTER_RATE, 1, "export", lengths_s=BATCH_LENGTHS_S,
+             timed=False)
+    run_case("splice", splice, MASTER_RATE, 2, "export")
+    run_case("trim_reverse_lengths", lambda p: _chain(p, [
+        ("audio_trim", dict(start_s=BATCH_TRIM_S[0], end_s=BATCH_TRIM_S[1])),
+        ("audio_reverse", {})]), MASTER_RATE, 1, "export",
+        lengths_s=BATCH_LENGTHS_S, timed=False)
+    resamples = run_case("mixed_rate", functools.partial(
+        mixed_rate_graph, seconds=BATCH_SECONDS), RATE, 1, "export")
+    check(len(resamples) == 1 == paths["mixed_rate_batch"][
+        "polyphase_resample"], f"{tag}: the mixed-rate batch launched the "
+        f"resampler {len(resamples)} times")
+    # The mixed-rate batch's 44.1 -> 48 kHz launch, clips folded into rows:
+    # its time beside its bound, the plain version and F.conv1d.
+    [((x, G, M, W, bank, support), _)] = resamples
+    del resamples
+    rows = x.reshape(-1, x.shape[-1])
+    work_bound = resample_work_bound(rows, G, M, bank)
+    times = time_resampler(
+        tag, f"the mixed-rate batch's resample {bank.shape[0]}/{M}, x "
+        f"{list(x.shape)} (clips folded into rows)", {
+            "kernel": functools.partial(cuda_resample.apply_filter_bank_cuda,
+                                        x, G, M, W, support),
+            "plain": functools.partial(tr.apply_filter_bank_plain, x, G, M,
+                                       W, bank),
+            "conv1d": functools.partial(F.conv1d, rows.view(-1, 1,
+                                                            rows.shape[-1]),
+                                        bank.view(-1, 1, W), stride=M)},
+        ("plain", "conv1d", "kernel", "kernel", "conv1d", "plain"), 5, card,
+        work_bound)
+    kernels["mixed_rate_resample"] = dict(
+        shape=list(x.shape), ms=times["kernel"], plain_ms=times["plain"],
+        library_ms=times["conv1d"], bound=work_bound)
+    del x, rows
+
+    # -- (g) a graph with no external input -----------------------------------
+    g = Graph()
+    gen = _generator(g, waveform="triangle", freq=97.0, level_db=-18.0,
+                     duration_s=BATCH_SECONDS, rate=MASTER_RATE, channels=2)
+    _output(g, _pin(g, gen, "output"))
+    runner = Runner(g, device=CARD)
+    _, _, sources = runner.decode()
+    paths["refused_generator_batch"] = refused_batch(
+        tag, "generator -> output", runner.compile(sources, "export"), {}, {},
+        "no external input", card)
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[32 figures] {json.dumps(figures)}")
     return paths, figures, kernels
 
 
@@ -5031,6 +5184,10 @@ def main() -> int:
         configs_paths, _configs_figures, configs_kernels = (
             batch_configs_phase(cli, card, dev, tmp))
 
+        # -- 32. batched serving of the effect and timeline nodes -------------
+        effects_batch_paths, _effects_figures, effects_kernels = (
+            batch_effects_phase(cli, card, dev, tmp))
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -5041,11 +5198,11 @@ def main() -> int:
             *tool_paths.items(), *config_paths.items(),
             *masterbus_paths.items(), *effects_paths.items(),
             *timeline_paths.items(), *batch_paths.items(),
-            *configs_paths.items())}
+            *configs_paths.items(), *effects_batch_paths.items())}
 
     def batch8(name, source=None):
         # The kernel's first launch on phase 30's batch of 8 x 30 s clips (or
-        # on phase 31's, from ``source``).
+        # on phase 31's or 32's, from ``source``).
         t = (source or batch_kernels)[name]
         return {"shape": t["shape"], "ms": t["ms"],
                 "plain_ms": t.get("plain_ms"), "bound_ms": t["bound"][0],
@@ -5077,7 +5234,8 @@ def main() -> int:
             "max_abs_err": max(kernel_err, config_figures["resample_err"],
                                timeline_resample_err,
                                *(v for k, v in {**batch_kernels,
-                                                **configs_kernels}.items()
+                                                **configs_kernels,
+                                                **effects_kernels}.items()
                                  if k.endswith("resample_err"))),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
@@ -5095,6 +5253,10 @@ def main() -> int:
             "batch8_config5_transposition": {
                 **batch8("config5_transposition", configs_kernels),
                 "library_ms": configs_kernels["config5_transposition"][
+                    "library_ms"]},
+            "batch8_mixed_rate": {
+                **batch8("mixed_rate_resample", effects_kernels),
+                "library_ms": effects_kernels["mixed_rate_resample"][
                     "library_ms"]},
         },
         {

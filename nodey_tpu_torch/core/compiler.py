@@ -6,13 +6,11 @@ reuse. There is no jit: ``compile_graph`` returns a callable bound to one
 device that runs the nodes in order each time it is called.
 ``CompiledGraph.run_batch`` runs the same order once over a batch of clips
 (``[B, C, capacity]`` inputs): each node's lowering carries the clip axis
-itself, and a graph with a node that has no batched lowering
-(``Processor.batched``) is refused before anything runs. Nineteen node
-types have one: every node of the BASELINE configs 1-7 (input, output,
-gain, amix, spectrum, resample, pitch, velocity, split, both bimix nodes,
-the EQ, filter, compressor, limiter, gate, de-esser, normalize and reverb);
-the delay, tremolo, chorus, phaser, pan, width, fade, generator,
-crossfade, trim and reverse nodes do not yet.
+itself (``Processor.batched``), and ``LowerCtx.batch`` tells a source with
+no input tensor, the generator, how many clips to emit. Every registered
+node type has a batched lowering. Before anything runs, ``run_batch``
+refuses a graph with a node that has none, and a graph with no external
+input, which gives no clip count (the JAX package's vmap refuses it too).
 """
 
 from __future__ import annotations
@@ -47,15 +45,17 @@ def external_key(node_id: int, pin: str) -> str:
 
 class LowerCtx:
     """Per-run context handed to every node's ``lower()``: the run mode,
-    the device the graph is bound to (where a source with no input tensor,
-    the signal generator, puts its stream), the bound external inputs, and
-    the emitted outputs."""
+    the device the graph is bound to and the clip count of a batched run
+    (``batch``, None for one clip): where a source with no input tensor,
+    the signal generator, puts its stream and how many clips it emits; the
+    bound external inputs, and the emitted outputs."""
 
     def __init__(self, mode: str, sources: Dict[Tuple[int, str], SourceSpec],
                  args: Dict[str, Tuple[torch.Tensor, Any]],
-                 device: torch.device):
+                 device: torch.device, batch: Optional[int] = None):
         self.mode = mode  # "export" | "preview"
         self.device = device
+        self.batch = batch
         self.node_id: Optional[int] = None  # set per node by the compiler
         self._sources = sources
         self._args = args
@@ -194,25 +194,33 @@ class CompiledGraph:
         ``[B, ...]``, all left on the device. Clip b of every output is
         clip b's own single render.
 
-        Before anything runs, every node must have a batched lowering;
-        else a ProcessorRuntimeError names the nodes. No loop over clips
-        stands in for one: inside a lowering only the GEMMs, whose bits
-        follow their shape, go clip by clip. The JAX package's
-        ``mesh=`` / ``dp_axis`` (clips spread over the chips of a mesh)
-        belong to the multi-GPU port and are not taken here."""
+        Before anything runs, every node must have a batched lowering,
+        else a ProcessorRuntimeError names the nodes, and the graph must
+        have an external input, else one says so: the batch's clip count
+        comes from its inputs. No loop over clips stands in for a batched
+        lowering: inside a lowering only the GEMMs, whose bits follow their
+        shape, go clip by clip. The JAX package's ``mesh=`` / ``dp_axis``
+        (clips spread over the chips of a mesh) belong to the multi-GPU
+        port and are not taken here."""
         unbatched = self.unbatched_nodes()
         if unbatched:
             names = ", ".join(f"node {nid} ({ident})"
                               for nid, ident in unbatched)
             raise ProcessorRuntimeError(
                 "Graph cannot run as a batch",
-                "Every node of a batched run needs a batched lowering; these "
-                "have none yet (ROADMAP, section 1: the batch axis of the "
-                "channel-strip nodes, delay, tremolo, chorus, phaser, pan, "
-                "width and fade, then of the timeline's generator, "
-                "crossfade, trim and reverse). Render the clips one at a "
-                "time instead.",
+                "Every node of a batched run needs a batched lowering, and "
+                "these processors do not declare one. Render the clips one "
+                "at a time instead.",
                 f"unbatched: {names}",
+            )
+        if not self.input_keys:
+            raise ProcessorRuntimeError(
+                "Graph cannot run as a batch",
+                "A batch takes its clip count from the graph's external "
+                "inputs, and this graph has none (its streams all come from "
+                "generators, which render the same clip every time). Render "
+                "it once instead.",
+                "no external input",
             )
         batch = None
         args: Dict[str, Tuple[torch.Tensor, Tuple[int, ...]]] = {}
@@ -248,10 +256,10 @@ class CompiledGraph:
             args[key] = (data, lens)
         args = {key: (data.to(self.device), lens)
                 for key, (data, lens) in args.items()}
-        return self._run(args)
+        return self._run(args, batch)
 
-    def _run(self, args):
-        ctx = LowerCtx(self.mode, self.sources, args, self.device)
+    def _run(self, args, batch: Optional[int] = None):
+        ctx = LowerCtx(self.mode, self.sources, args, self.device, batch)
         pin_values: Dict[int, Stream] = {}  # output pin id -> Stream
         for nid in self.order:
             node = self.graph.nodes[nid]

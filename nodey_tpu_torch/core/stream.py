@@ -108,6 +108,19 @@ def max_length(lengths: Sequence):
     return max(lengths)
 
 
+def device_lengths(length, device):
+    """A batch's lengths as int32 [B, 1, 1] on ``device``, to broadcast
+    against its [B, C, N] data in position arithmetic; copied from pinned
+    memory without waiting for the card. One clip's length stays a host
+    int."""
+    if not isinstance(length, tuple):
+        return length
+    host = torch.tensor(length, dtype=torch.int32).view(-1, 1, 1)
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 class AudioStreamType:
     """Pin product-type marker for audio streams of this package.
 

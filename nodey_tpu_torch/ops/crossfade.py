@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, max_length
 from nodey_tpu_torch.ops.scans import f32 as _f32, mask_tail
 
 _ANCHOR_MAX = 1 << 30          # same ceiling as ops/fadepan.fade_spec
@@ -83,7 +83,7 @@ def crossfade_gains(pos0: int, width: int, n0: int, n_dur: int, law: str,
 
 def crossfade_blend(a: torch.Tensor, b: torch.Tensor, pos0: int, n0: int,
                     n_dur: int, law: str) -> torch.Tensor:
-    """A->B blend of equal-shape [C, W] windows at global positions
+    """A->B blend of equal-shape [..., C, W] windows at global positions
     pos0 + [0, W): bitwise A before the window, bitwise B after it."""
     ga, gb, before, after = crossfade_gains(pos0, a.shape[-1], n0, n_dur,
                                             law, a.device)
@@ -95,7 +95,8 @@ def crossfade_blend(a: torch.Tensor, b: torch.Tensor, pos0: int, n0: int,
 def crossfade_streams(sa: Stream, sb: Stream, at_s: float, dur_ms: float,
                       law: str) -> Stream:
     """Offline crossfade of two whole Streams (equal rate and channel
-    count, both at t0 0: the node validates)."""
+    count, both at t0 0: the node validates), or of two batches: each
+    clip runs to the longer of its two inputs."""
     n0, n_dur = crossfade_spec(sa.rate, at_s, dur_ms)
     cap = max(sa.capacity, sb.capacity)
 
@@ -104,7 +105,7 @@ def crossfade_streams(sa: Stream, sb: Stream, at_s: float, dur_ms: float,
                                        (0, cap - s.capacity))
 
     out = crossfade_blend(pad_to(sa), pad_to(sb), 0, n0, n_dur, law)
-    length = max(sa.length, sb.length)
+    length = max_length([sa.length, sb.length])
     return Stream(data=mask_tail(out, length), length=length, rate=sa.rate,
                   channels=sa.channels, fmt=FMT_FLT)
 

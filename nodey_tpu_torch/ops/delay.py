@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, map_lengths
 from nodey_tpu_torch.ops.scans import f32 as _f32, mask_tail
 
 _MAX_ECHOES = 66          # fb clamp 0.9 -> 66 repeats reach -60 dB
@@ -92,9 +92,10 @@ def delay_wet(x: torch.Tensor, d: int, k: int, fb: float) -> torch.Tensor:
 
 def delay_stream(stream: Stream, delay_ms: float, feedback: float,
                  wet: float, dry: float) -> Stream:
-    """Offline echo over a whole Stream. Output length grows by the K*D
-    echo tail when wet > 0; padding past the grown length is zero by
-    construction, and re-masked."""
+    """Offline echo over a whole Stream, one clip or a batch. Output length
+    grows by the K*D echo tail when wet > 0 (each clip's by the same
+    static tail, as the capacity); padding past the grown length is zero
+    by construction, and re-masked."""
     if float(wet) == 0.0:
         out = stream.data if float(dry) == 1.0 else _f32(dry) * stream.data
         return stream.with_data(out, fmt=FMT_FLT)
@@ -103,7 +104,7 @@ def delay_stream(stream: Stream, delay_ms: float, feedback: float,
     x = mask_tail(stream.data, stream.length)
     xpad = F.pad(x, (0, tail))
     y = _f32(dry) * xpad + _f32(wet) * delay_wet(xpad, d, k, float(feedback))
-    out_len = stream.length + tail
+    out_len = map_lengths(stream.length, lambda n: n + tail)
     return Stream(
         data=mask_tail(y, out_len), length=out_len, rate=stream.rate,
         channels=stream.channels, fmt=FMT_FLT, t0_us=stream.t0_us,

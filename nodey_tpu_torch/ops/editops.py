@@ -6,15 +6,20 @@ JAX package's. Trim streams with one input-position carry (a host int):
 each step copies the chunk's surviving segment, a host slice, left-aligned
 into a zeroed buffer, where the JAX step takes a traced dynamic slice.
 Reverse is a whole-clip permutation; its node refuses the stream plan.
+Offline, both take one clip [C, N] or a batch [B, C, N] with per-clip
+lengths: trim's start is static, so one slice serves every clip, and each
+clip reverses over its own length by one gather.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from nodey_tpu_torch.core.stream import Stream
+from nodey_tpu_torch.core.stream import (Stream, device_lengths,
+                                         map_lengths, zero_tail)
 
 _INT32_MAX = 2**31 - 1
 
@@ -36,11 +41,12 @@ def trim_stream(stream: Stream, start_s: float, end_s: float) -> Stream:
     cap = stream.capacity
     n0c = min(n0, cap)
     keep = max(cap - n0c, 256)
-    new_len = min(max(min(stream.length, min(n1, _INT32_MAX)) - n0, 0), keep)
-    data = torch.zeros((stream.data.shape[0], keep), dtype=stream.data.dtype,
-                       device=stream.data.device)
-    data[:, :new_len] = stream.data[:, n0c:n0c + new_len]
-    return stream.with_data(data, length=new_len)
+    new_len = map_lengths(stream.length, lambda n: min(
+        max(min(n, min(n1, _INT32_MAX)) - n0, 0), keep))
+    width = int(np.max(new_len))
+    data = stream.data.new_zeros(stream.data.shape[:-1] + (keep,))
+    data[..., :width] = stream.data[..., n0c:n0c + width]
+    return stream.with_data(zero_tail(data, new_len), length=new_len)
 
 
 # -- trim chunk streaming: one input-position carry (a host int) -------------
@@ -70,8 +76,13 @@ def trim_stream_step(n0: int, n1: int, state, data: torch.Tensor, n: int,
 
 
 def reverse_stream(stream: Stream) -> Stream:
-    """Whole-clip reverse: out[i] = x[length-1-i]; the padding stays zero
-    past the length."""
-    out = torch.zeros_like(stream.data)
-    out[:, :stream.length] = stream.data[:, :stream.length].flip(1)
-    return stream.with_data(out)
+    """Whole-clip reverse: out[i] = x[length-1-i], each clip of a batch
+    over its own length (the JAX form: a gather at clamped indices under
+    a mask); the padding stays zero past the length."""
+    data = stream.data
+    cap = stream.capacity
+    n = device_lengths(stream.length, data.device)
+    i = torch.arange(cap, dtype=torch.int32, device=data.device)
+    src = torch.clamp(n - 1 - i, 0, cap - 1).long()
+    out = torch.gather(data, -1, src.expand(data.shape))
+    return stream.with_data(torch.where(i < n, out, 0.0))

@@ -22,8 +22,11 @@ so the int->float conversion is exact and the gains are the JAX
 package's, bitwise. Outside the ramps the gain is the constant 1.0.
 
 The gains are applied as host scalars, never as small tensors copied to
-the device inside a chunk step. The sharded functions of the JAX module
-are not ported.
+the device inside a chunk step. Every op takes one clip [C, N] or a batch
+[B, C, N] (channels on axis -2): pan and width act per channel, a fade's
+gain is one [N] row for every clip, and the end-anchored fade's is [B, 1,
+N], each clip's ramp ending at its own length. The sharded functions of
+the JAX module are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from nodey_tpu_torch.core.stream import FMT_FLT, Stream
+from nodey_tpu_torch.core.stream import FMT_FLT, Stream, device_lengths
 from nodey_tpu_torch.ops.scans import f32 as _f32
 
 # -- pan ---------------------------------------------------------------------
@@ -50,11 +53,13 @@ def pan_gains(pan: float, channels: int) -> Tuple[float, float]:
 
 
 def pan_array(data: torch.Tensor, pan: float) -> torch.Tensor:
-    """[C, N] -> [2, N] panned stereo (C in {1, 2}); each channel times
-    its gain rounded to float32."""
-    gl, gr = pan_gains(pan, data.shape[0])
-    right = data[1] if data.shape[0] == 2 else data[0]
-    return torch.stack([data[0] * _f32(gl), right * _f32(gr)])
+    """[..., C, N] -> [..., 2, N] panned stereo (C in {1, 2}); each channel
+    times its gain rounded to float32."""
+    channels = data.shape[-2]
+    gl, gr = pan_gains(pan, channels)
+    left = data[..., 0, :]
+    right = data[..., 1, :] if channels == 2 else left
+    return torch.stack([left * _f32(gl), right * _f32(gr)], dim=-2)
 
 
 def pan_stream(stream: Stream, pan: float) -> Stream:
@@ -140,11 +145,12 @@ def fade_gain(spec: FadeSpec, pos0: int, width: int,
     return g
 
 
-def fade_gain_end(spec: FadeSpec, pos0: int, width: int, length: int,
+def fade_gain_end(spec: FadeSpec, pos0: int, width: int, length,
                   device) -> torch.Tensor:
     """[width] f32 gain with the fade-out anchored to END at the stream's
     ``length`` (spec.n_out is the ramp length; spec.out_start is
-    ignored)."""
+    ignored). ``length`` may be a batch's int32 [B, 1, 1] lengths on
+    ``device`` (``device_lengths``): the gain is then [B, 1, width]."""
     p = _positions(pos0, width, device)
     if spec.n_in > 0:
         g = _fade_in(spec, p)
@@ -164,10 +170,11 @@ def fade_stream(stream: Stream, spec: FadeSpec) -> Stream:
         return stream                      # bitwise passthrough
     device = stream.data.device
     if spec.anchor_end:
-        g = fade_gain_end(spec, 0, stream.capacity, stream.length, device)
+        g = fade_gain_end(spec, 0, stream.capacity,
+                          device_lengths(stream.length, device), device)
     else:
         g = fade_gain(spec, 0, stream.capacity, device)
-    return stream.with_data(stream.data * g[None, :], fmt=FMT_FLT)
+    return stream.with_data(stream.data * g, fmt=FMT_FLT)
 
 
 # -- streaming ---------------------------------------------------------------
@@ -188,12 +195,13 @@ def fade_stream_step(spec: FadeSpec, state, data: torch.Tensor, n: int):
 
 
 def width_array(data: torch.Tensor, width: float) -> torch.Tensor:
-    """[2, N] -> [2, N] mid/side width scaling: out = (m + w s, m - w s)
-    with m = 0.5 (L + R), s = 0.5 (L - R). Callers special-case
+    """[..., 2, N] -> [..., 2, N] mid/side width scaling: out = (m + w s,
+    m - w s) with m = 0.5 (L + R), s = 0.5 (L - R). Callers special-case
     w == 1.0 before this (m + s is not bitwise L)."""
-    m = _f32(0.5) * (data[0] + data[1])
-    ws = _f32(width) * (_f32(0.5) * (data[0] - data[1]))
-    return torch.stack([m + ws, m - ws])
+    left, right = data[..., 0, :], data[..., 1, :]
+    m = _f32(0.5) * (left + right)
+    ws = _f32(width) * (_f32(0.5) * (left - right))
+    return torch.stack([m + ws, m - ws], dim=-2)
 
 
 def width_stream(stream: Stream, width: float) -> Stream:

@@ -29,6 +29,10 @@ d_v(t) = base + depth * (0.5 - 0.5*cos(theta + v/V turns)), a gathered
 linear interpolation (two gathers per voice) over a finite history of
 ceil(base + depth) + 2 samples (FIR, no feedback).
 
+The offline ops take one clip [C, N] or a batch [B, C, N]: the LFO is
+one [N] row shared by every clip, each starting at phase 0 as in the JAX
+package's vmap.
+
 The sharded functions of the JAX module are not ported.
 """
 
@@ -159,12 +163,12 @@ def chorus_spec(sample_rate: int, base_ms: float, depth_ms: float,
 
 def chorus_wet(x_ext: torch.Tensor, r0: int, width: int, num: int, m: int,
                base: float, depth: float, voices: int) -> torch.Tensor:
-    """Wet sum over voices from ``x_ext`` [C, hist + width] (hist samples
-    of left context): for output i, gathers x_ext[hist + i - d_v(i)] with
-    linear interpolation. Voice v's LFO is offset v/V turns. Returns
-    [C, width]."""
+    """Wet sum over voices from ``x_ext`` [..., C, hist + width] (hist
+    samples of left context; a batch's clips share the LFO): for output i,
+    gathers x_ext[..., hist + i - d_v(i)] with linear interpolation. Voice
+    v's LFO is offset v/V turns. Returns [..., C, width]."""
     device = x_ext.device
-    hist = x_ext.shape[1] - width
+    hist = x_ext.shape[-1] - width
     i = torch.arange(width, dtype=torch.int32, device=device)
     acc = None
     for v in range(voices):
@@ -174,8 +178,8 @@ def chorus_wet(x_ext: torch.Tensor, r0: int, width: int, num: int, m: int,
         di = torch.floor(d).to(torch.int32)
         frac = d - di.float()
         pos = (hist + i - di).long()                    # >= 1
-        a = x_ext.index_select(1, pos)
-        b = x_ext.index_select(1, pos - 1)
+        a = x_ext.index_select(-1, pos)
+        b = x_ext.index_select(-1, pos - 1)
         wetv = (_f32(1.0) - frac)[None, :] * a + frac[None, :] * b
         acc = wetv if acc is None else acc + wetv
     return acc * _f32(1.0 / voices)

@@ -134,14 +134,21 @@ def generator_block(kind: str, num: int, m: int, gain: float, seed: int,
 
 def generator_stream(kind: str, freq_hz: float, gain: float, seed: int,
                      rate: int, channels: int, total: int, capacity: int,
-                     device) -> Stream:
+                     device, batch=None) -> Stream:
     """Offline synthesis on ``device``: a whole Stream with ``total`` valid
-    samples (zero past the end, the Stream padding contract)."""
+    samples (zero past the end, the Stream padding contract). With
+    ``batch``, B copies [B, C, capacity] of the one clip, as the JAX
+    package's vmap broadcasts it: copies in memory of their own, since
+    ops downstream write in place."""
     num, m = osc_quantize(freq_hz, rate)
     data = generator_block(kind, num, m, gain, seed, channels, 0, 0,
                            capacity, device)
     data[:, total:] = 0.0
-    return Stream(data=data, length=total, rate=rate, channels=channels,
+    length = total
+    if batch is not None:
+        data = data.expand(batch, *data.shape).contiguous()
+        length = (total,) * batch
+    return Stream(data=data, length=length, rate=rate, channels=channels,
                   fmt=FMT_FLT)
 
 

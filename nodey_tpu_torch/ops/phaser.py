@@ -10,7 +10,8 @@ stages swept by an exact integer-residue LFO (ops/modfx.py).
 
 The coefficient at sample t is a pure function of the global sample index,
 so the offline and the streamed renders compute the same coefficient at
-the same position. Each stage is a first-order recurrence with the
+the same position; offline, a batch [B, C, N] shares that one track, and
+the scans run over every clip at once (elementwise, no GEMM). Each stage is a first-order recurrence with the
 time-varying pole p[n] = -a[n] in (0, 1) and the drive
 u[n] = a[n] x[n] + x[n-1]: one ``scans.tv_ar1_scan`` per stage.
 
@@ -57,23 +58,24 @@ def phaser_coeffs(r0: int, width: int, num: int, m: int, k0: float,
 
 
 def _shift1(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """x delayed one sample along the last axis; ``head`` [C, 1] fills
-    position 0 (zeros offline, the carried x_prev when streaming)."""
-    return torch.cat([head, x[:, :-1]], dim=1)
+    """x delayed one sample along the last axis; ``head`` [..., C, 1]
+    fills position 0 (zeros offline, the carried x_prev when
+    streaming)."""
+    return torch.cat([head, x[..., :-1]], dim=-1)
 
 
 def phaser_apply(x: torch.Tensor, a: torch.Tensor, stages: int, wet: float,
                  dry: float, x_prev=None, y_prev=None):
-    """The K-stage cascade over one window ``x`` [C, W] with coefficient
-    track ``a`` [W]. ``x_prev``/``y_prev`` [K, C] are the per-stage
-    carries (zeros when None). Returns (out [C, W], the stages' inputs,
-    the stages' outputs): gather the column a carry needs from those."""
-    c = x.shape[0]
+    """The K-stage cascade over one window ``x`` [C, W], or a batch's [B,
+    C, W] offline, with coefficient track ``a`` [W]. ``x_prev``/``y_prev``
+    [K, C] are the per-stage carries of a stream (zeros when None).
+    Returns (out, the stages' inputs, the stages' outputs): gather the
+    column a carry needs from those."""
     p = -a
     xs, ys = [], []
     cur = x
     for k in range(stages):
-        head = (x.new_zeros((c, 1)) if x_prev is None
+        head = (x.new_zeros(x.shape[:-1] + (1,)) if x_prev is None
                 else x_prev[k][:, None])
         u = a[None, :] * cur + _shift1(cur, head)
         if y_prev is not None:

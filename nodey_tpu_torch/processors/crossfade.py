@@ -42,6 +42,7 @@ _DESCRIPTION = """Crossfade
 
 
 class AudioCrossfade(Processor):
+    batched = True  # one gain row, each clip to its longer input
     _CLAMPS = {
         "at_s": (0.0, 86_400.0),
         "dur_ms": (1.0, 60_000.0),

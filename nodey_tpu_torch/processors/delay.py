@@ -35,6 +35,7 @@ _DESCRIPTION = """Delay
 
 
 class AudioDelay(Processor):
+    batched = True  # a static tail: every clip's length grows by it
     _CLAMPS = {
         "delay_ms": (10.0, 1000.0),
         "feedback": (0.0, 0.9),

@@ -45,6 +45,7 @@ _REVERSE_DESCRIPTION = """Reverse
 
 
 class AudioTrim(Processor):
+    batched = True  # one static slice, each clip's kept length
     _CLAMPS = {
         "start_s": (0.0, 86_400.0),
         "end_s": (0.0, 86_400.0),
@@ -132,6 +133,8 @@ class AudioTrim(Processor):
 
 
 class AudioReverse(Processor):
+    batched = True  # one gather, each clip over its own length
+
     def __init__(self) -> None:
         pass
 

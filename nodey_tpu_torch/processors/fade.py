@@ -40,6 +40,7 @@ _DESCRIPTION = """Fade In / Out
 
 
 class AudioFade(Processor):
+    batched = True  # one gain row; anchored at each clip's own end
     _CLAMPS = {
         "in_ms": (0.0, 60_000.0),
         "out_start_s": (0.0, 86_400.0),

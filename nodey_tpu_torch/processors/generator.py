@@ -45,6 +45,7 @@ _STD_RATES = (8000, 11025, 16000, 22050, 24000, 32000,
 
 
 class AudioGenerator(Processor):
+    batched = True  # the one clip, copied once per clip of the batch
     _CLAMPS = {
         "freq": (1.0, 20_000.0),
         "level_db": (-80.0, 0.0),
@@ -153,6 +154,7 @@ class AudioGenerator(Processor):
         return {"output": osc.generator_stream(
             self.waveform, self.freq, self._gain(), self.seed,
             self.rate, self.channels, total, capacity, ctx.device,
+            batch=ctx.batch,
         )}
 
     # -- chunk streaming: position and phase-residue carries (host ints) -----

@@ -71,6 +71,7 @@ class AudioPhaser(Processor):
     identical global positions; the only cross-chunk state is per-stage
     (x_prev, y_prev) columns and the LFO residue."""
 
+    batched = True  # one coefficient track, the scans over every clip
     _CLAMPS = {
         "rate_hz": (0.05, 10.0),
         "f_min_hz": (20.0, 2_000.0),
@@ -196,6 +197,7 @@ class AudioPhaser(Processor):
 
 
 class AudioTremolo(Processor):
+    batched = True  # one LFO gain row for every clip
     _CLAMPS = {
         "rate_hz": (0.1, 20.0),
         "depth": (0.0, 1.0),
@@ -289,6 +291,7 @@ class AudioTremolo(Processor):
 
 
 class AudioChorus(Processor):
+    batched = True  # one LFO, the gathers on the last axis
     _CLAMPS = {
         "rate_hz": (0.05, 10.0),
         "base_ms": (1.0, 40.0),

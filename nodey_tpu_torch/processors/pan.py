@@ -33,6 +33,7 @@ _DESCRIPTION = """Pan / Balance
 
 
 class AudioPan(Processor):
+    batched = True  # per-channel gains on axis -2 of any clip or batch
     _CLAMPS = {"pan": (-1.0, 1.0)}
 
     def __init__(self) -> None:
@@ -125,6 +126,7 @@ class AudioWidth(Processor):
     streams statelessly. Width 1.0 and mono inputs are bitwise
     passthroughs."""
 
+    batched = True  # the channel matrix on axis -2
     _CLAMPS = {"width": (0.0, 2.0)}
 
     def __init__(self) -> None:

@@ -30,8 +30,10 @@ peak taken across clips instead of within one would move it.
   and graph A >= 95 dB (tests/test_torch_masterbus.py), config 7 >= 100
   dB (tests/test_torch_reverb.py). Config 4 on the phase vocoder against
   the JAX package is in tests/test_torch_batch_pv.py.
-- A graph with a node that has no batched lowering (the delay) is refused
-  before anything runs, naming the node; malformed batches are refused.
+- Every registered node type has a batched lowering. A graph with a node
+  that has none (the delay, its ``batched`` patched to False) is refused
+  before anything runs, naming the node, and serves once the delay has
+  its own back; malformed batches are refused.
 """
 
 import contextlib
@@ -84,7 +86,10 @@ BATCHED = {"audio_input", "audio_volume_adjust", "audio_amix",
            "pitch_modifier", "velocity_modifier", "audio_split",
            "audio_bimix", "audio_bimix_v2", "audio_eq", "audio_filter",
            "audio_compressor", "audio_limiter", "audio_gate",
-           "audio_deesser", "audio_normalize", "audio_reverb"}
+           "audio_deesser", "audio_normalize", "audio_reverb",
+           "audio_delay", "audio_tremolo", "audio_chorus", "audio_phaser",
+           "audio_pan", "audio_width", "audio_fade", "audio_generator",
+           "audio_crossfade", "audio_trim", "audio_reverse"}
 
 
 @pytest.fixture(autouse=True)
@@ -331,12 +336,13 @@ def _check_jax(name, jg, compiled, mode, sources):
 
 
 def test_run_batch_refuses_what_it_cannot_run(tmp_path, monkeypatch):
-    """Nineteen node types are batched; a graph with any other (input ->
-    resample -> delay -> output) is refused before the resampler ahead of
-    the delay runs; malformed batches are refused."""
+    """All thirty node types are batched. With the delay's batched lowering
+    taken away, input -> resample -> delay -> output is refused before the
+    resampler ahead of the delay runs; with it back, the graph serves.
+    Malformed batches are refused."""
     register_all_processors()
     assert {ident for ident, info in processor_map.items()
-            if info.generate().batched} == BATCHED
+            if info.generate().batched} == BATCHED == set(processor_map)
     jregistry.register_all_processors()
     g, src = bench._new_graph(_write_tracks(str(tmp_path), 1, SECONDS,
                                             44_100, 2))
@@ -353,14 +359,17 @@ def test_run_batch_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     calls = []
     monkeypatch.setattr(tr, "apply_filter_bank",
                         lambda *a: calls.append(a))
+    monkeypatch.setattr(type(tg.nodes[dl].processor), "batched", False)
     arrays, lengths = _batch(sources)
     with pytest.raises(ProcessorRuntimeError) as err:
         compiled.run_batch(arrays, lengths)
     assert f"node {dl} (audio_delay)" in err.value.detail
-    assert "ROADMAP" in err.value.explanation
     assert compiled.unbatched_nodes() == [(dl, "audio_delay")]
     assert calls == []
     monkeypatch.undo()
+    assert compiled.unbatched_nodes() == []
+    data, lens = compiled.run_batch(arrays, lengths)[0]["master"]
+    assert data.shape[0] == len(SHARES) and len(set(lens)) == len(SHARES)
 
     tmp = tmp_path / "config1"
     tmp.mkdir()

@@ -80,11 +80,12 @@ def pin(g, nid, name):
 
 
 class PlanCtx:
-    """The contexts a node sees: the device and no hints."""
+    """The contexts a node sees: the device, no hints, one clip."""
 
     node_id = 1
     device = CPU
     hints = {}
+    batch = None
 
 
 def node_offline(gen):
