@@ -321,6 +321,23 @@ Phases, in order; the first failure exits non-zero:
                often as one clip's render. (g) generator -> output: run_batch
                refuses it (no external input) before any launch or
                allocation.
+ 33. serve   — the web editor's server (nodey_tpu_torch.app.server) on the
+               card, in process on 127.0.0.1:0, serving phase 4's 300 s
+               project: GET /api/graph and /api/registry; /api/edit/set of
+               the mix's volumes (0.6 / 0.4) and /api/save; POST /api/export
+               to WAV, /api/state polled every 5 ms until it finishes (a
+               poll must show the stage gauges): the file bitwise `run
+               --export --stream --device cuda` of the saved project,
+               launching the resampler kernel as often, and neither calling
+               the resampler's plain version; then three more of each in
+               turns, their wall RTF; /api/preview.wav?start=1 on the
+               10 s tracks read to EOF: bitwise a StreamingSession's blocks on
+               the card as s16, at >= 0.98x wall, with the time to the first
+               audible block and the underruns; /api/stop once the export
+               has written audio: the state "stopped", no partial file.
+               Then `run --diagnostics --profile-nodes --trace` on the 10 s
+               project (six nodes profiled; kernel events in the trace) and
+               `doctor --device cuda` (exit code 0).
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
@@ -329,7 +346,9 @@ streamed exports of configs 2 and 5, config 2's chunked render; phases
 25-29's: each graph's CLI render and streamed export, config 7's chunked
 render, reverse's fallback exports; phase 30's: each batched render, and
 the refused one; phases 31-32's: each batched render, and phase 32's
-refused one). Streamed exports that phases 14 and 22-29 repeat at 100 s
+refused one; phase 33's: the served export, the CLI's export it is held
+to, the served preview, the stopped export, the diagnostics run and
+doctor). Streamed exports that phases 14 and 22-29 repeat at 100 s
 and 300 s also print each export's host RSS (sampled every 5 ms): its rise
 above its start at 300 s must stay within 64 MiB of the one at 100 s. The
 line before the last is one JSON object describing the kernels; the last
@@ -4479,6 +4498,314 @@ def bimix_v2_graph(paths):
     return g
 
 
+# -- phase 33: the web editor's server on the card ------------------------------
+
+SERVE_POLL_S = 0.005                     # /api/state poll period
+SERVE_TIMED_RUNS = 3                     # timed served and CLI exports, in turns
+SERVE_VOLUMES = {"volumes0": 0.6, "volumes1": 0.4}  # the edit: amix levels
+
+
+class ServeClient:
+    """HTTP requests to a served editor on 127.0.0.1 with its token."""
+
+    def __init__(self, srv):
+        self.port = srv.server_address[1]
+        self.token = srv.viewer.auth_token
+
+    def request(self, method: str, path: str, body=None):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"X-Nodey-Token": self.token})
+        resp = conn.getresponse()
+        payload = resp.read()
+        conn.close()
+        return resp.status, payload
+
+    def json(self, method: str, path: str, body=None):
+        status, payload = self.request(method, path, body)
+        check(status == 200, f"33 serve: {method} {path} answered {status}: "
+                             f"{payload[:300]!r}")
+        return json.loads(payload)
+
+    def wait(self, until, timeout: float = 600.0):
+        """Poll /api/state every SERVE_POLL_S until ``until(state)``; returns
+        (the last state, every state polled)."""
+        polls = []
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            polls.append(self.json("GET", "/api/state"))
+            if until(polls[-1]):
+                return polls[-1], polls
+            time.sleep(SERVE_POLL_S)
+        fail(f"33 serve: /api/state never reached the awaited state: "
+             f"{polls[-1]}")
+
+    def stream(self, path: str):
+        """GET ``path`` read to EOF; returns (bytes, seconds from the request
+        to the first byte past the 44-byte WAV header)."""
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("GET", path, headers={"X-Nodey-Token": self.token})
+        resp = conn.getresponse()
+        check(resp.status == 200, f"33 serve: GET {path} answered "
+                                  f"{resp.status}")
+        parts, got, first = [], 0, None
+        while True:
+            part = resp.read1(1 << 16)
+            if not part:
+                break
+            parts.append(part)
+            got += len(part)
+            if first is None and got > 44:
+                first = time.perf_counter() - t0
+        conn.close()
+        return b"".join(parts), first
+
+
+@contextlib.contextmanager
+def counting_plain_resampler(calls: list):
+    """Every call of the resampler's plain version in the block is counted
+    in ``calls`` (the served paths must take the kernel alone)."""
+    from nodey_tpu_torch.ops import resample as tr
+
+    plain = tr.apply_filter_bank_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    tr.apply_filter_bank_plain = counted
+    try:
+        yield
+    finally:
+        tr.apply_filter_bank_plain = plain
+
+
+def serve_phase(cli, card: str, tmp: str, proj_5node: str, excerpt_tracks):
+    """Phase 33 (see the module docstring): the web editor's server
+    (``nodey_tpu_torch.app.server``) on the card, in process on
+    127.0.0.1:0. ``proj_5node``: phase 4's 300 s project; ``excerpt_tracks``:
+    its 10 s tracks. Returns the launch counts by path."""
+    import threading
+
+    import numpy as np
+
+    from nodey_tpu_torch.app import server
+    from nodey_tpu_torch.core.streaming import StreamingSession
+
+    tag = "33 serve"
+    srv = server.serve(cli._load_graph(proj_5node), "phase 33",
+                       "127.0.0.1", 0, project_path=proj_5node, device=CARD)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client = ServeClient(srv)
+    paths = {}
+    try:
+        graph = client.json("GET", "/api/graph")
+        registry = client.json("GET", "/api/registry")
+        applied = client.json("POST", "/api/edit/set",
+                              {"node_id": 3, "params": SERVE_VOLUMES})
+        edited = os.path.join(tmp, "served_two_track_mix.json")
+        client.json("POST", "/api/save", {"path": edited})
+        print(f"[{tag}] serving {os.path.basename(proj_5node)} on "
+              f"{srv.viewer.device} at 127.0.0.1:{client.port}: /api/graph "
+              f"{len(graph['nodes'])} nodes, {len(graph['links'])} links; "
+              f"/api/registry {len(registry)} node types; /api/edit/set node "
+              f"3 -> {applied['applied']}; saved to /api/save's path ({card})")
+        check(len(graph["nodes"]) == 6 and len(registry) == 30,
+              f"{tag}: the served graph or registry is not the project's")
+
+        # -- the served export against the CLI's streamed export ----------------
+        served_wav = os.path.join(tmp, "served.wav")
+        plain_calls = []
+        zero_counts()
+        with counting_plain_resampler(plain_calls):
+            t0 = time.perf_counter()
+            client.json("POST", "/api/export", {"path": served_wav})
+            state, polls = client.wait(lambda s: s["state"] != "running")
+            served_wall = time.perf_counter() - t0
+        paths["serve_export"] = counts = read_counts()
+        staged = [p["stages"] for p in polls if p["stages"] is not None]
+        check(state["state"] == "finished",
+              f"{tag}: the served export ended {state['state']}: "
+              f"{state['error']}")
+        print(f"[{tag}] POST /api/export {SECONDS} s -> WAV: finished in "
+              f"{served_wall:.3f} s wall from the request (wall RTF "
+              f"{SECONDS / served_wall:.1f}; the runner's own RTF "
+              f"{state['rtf_compute']:.1f}); {len(polls)} polls of "
+              f"/api/state, {len(staged)} with stages (the last: "
+              f"{staged[-1] if staged else None}); launches {counts}, plain "
+              f"resampler calls {len(plain_calls)} ({card})")
+        check(staged and all("steps" in s for s in staged),
+              f"{tag}: no poll of /api/state showed the stage gauges")
+        cli_wav = os.path.join(tmp, "served_cli.wav")
+        cli_calls = []
+        zero_counts()
+        with counting_plain_resampler(cli_calls):
+            rc, text, metrics = stream_export(cli, edited, cli_wav)
+        paths["serve_cli_export"] = cli_counts = read_counts()
+        print("\n".join(f"[{tag}] cli: {line}" for line in text.splitlines()))
+        check(rc == 0, f"{tag}: run --stream exited {rc}")
+        with open(served_wav, "rb") as f:
+            served_bytes = f.read()
+        with open(cli_wav, "rb") as f:
+            cli_bytes = f.read()
+        same = served_bytes == cli_bytes
+        print(f"[{tag}] served export {len(served_bytes)} bytes vs `run "
+              f"--export --stream --device {CARD}` of the saved project "
+              f"{len(cli_bytes)} bytes: {'bitwise equal' if same else 'DIFFER'};"
+              f" resampler launches {counts['polyphase_resample']} served, "
+              f"{cli_counts['polyphase_resample']} by the CLI; plain "
+              f"resampler calls {len(plain_calls)} and {len(cli_calls)}; CLI "
+              f"wall RTF {metrics.audio_seconds / metrics.wall_seconds:.1f} "
+              f"({card})")
+        check(same, f"{tag}: the served export is not the CLI's")
+        check(counts == cli_counts and counts["polyphase_resample"] >= 2,
+              f"{tag}: launches {counts} served, {cli_counts} by the CLI")
+        check(not plain_calls and not cli_calls,
+              f"{tag}: the resampler's plain version ran")
+        # The first streamed export of a process pays its cold start (seconds
+        # on the card); timed in turns after it, the served export and the
+        # CLI's stand side by side.
+        walls = {"served": [], "cli": []}
+        timed_wav = os.path.join(tmp, "served_timed.wav")
+        for _ in range(SERVE_TIMED_RUNS):
+            t0 = time.perf_counter()
+            client.json("POST", "/api/export", {"path": timed_wav})
+            state, _ = client.wait(lambda s: s["state"] != "running")
+            walls["served"].append(time.perf_counter() - t0)
+            check(state["state"] == "finished", f"{tag}: a timed served "
+                                                f"export ended {state}")
+            t0 = time.perf_counter()
+            rc, _, _ = stream_export(cli, edited, timed_wav)
+            walls["cli"].append(time.perf_counter() - t0)
+            check(rc == 0, f"{tag}: a timed CLI export exited {rc}")
+        rtf = {kind: "{:.1f} ({:.1f}-{:.1f})".format(
+            *summary([SECONDS / w for w in ws])[:3])
+            for kind, ws in walls.items()}
+        print(f"[{tag}] wall RTF of {SERVE_TIMED_RUNS} more exports each, in "
+              f"turns, warm (in process, after the earlier phases), median "
+              f"(min-max): served (the POST to the poll that "
+              f"reads finished, polls every {SERVE_POLL_S * 1e3:g} ms) "
+              f"{rtf['served']}; `run --export --stream` {rtf['cli']} "
+              f"({card})")
+
+        # -- the live preview against a StreamingSession on the card ------------
+        short = project_with_tracks(
+            edited, excerpt_tracks, os.path.join(tmp, "served_10s.json"))
+        client.json("POST", "/api/open", {"path": short})
+        plain_calls = []
+        zero_counts()
+        with counting_plain_resampler(plain_calls):
+            t0 = time.perf_counter()
+            pcm, first = client.stream("/api/preview.wav?start=1")
+            preview_wall = time.perf_counter() - t0
+            state, _ = client.wait(lambda s: s["state"] != "running")
+        paths["serve_preview"] = counts = read_counts()
+        session = srv.viewer.preview_session
+        reference = StreamingSession(cli._load_graph(short),
+                                     device=CARD).start(streamed=True)
+        want = b"".join(
+            np.clip(block.T * np.float32(32767.0), -32768, 32767)
+            .astype(np.int16).tobytes() for block in reference.blocks())
+        reference.stop()
+        same = pcm[44:] == want
+        audio_s = (len(pcm) - 44) / (4 * 48_000)
+        print(f"[{tag}] GET /api/preview.wav?start=1 on the "
+              f"{EXCERPT_SECONDS} s project: {len(pcm) - 44} bytes of "
+              f"s16 ({audio_s:.3f} audio-s) in {preview_wall:.3f} s wall, state "
+              f"{state['state']}; first audible block {first:.4f} s after the "
+              f"request, warm (in process, after the earlier phases; the "
+              f"session's own first block after "
+              f"{session.stats.first_block_seconds:.4f} s), "
+              f"{session.stats.underruns} underruns, {session.stats.blocks} "
+              f"blocks; vs a StreamingSession on the card: "
+              f"{'bitwise equal' if same else 'DIFFER'}; launches {counts}, "
+              f"plain resampler calls {len(plain_calls)} ({card})")
+        check(state["state"] == "finished", f"{tag}: the preview ended "
+                                            f"{state['state']}")
+        check(pcm[:44] == server._wav_stream_header(),
+              f"{tag}: the preview stream's header")
+        check(same, f"{tag}: the served preview is not a StreamingSession's")
+        check(counts["polyphase_resample"] >= 2 and not plain_calls,
+              f"{tag}: the preview's resampler: launches {counts}, plain "
+              f"calls {len(plain_calls)}")
+        check(preview_wall >= 0.98 * audio_s,
+              f"{tag}: the served preview ran ahead of 1.0x")
+
+        # -- a stop mid-export ---------------------------------------------------
+        client.json("POST", "/api/open", {"path": edited})
+        stopped_wav = os.path.join(tmp, "served_stopped.wav")
+        zero_counts()
+        client.json("POST", "/api/export", {"path": stopped_wav})
+        state, _ = client.wait(lambda s: s["seconds"] > 0
+                               or s["state"] != "running")
+        at = state["seconds"]
+        client.json("POST", "/api/stop")
+        srv.viewer._job_thread.join(60)
+        state, _ = client.wait(lambda s: s["state"] != "running")
+        paths["serve_stopped"] = counts = read_counts()
+        left = os.path.exists(stopped_wav)
+        notes = client.json("GET", "/api/notifications")
+        print(f"[{tag}] POST /api/stop at {at:.1f} audio-s of {SECONDS}: "
+              f"state {state['state']}, error {state['error']}, partial file "
+              f"{'LEFT' if left else 'removed'}, last notification "
+              f"{notes[-1]['message']!r}; launches {counts} ({card})")
+        check(0 < at < SECONDS, f"{tag}: the stop did not land mid-export")
+        check(state["state"] == "stopped" and state["error"] is None,
+              f"{tag}: the stopped export reads {state['state']}")
+        check(not left, f"{tag}: the stopped export left its partial file")
+    finally:
+        srv.viewer.stop_preview()
+        srv.shutdown()
+        srv.server_close()
+        thread.join(10)
+
+    # -- run --diagnostics --profile-nodes --trace, doctor -----------------------
+    trace_dir = os.path.join(tmp, "trace")
+    stdout = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["run", short, "--export", os.path.join(tmp, "diag.wav"),
+                       "--device", CARD, "--diagnostics", "--profile-nodes",
+                       "--trace", trace_dir])
+    paths["run_diagnostics"] = read_counts()
+    text = stdout.getvalue()
+    print("\n".join(f"[{tag}] cli: {line}"
+                    for line in text[:text.find("{")].splitlines()))
+    check(rc == 0, f"{tag}: run --diagnostics --profile-nodes --trace exited "
+                   f"{rc}")
+    decoder = json.JSONDecoder()
+    report, end = decoder.raw_decode(text, text.index("{"))
+    profile, _ = decoder.raw_decode(text, text.index("{", end))
+    traces = [os.path.join(trace_dir, name) for name in os.listdir(trace_dir)]
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"[{tag}] diagnostics: device_s {report['stages']['device_s']}, "
+          f"rtf {report['rtf']}; per-node device s "
+          f"{ {nid: e['device_s'] for nid, e in profile.items()} }; trace "
+          f"{os.path.basename(traces[0])}: {len(events)} events, "
+          f"{len(kernels)} kernel events; launches "
+          f"{paths['run_diagnostics']} ({card})")
+    check(len(profile) == 6 and kernels,
+          f"{tag}: the node profile or the trace's kernel events are missing")
+    stdout = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["doctor", "--device", CARD])
+    paths["doctor"] = read_counts()
+    print("\n".join(f"[{tag}] doctor: {line}"
+                    for line in stdout.getvalue().splitlines()))
+    check(rc == 0, f"{tag}: doctor exited {rc}")
+    return paths
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -5188,6 +5515,9 @@ def main() -> int:
         effects_batch_paths, _effects_figures, effects_kernels = (
             batch_effects_phase(cli, card, dev, tmp))
 
+        # -- 33. the web editor's server ---------------------------------------
+        serve_paths = serve_phase(cli, card, tmp, proj_5node, excerpt)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -5198,7 +5528,8 @@ def main() -> int:
             *tool_paths.items(), *config_paths.items(),
             *masterbus_paths.items(), *effects_paths.items(),
             *timeline_paths.items(), *batch_paths.items(),
-            *configs_paths.items(), *effects_batch_paths.items())}
+            *configs_paths.items(), *effects_batch_paths.items(),
+            *serve_paths.items())}
 
     def batch8(name, source=None):
         # The kernel's first launch on phase 30's batch of 8 x 30 s clips (or

@@ -18,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import heapq
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,7 +143,9 @@ class CompiledGraph:
 
     Calling it with ``{external_key: (tensor on device, valid length)}``
     runs every node and returns ``(outputs, output_meta)``: stream outputs
-    as ``(tensor, length)``, array outputs as tensors, all on the device."""
+    as ``(tensor, length)``, array outputs as tensors, all on the device.
+    ``on_node(node id)``, when given, is called after each node's lowering
+    (the per-node profile marks the render there)."""
 
     def __init__(self, graph: Graph, sources: Dict[Tuple[int, str], SourceSpec],
                  mode: str, device: torch.device):
@@ -165,14 +167,15 @@ class CompiledGraph:
                 (to_pin.attribute.identifier, link.from_pin)
             )
 
-    def __call__(self, args: Dict[str, Tuple[torch.Tensor, int]]):
+    def __call__(self, args: Dict[str, Tuple[torch.Tensor, int]],
+                 on_node: Optional[Callable[[int], None]] = None):
         for key in self.input_keys:
             if args[key][0].device != self.device:
                 raise LogicError(
                     f"input {key} is on {args[key][0].device}, the graph "
                     f"is bound to {self.device}"
                 )
-        return self._run(args)
+        return self._run(args, on_node=on_node)
 
     def unbatched_nodes(self) -> List[Tuple[int, str]]:
         """``(node id, identifier)`` of every node without a batched
@@ -258,7 +261,8 @@ class CompiledGraph:
                 for key, (data, lens) in args.items()}
         return self._run(args, batch)
 
-    def _run(self, args, batch: Optional[int] = None):
+    def _run(self, args, batch: Optional[int] = None,
+             on_node: Optional[Callable[[int], None]] = None):
         ctx = LowerCtx(self.mode, self.sources, args, self.device, batch)
         pin_values: Dict[int, Stream] = {}  # output pin id -> Stream
         for nid in self.order:
@@ -278,6 +282,8 @@ class CompiledGraph:
                         f"Node {nid} lowered unknown pin '{pin_name}'"
                     )
                 pin_values[pin_id] = value
+            if on_node is not None:
+                on_node(nid)
         return ctx.outputs, ctx.output_meta
 
 

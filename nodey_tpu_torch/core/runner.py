@@ -105,6 +105,16 @@ class Runner:
         self._active_executor = None
         self.last_stream_metrics = None
 
+    @contextlib.contextmanager
+    def _run_scope(self, nested: bool):
+        """A top-level run clears the stop when it ends, not when it
+        starts, so a stop() issued before the run began cancels it."""
+        try:
+            yield
+        finally:
+            if not nested:
+                self._stop_event.clear()
+
     def _check_cancel(self, where: str) -> None:
         if self._stop_event.is_set():
             raise RunCancelled(where)
@@ -179,21 +189,20 @@ class Runner:
         ``stop()`` is honoured between the stages: after decode, after
         compile and after the device render. ``_nested`` keeps a stop set
         during an enclosing export visible to this call."""
-        if not _nested:
-            self._stop_event.clear()
         self.state = RunnerState.RUNNING
         self.error = None
-        try:
-            result = self._render(mode, fetch)
-        except RunCancelled:
-            # Not an error: the reference tears the run down and returns to
-            # editing (app.cpp:1949-1957).
-            self.state = RunnerState.READY
-            raise
-        except BaseException as exc:
-            self.state = RunnerState.ERROR
-            self.error = exc
-            raise
+        with self._run_scope(_nested):
+            try:
+                result = self._render(mode, fetch)
+            except RunCancelled:
+                # Not an error: the reference tears the run down and
+                # returns to editing (app.cpp:1949-1957).
+                self.state = RunnerState.READY
+                raise
+            except BaseException as exc:
+                self.state = RunnerState.ERROR
+                self.error = exc
+                raise
         self.state = RunnerState.FINISHED
         return result
 
@@ -267,61 +276,60 @@ class Runner:
         from nodey_tpu_torch.core.streaming import start_block_egress
         from nodey_tpu_torch.host.streamio import BoundedBlockQueue
 
-        if not self._nested_export:
-            self._stop_event.clear()
-        result = self.render(mode="export", fetch=False, _nested=True)
-        if result.device_master is None:
-            raise ProcessorRuntimeError(
-                "Export produced no audio",
-                "The graph has no audio_output node receiving a stream.",
-                "master output missing",
-            )
-        t0 = time.perf_counter()
-        channels = result.device_master.shape[0]
-        queue = BoundedBlockQueue()
-        stop = threading.Event()
-        producer_errors: list = []
-        thread = start_block_egress(
-            result.device_master, result.master_length,
-            max(1, int(block_seconds * result.rate)), queue, stop,
-            producer_errors)
-        result.device_master = None
-        self.state = RunnerState.RUNNING
-        try:
-            written = 0
-            with host_encode.open_sink(path, result.rate, channels, kbps,
-                                       result.fmt) as enc:
-                while True:
-                    # The encode loop is an offline export's long pole: the
-                    # reference checks its stop token there too
-                    # (audio-io.cpp:173).
-                    self._check_cancel("export encode loop")
-                    block = queue.pop(stop=stop)
-                    if block is None:
-                        break
-                    enc.write(block)
-                    written += block.shape[1]
-                    if progress is not None:
-                        progress(written / result.rate)
-            if producer_errors:
-                raise producer_errors[0]
-        except RunCancelled:
-            stop.set()
-            self.state = RunnerState.READY
-            self._remove_partial(path)
-            raise
-        except BaseException as exc:
-            stop.set()
-            self.state = RunnerState.ERROR
-            self.error = exc
-            raise
-        finally:
-            stop.set()
-            thread.join(timeout=10.0)
-        self.state = RunnerState.FINISHED
-        result.metrics.encode_seconds = time.perf_counter() - t0
-        result.metrics.wall_seconds += result.metrics.encode_seconds
-        return result
+        with self._run_scope(self._nested_export):
+            result = self.render(mode="export", fetch=False, _nested=True)
+            if result.device_master is None:
+                raise ProcessorRuntimeError(
+                    "Export produced no audio",
+                    "The graph has no audio_output node receiving a stream.",
+                    "master output missing",
+                )
+            t0 = time.perf_counter()
+            channels = result.device_master.shape[0]
+            queue = BoundedBlockQueue()
+            stop = threading.Event()
+            producer_errors: list = []
+            thread = start_block_egress(
+                result.device_master, result.master_length,
+                max(1, int(block_seconds * result.rate)), queue, stop,
+                producer_errors)
+            result.device_master = None
+            self.state = RunnerState.RUNNING
+            try:
+                written = 0
+                with host_encode.open_sink(path, result.rate, channels, kbps,
+                                           result.fmt) as enc:
+                    while True:
+                        # The encode loop is an offline export's long
+                        # pole: the reference checks its stop token there
+                        # too (audio-io.cpp:173).
+                        self._check_cancel("export encode loop")
+                        block = queue.pop(stop=stop)
+                        if block is None:
+                            break
+                        enc.write(block)
+                        written += block.shape[1]
+                        if progress is not None:
+                            progress(written / result.rate)
+                if producer_errors:
+                    raise producer_errors[0]
+            except RunCancelled:
+                stop.set()
+                self.state = RunnerState.READY
+                self._remove_partial(path)
+                raise
+            except BaseException as exc:
+                stop.set()
+                self.state = RunnerState.ERROR
+                self.error = exc
+                raise
+            finally:
+                stop.set()
+                thread.join(timeout=10.0)
+            self.state = RunnerState.FINISHED
+            result.metrics.encode_seconds = time.perf_counter() - t0
+            result.metrics.wall_seconds += result.metrics.encode_seconds
+            return result
 
     def preview(self) -> RunResult:
         """Offline preview render: clamped 48 kHz stereo master."""
@@ -332,7 +340,8 @@ class Runner:
         an export (per block) or a streamed export (per chunk), as the
         reference's stop tokens (src/infra/runner.cpp:53-63). The call
         raises :class:`RunCancelled`, leaves no partial file, and the
-        runner returns to READY."""
+        runner returns to READY. A stop issued before a run starts cancels
+        that run: each run clears the stop when it ends."""
         self._stop_event.set()
         executor = self._active_executor
         if executor is not None:
@@ -355,7 +364,6 @@ class Runner:
         the JAX package: the reference's behaviour for such a graph."""
         from nodey_tpu_torch.core.stream_executor import StreamExecutor
 
-        self._stop_event.clear()
         self.state = RunnerState.RUNNING
         self.error = None
         executor = StreamExecutor(
@@ -376,6 +384,8 @@ class Runner:
 
         try:
             try:
+                # A stop() issued before the executor was registered.
+                self._check_cancel("streamed export")
                 sm = executor.run(sink, progress=progress)
                 # A stop() mid-run drains early with a truncated output.
                 self._check_cancel("streamed export")
@@ -401,6 +411,8 @@ class Runner:
             self.state = RunnerState.ERROR
             self.error = exc
             raise
+        finally:
+            self._stop_event.clear()
         self.state = RunnerState.FINISHED
         self.last_stream_metrics = sm
         return RunMetrics(

@@ -170,6 +170,9 @@ class StreamingSession:
             self.runner.graph, mode="preview", chunk_seconds=0.5,
             collect_frames=False, device=self.device,
         )
+        if self._stop.is_set():
+            # stop() came before the executor existed: it ends at once.
+            self._executor.stop()
         stream = _current_stream(self.device)
 
         def produce() -> None:

@@ -506,25 +506,29 @@ def _special_planes(device, C, K, n_fft, rows, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lock", [True, False])
-@pytest.mark.parametrize("case", PV_CASES + PV_SYNTHETIC,
-                         ids=lambda case: "-".join(map(str, case)))
-def test_pv_phase_kernel_matches_plain(cuda_device, case, lock):
-    if len(case) == 4 and isinstance(case[3], str):
-        re, im, dpos, hop, n_fft = _special_planes(cuda_device, *case)
-    else:
-        re, im, dpos, hop, n_fft = _pv_planes(cuda_device, *case)
-    before = cuda_pv.phase_path_launches
-    ry, iy = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
-    torch.cuda.synchronize()
-    assert cuda_pv.phase_path_launches == before + 1
-    pry, piy = pv.phase_path_plain(re, im, dpos, hop, n_fft, lock)
-    assert ry.shape == pry.shape == re.shape
-    assert _snr_db(pry, ry) >= 100.0 and _snr_db(piy, iy) >= 100.0
-    mag = torch.sqrt(re * re + im * im)
-    live = mag > 0
-    err = torch.hypot(ry - pry, iy - piy)[live] / mag[live]
-    assert err.max().item() <= 1e-3
+def test_pv_phase_kernel_matches_plain(cuda_device):
+    """Every case of PV_CASES and PV_SYNTHETIC, with and without lock, each
+    held to its own bars (one item: the count of collected tests decides
+    how the parallel test run splits its work)."""
+    for case in PV_CASES + PV_SYNTHETIC:
+        for lock in (True, False):
+            name = f"case {'-'.join(map(str, case))}, lock={lock}"
+            if len(case) == 4 and isinstance(case[3], str):
+                re, im, dpos, hop, n_fft = _special_planes(cuda_device, *case)
+            else:
+                re, im, dpos, hop, n_fft = _pv_planes(cuda_device, *case)
+            before = cuda_pv.phase_path_launches
+            ry, iy = cuda_pv.phase_path_cuda(re, im, dpos, hop, n_fft, lock)
+            torch.cuda.synchronize()
+            assert cuda_pv.phase_path_launches == before + 1, name
+            pry, piy = pv.phase_path_plain(re, im, dpos, hop, n_fft, lock)
+            assert ry.shape == pry.shape == re.shape, name
+            assert _snr_db(pry, ry) >= 100.0, name
+            assert _snr_db(piy, iy) >= 100.0, name
+            mag = torch.sqrt(re * re + im * im)
+            live = mag > 0
+            err = torch.hypot(ry - pry, iy - piy)[live] / mag[live]
+            assert err.max().item() <= 1e-3, name
 
 
 @pytest.mark.cuda

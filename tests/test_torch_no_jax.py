@@ -3,8 +3,11 @@
 A fresh interpreter whose ``sys.meta_path`` refuses jax and the JAX
 package imports every module of ``nodey_tpu_torch`` and renders a tiny
 WAV graph through ``python -m nodey_tpu_torch run ... --device cpu``, once
-offline, once streamed (``--stream``) and once as the realtime preview
-(``--realtime``); afterwards ``sys.modules`` holds neither. ``chip_smoke.py`` and the A/B tool (``python -m
+offline (then ``doctor --device cpu`` and ``edit ... show`` in the same
+interpreter), once streamed (``--stream``) and once as the realtime preview
+(``--realtime``); ``serve --device cpu`` answers one ``GET /api/graph``
+with its token and shuts down on SIGINT; afterwards ``sys.modules`` holds
+neither. ``chip_smoke.py`` and the A/B tool (``python -m
 nodey_tpu_torch.tools.ab_wsola_fps``) are held to the same, and no source
 file of the port (``tools/`` included) names either in an import.
 """
@@ -13,8 +16,11 @@ import ast
 import json
 import os
 import pathlib
+import re
+import signal
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -44,15 +50,28 @@ def report():
     print("BLOCKED_MODULES", leaked, flush=True)
 """
 
+# Runs ``python -m nodey_tpu_torch`` once per command; commands are
+# separated by "--then", and the script exits with the first non-zero code.
 _CLI_DRIVER = _BLOCKER + r"""
 import importlib, pkgutil, runpy
 import nodey_tpu_torch
 for mod in pkgutil.walk_packages(nodey_tpu_torch.__path__, "nodey_tpu_torch."):
     if mod.name != "nodey_tpu_torch.__main__":
         importlib.import_module(mod.name)
-sys.argv = ["nodey_tpu_torch"] + sys.argv[1:]
+commands = [[]]
+for arg in sys.argv[1:]:
+    if arg == "--then":
+        commands.append([])
+    else:
+        commands[-1].append(arg)
 try:
-    runpy.run_module("nodey_tpu_torch", run_name="__main__")
+    for argv in commands:
+        sys.argv = ["nodey_tpu_torch"] + argv
+        try:
+            runpy.run_module("nodey_tpu_torch", run_name="__main__")
+        except SystemExit as exc:
+            if exc.code:
+                raise
 finally:
     report()
 """
@@ -94,8 +113,10 @@ def test_cli_runs_with_jax_blocked(tmp_path, stream):
     proj = _project(tmp_path)
     out = tmp_path / "out.wav"
 
+    more = [] if stream else ["--then", "doctor", "--device", "cpu",
+                              "--then", "edit", str(proj), "show"]
     proc = _run(_CLI_DRIVER, "run", str(proj), "--export", str(out),
-                "--device", "cpu", *(["--stream"] if stream else []),
+                "--device", "cpu", *(["--stream"] if stream else []), *more,
                 cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout
@@ -103,17 +124,49 @@ def test_cli_runs_with_jax_blocked(tmp_path, stream):
         assert "(streamed)" in proc.stdout and "stages:" in proc.stdout
     else:
         assert "spectrum 'spectrum_4'" in proc.stdout
+        assert "nodey_tpu_torch doctor" in proc.stdout
+        assert "device                 cpu" in proc.stdout
+        assert "node 3: audio_amix pins=" in proc.stdout
+        assert "link 5: 4.output -> 5.input" in proc.stdout
     assert out.stat().st_size > 44 + 2 * 4 * 4410
 
 
 def test_realtime_preview_runs_with_jax_blocked(tmp_path):
     out = tmp_path / "preview.wav"
-    proc = _run(_CLI_DRIVER, "run", str(_project(tmp_path)), "--realtime",
+    proj = _project(tmp_path)
+    proc = _run(_CLI_DRIVER, "run", str(proj), "--realtime",
                 "--preview", str(out), "--device", "cpu", cwd=tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BLOCKED_MODULES []" in proc.stdout, proc.stdout
     assert "streamed 0.10 audio-s" in proc.stdout, proc.stdout
     assert out.stat().st_size == 44 + 2 * 4 * 4800
+
+    # serve: the printed URL's token answers one GET; SIGINT shuts it down.
+    serve = subprocess.Popen(
+        [sys.executable, "-c", _CLI_DRIVER, "serve", str(proj), "--port", "0",
+         "--device", "cpu"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        cwd=str(tmp_path))
+    try:
+        first = serve.stdout.readline()
+        match = re.search(r"http://127\.0\.0\.1:(\d+)/\?token=(\S+)", first)
+        assert match, first + serve.stderr.read()
+        port, token = match.groups()
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/graph",
+            headers={"X-Nodey-Token": token})
+        with urllib.request.urlopen(request, timeout=60) as response:
+            graph = json.loads(response.read())
+        assert [n["identifier"] for n in graph["nodes"]][:2] == [
+            "audio_input", "audio_volume_adjust"]
+        serve.send_signal(signal.SIGINT)
+        rest, err = serve.communicate(timeout=60)
+    finally:
+        if serve.poll() is None:
+            serve.kill()
+            serve.communicate()
+    assert serve.returncode == 0, rest + err
+    assert "BLOCKED_MODULES []" in rest, rest
 
 
 def test_chip_smoke_loads_nothing_of_jax_and_fails_without_a_card(tmp_path):
