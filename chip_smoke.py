@@ -338,6 +338,32 @@ Phases, in order; the first failure exits non-zero:
                Then `run --diagnostics --profile-nodes --trace` on the 10 s
                project (six nodes profiled; kernel events in the trace) and
                `doctor --device cuda` (exit code 0).
+ 34. mesh    — nodey_tpu_torch.parallel on a virtual mesh (every shard on
+               the card; the card's machine shows one device): (a) the
+               5-node graph on phase 4's 300 s tracks at sp 4
+               (compile_graph_sharded): master and spectrum bitwise the
+               single render, 2 x 4 resampler launches each within 2e-6
+               of plain; (b) dp 2 x sp 4 over 8 clips of 30 s: every clip
+               bitwise its single render, 16 launches; (e)
+               run_batch(mesh=dp 4) bitwise run_batch, 4x its launches;
+               (c) compile_graph_dp of the JAX dry run's chain
+               (__graft_entry__.py:191-282: resample, pitch +3, velocity
+               1.25, EQ, chorus, phaser, tremolo, width, limiter) on WSOLA,
+               the PV and the PV with its options, dp 4, 8 clips of 30 s:
+               every clip bitwise its single render, dp x one clip's
+               launches, every chain (check_chain), prologue, phase-path,
+               lock and resampler launch against its plain version; (d)
+               compile_chain_sp_tv of that chain on the PV, sp 4: on 0.8 s
+               (tests/test_tv_sharded.py's shape) > 45 dB against the
+               single render; on 300 s > 40 dB (PV_DEVICE_DB) and within 3
+               dB of the single render's own float32 determinism (the
+               single render with the plain phase path against it), 8
+               lock and 8 resampler launches each against plain, no phase
+               path; each sharded render's time beside the single
+               render's (CUDA events: on a virtual mesh, what the shards
+               add, not scaling); (f) with more than one card, (a) and (b)
+               again over the real devices, else a line that says only
+               the virtual mesh ran.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
@@ -348,9 +374,10 @@ render, reverse's fallback exports; phase 30's: each batched render, and
 the refused one; phases 31-32's: each batched render, and phase 32's
 refused one; phase 33's: the served export, the CLI's export it is held
 to, the served preview, the stopped export, the diagnostics run and
-doctor). Streamed exports that phases 14 and 22-29 repeat at 100 s
-and 300 s also print each export's host RSS (sampled every 5 ms): its rise
-above its start at 300 s must stay within 64 MiB of the one at 100 s. The
+doctor; phase 34's: each sharded, dp and meshed render). Streamed
+exports that phases 14 and 22-29 repeat at 100 s and 300 s also print
+each export's host RSS (sampled every 5 ms): its rise above its start at
+300 s must stay within 64 MiB of the one at 100 s. The
 line before the last is one JSON object describing the kernels; the last
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -475,6 +502,20 @@ BATCH_LENGTHS_S = (30.0, 21.3, 9.7)  # phase 30 (d): one capacity, 3 lengths
 BATCH_SEED = 30                  # phase 31's clips: bench tones, seeds 30-
 BATCH_QUIET = 10.0 ** (-40 / 20)  # ... its second clip's scale, -40 dB
 PEAK_DB = -3.0                   # phase 31's peak graph: normalize target
+# Phase 34: the mesh. A virtual mesh puts every shard on the one card: sp 4
+# for the 5-node graph on phase 4's tracks, dp 2 x sp 4 over 8 clips of
+# 30 s, dp 4 for compile_graph_dp and run_batch(mesh=), sp 4 for the PV
+# chain; its bar is tests/test_tv_sharded.py's for two PV stages in series,
+# on that test's 0.8 s (at 300 s the chain is held at PV_DEVICE_DB).
+MESH_SP = 4
+MESH_DP = 2
+MESH_DP_WIDE = 4
+MESH_SP_TV = 4
+MESH_CLIPS = 8
+MESH_CLIP_SECONDS = 30
+MESH_TV_DB = 45.0
+MESH_TV_SECONDS = 0.8
+MESH_TV_OWN_DB = 3.0
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -4806,6 +4847,558 @@ def serve_phase(cli, card: str, tmp: str, proj_5node: str, excerpt_tracks):
     return paths
 
 
+# -- phase 34: the mesh ----------------------------------------------------------
+
+
+def dryrun_chain_graph(path, algorithm="wsola", options=False):
+    """The JAX package's multi-chip dry run's time-variant chain
+    (__graft_entry__.py:191-282) with the port's processors: resample 48
+    kHz -> pitch +3 -> velocity 1.25 keep_pitch -> EQ (p2 -3 dB) -> chorus
+    (wet 0.3) -> phaser (wet 0.5) -> tremolo (depth 0.4) -> width 1.3 ->
+    limiter -3 dB, both tempo nodes on ``algorithm`` (with ``options``,
+    pv_transient on both and preserve_formants on the pitch node)."""
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.processors.audio_input import AudioInput
+    from nodey_tpu_torch.processors.audio_output import AudioOutput
+    from nodey_tpu_torch.processors.equalizer import AudioEq
+    from nodey_tpu_torch.processors.limiter import AudioLimiter
+    from nodey_tpu_torch.processors.modulation import (AudioChorus,
+                                                       AudioPhaser,
+                                                       AudioTremolo)
+    from nodey_tpu_torch.processors.pan import AudioWidth
+    from nodey_tpu_torch.processors.resample_node import AudioResample
+    from nodey_tpu_torch.processors.velocity import (PitchModifier,
+                                                     VelocityModifier)
+
+    g = Graph()
+    src = g.add_node(AudioInput())
+    g.nodes[src].processor.file_paths = [path]
+    g.update_node_pin(src)
+    nodes = [src]
+
+    def add(proc, **params):
+        nid = g.add_node(proc)
+        for key, value in params.items():
+            proc.set_param(key, value)
+        g.add_link(_pin(g, nodes[-1], "output_0" if nodes[-1] == src
+                        else "output"), _pin(g, nid, "input"))
+        nodes.append(nid)
+        return proc
+
+    add(AudioResample()).set_target_rate(48_000)
+    pitch = add(PitchModifier())
+    pitch.pitch = 3.0
+    vel = add(VelocityModifier())
+    vel.set_velocity(1.25)
+    vel.keep_pitch = True
+    for proc in (pitch, vel):
+        proc.set_algorithm(algorithm)
+        proc.pv_transient = options
+    pitch.preserve_formants = options
+    add(AudioEq(), p2_gain_db=-3.0)
+    add(AudioChorus(), wet=0.3)
+    add(AudioPhaser(), wet=0.5)
+    add(AudioTremolo(), depth=0.4)
+    add(AudioWidth(), width=1.3)
+    add(AudioLimiter()).set_threshold_db(-3.0)
+    out = g.add_node(AudioOutput())
+    g.add_link(_pin(g, nodes[-1], "output"), _pin(g, out, "input"))
+    return g
+
+
+def mesh_render_times(tag: str, what: str, sharded_fn, single_fn,
+                      single_what: str, iters: int, card: str) -> dict:
+    """CUDA-event medians of a sharded render and of the single render(s)
+    it stands for, timed in turns, printed side by side."""
+    runs = {"sharded": [], "single": []}
+    for name in ("single", "sharded", "sharded", "single"):
+        runs[name] += cuda_ms(sharded_fn if name == "sharded" else single_fn,
+                              iters, warmup=1)
+    med, lo, hi, count = summary(runs["sharded"])
+    smed, slo, shi, scount = summary(runs["single"])
+    print(f"[{tag}] {what}: median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+          f"n={count}); {single_what} median {smed:.4f} ms (min {slo:.4f}, "
+          f"max {shi:.4f}, n={scount}); {med / smed:.2f}x (CUDA events; a "
+          f"virtual mesh of one card measures what the shards add: halos, "
+          f"overlapping windows, a launch a shard; not scaling) ({card})")
+    return {"ms": med, "single_ms": smed}
+
+
+def mesh_spectrum_check(tag: str, what: str, got, want, card: str) -> bool:
+    """A sharded spectrum's frames against the single render's: bitwise,
+    or else their SNR (>= SNR_DB) printed with the reason."""
+    import torch
+
+    frames = want.shape[-2]
+    got = got[..., :frames, :]
+    if torch.equal(got, want):
+        print(f"[{tag}] {what}: spectrum {list(want.shape)} bitwise the "
+              f"single render's ({card})")
+        return True
+    db = plane_snr_db(want, got)
+    print(f"[{tag}] {what}: spectrum {list(want.shape)} {db:.1f} dB against "
+          f"the single render (min {SNR_DB:.0f}): not bitwise, as the "
+          f"spectrum's DFT GEMM runs on a window's frame count and cuBLAS "
+          f"picks its kernel, and so a frame's order of sums, by the GEMM's "
+          f"shape ({card})")
+    check(db >= SNR_DB, f"{tag}: {what}: the sharded spectrum disagrees")
+    return False
+
+
+def mesh_sp_case(tag: str, card: str, mesh, paths, kernels: dict) -> dict:
+    """Phase 34 (a): the 5-node graph on ``paths`` sharded over the sp
+    axis of ``mesh``, against the single render on the card. Returns the
+    path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core import compiler
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.parallel import sharded
+
+    g = flagship_graph(paths)
+    arrays, lengths, sources = Runner(g, device=CARD).decode()
+    rate = next(iter(sources.values())).rate
+    sp = mesh.shape["sp"]
+    cap = sharded.plan_capacity_for(g, rate, max(lengths.values()), mesh)
+    sources = {k: dataclasses.replace(s, capacity=cap)
+               for k, s in sources.items()}
+    home = mesh.devices.flat[0]
+    data = {k: torch.from_numpy(np.pad(v, ((0, 0), (0, cap - v.shape[1]))))
+            .to(home) for k, v in arrays.items()}
+    args = {k: (v, lengths[k]) for k, v in data.items()}
+    single = compiler.compile_graph(g, sources, device=home)
+    ref, _ = single(args)
+    sc = sharded.compile_graph_sharded(g, sources, mesh)
+    resamples = []
+    zero_counts()
+    with recorded_launches(resamples=resamples):
+        out = sc.run(data, lengths)
+    counts = read_counts()
+    what = (f"5-node graph, two {SECONDS} s tracks, sp {sp} over "
+            f"{[str(d) for d in mesh.devices.flat]}")
+    print(f"[{tag}] {what}: capacity {cap}, plan chunk {sc.plan.chunk} + 2 x "
+          f"halo {sc.plan.halo}; launches {counts} ({card})")
+    check(counts["polyphase_resample"] == len(data) * sp,
+          f"{tag}: {counts['polyphase_resample']} resampler launches, want "
+          f"{len(data)} inputs x {sp} shards")
+    kernels["resample_err"] = max(kernels.get("resample_err", 0.0),
+                                  check_resamples(tag, resamples,
+                                                  counts["polyphase_resample"],
+                                                  card))
+    del resamples
+    (master, glen), (want, want_len) = out["master"], ref["master"]
+    same = torch.equal(master, want)
+    print(f"[{tag}] {what}: master {list(master.shape)}, length {glen} "
+          f"(single {want_len}), {'bitwise' if same else 'NOT bitwise'} the "
+          f"single render's ({card})")
+    check(same and glen == want_len, f"{tag}: the sharded master differs")
+    [key] = [k for k in ref if k.startswith("spectrum_")]
+    kernels.setdefault("spectrum_bitwise", []).append(
+        mesh_spectrum_check(tag, what, out[key], ref[key], card))
+    del out, ref, master, want
+    times = mesh_render_times(tag, what, lambda: sc.run(data, lengths),
+                              lambda: single(args), "the single render", 3,
+                              card)
+    kernels.setdefault("times", {})[f"5node_sp{sp}"] = times
+    return counts
+
+
+def mesh_dp_sp_case(tag: str, card: str, mesh, tmp: str, kernels: dict,
+                    dp_mesh=None) -> dict:
+    """Phase 34 (b), and with ``dp_mesh`` (e): the 5-node graph over
+    MESH_CLIPS clips of MESH_CLIP_SECONDS s sharded dp x sp on ``mesh``,
+    each clip against its single render; then run_batch(mesh=dp_mesh)
+    against run_batch. Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+
+    from nodey_tpu_torch.core import compiler
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.parallel import sharded
+
+    n = RATE * MESH_CLIP_SECONDS
+    tracks = []
+    for i in range(2):
+        path = os.path.join(tmp, f"mesh_5node_{i}.wav")
+        if not os.path.exists(path):
+            write_wav_s16(path, bench_tone(n, RATE, 220.0 * (i + 1), 2, i),
+                          RATE)
+        tracks.append(path)
+    g = flagship_graph(tracks)
+    _, _, sources = Runner(g, device=CARD).decode()
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    cap = sharded.plan_capacity_for(g, RATE, n, mesh)
+    sources = {k: dataclasses.replace(s, capacity=cap)
+               for k, s in sources.items()}
+    home = mesh.devices.flat[0]
+    lens = [n - 9_973 * b for b in range(MESH_CLIPS)]
+    data, blens = {}, {}
+    for i, key in enumerate(sorted(compiler.external_key(*k)
+                                   for k in sources)):
+        signals = [bench_tone(n, RATE, 220.0 * (i + 1) + 10.0 * b, 2,
+                              60 + 10 * i + b)[:, :m]
+                   for b, m in enumerate(lens)]
+        data[key] = torch.from_numpy(s16_clips(signals, cap)).to(home)
+        blens[key] = tuple(lens)
+    sc = sharded.compile_graph_sharded(g, sources, mesh, dp_axis="dp")
+    single = compiler.compile_graph(g, sources, device=home)
+    what = (f"5-node graph, {MESH_CLIPS} clips of {MESH_CLIP_SECONDS} s, dp "
+            f"{dp} x sp {sp}")
+    paths, resamples = {}, []
+    zero_counts()
+    with recorded_launches(resamples=resamples):
+        outs = sc.run(data, blens)
+    paths[f"5node_dp{dp}_sp{sp}"] = counts = read_counts()
+    print(f"[{tag}] {what}: launches {counts} ({card})")
+    check(counts["polyphase_resample"] == len(data) * dp * sp,
+          f"{tag}: {what}: {counts['polyphase_resample']} resampler launches,"
+          f" want {len(data)} inputs x {dp * sp} shards")
+    kernels["resample_err"] = max(kernels["resample_err"], check_resamples(
+        tag, resamples, counts["polyphase_resample"], card))
+    del resamples
+    singles = [single({k: (v[b], blens[k][b]) for k, v in data.items()})[0]
+               for b in range(MESH_CLIPS)]
+    [key] = [k for k in singles[0] if k.startswith("spectrum_")]
+    check_clips(tag, what, {"master": outs["master"]},
+                [{"master": s["master"]} for s in singles], card)
+    kernels.setdefault("spectrum_bitwise", []).append(mesh_spectrum_check(
+        tag, what, outs[key], torch.stack([s[key] for s in singles]), card))
+    del outs
+    times = mesh_render_times(
+        tag, what, lambda: sc.run(data, blens),
+        lambda: [single({k: (v[b], blens[k][b]) for k, v in data.items()})
+                 for b in range(MESH_CLIPS)],
+        f"{MESH_CLIPS} single renders", 2, card)
+    kernels.setdefault("times", {})[f"5node_dp{dp}_sp{sp}"] = times
+    if dp_mesh is None:
+        return paths
+
+    # (e) run_batch(mesh=) against run_batch.
+    ddp = dp_mesh.shape["dp"]
+    zero_counts()
+    plain, _ = single.run_batch(data, blens)
+    one_batch = read_counts()
+    zero_counts()
+    meshed, _ = single.run_batch(data, blens, mesh=dp_mesh, dp_axis="dp")
+    paths[f"5node_run_batch_dp{ddp}"] = counts = read_counts()
+    same = all(torch.equal(plain[k][0] if isinstance(plain[k], tuple)
+                           else plain[k],
+                           meshed[k][0] if isinstance(meshed[k], tuple)
+                           else meshed[k]) for k in plain)
+    same &= plain["master"][1] == meshed["master"][1]
+    print(f"[{tag}] run_batch(mesh=dp {ddp}) on the {what.split(',')[0]}'s "
+          f"{MESH_CLIPS} clips: master, lengths and spectrum "
+          f"{'bitwise' if same else 'NOT bitwise'} run_batch's; launches "
+          f"{counts}, run_batch's {one_batch} ({card})")
+    check(same, f"{tag}: run_batch(mesh=) differs from run_batch")
+    check(counts["polyphase_resample"]
+          == ddp * one_batch["polyphase_resample"],
+          f"{tag}: run_batch(mesh=) launched {counts}, want {ddp} x "
+          f"{one_batch}")
+    del plain, meshed
+    times = mesh_render_times(
+        tag, f"run_batch(mesh=dp {ddp})",
+        lambda: single.run_batch(data, blens, mesh=dp_mesh, dp_axis="dp"),
+        lambda: single.run_batch(data, blens), "run_batch without a mesh", 3,
+        card)
+    kernels["times"][f"5node_run_batch_dp{ddp}"] = times
+    return paths
+
+
+def mesh_dp_chain_checks(tag: str, what: str, chains, single_chains,
+                         dp: int, card: str) -> float:
+    """Every WSOLA chain launch of a dp render (each of the ``dp`` shards'
+    clips in one launch a stage) clip by clip against the plain scoring and
+    assembly (check_chain), its splices equal to the clip's single render's
+    (``single_chains``: the single renders' launches, clip by clip), and its
+    first block's energy prologue against the plain version. Returns the
+    worst max|body - plain|."""
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_wsola, wsola
+
+    n_stages = len(chains) // dp
+    share = len(single_chains) // n_stages // dp
+    worst = energy_rel = 0.0
+    for launch, (x, head, args, (bs, body)) in enumerate(chains):
+        d, stage = divmod(launch, n_stages)
+        geo = dict(zip(("K", "num", "den", "seq", "seek", "overlap"), args))
+        for j in range(x.shape[0]):
+            clip = d * share + j
+            _, _, err = check_chain(f"{what}, shard {d} stage {stage} clip "
+                                    f"{clip}", x[j], head[j], geo, card,
+                                    out=(bs[j], body[j]), phase=tag)
+            worst = max(worst, err)
+            check(torch.equal(single_chains[n_stages * clip + stage][3][0],
+                              bs[j]),
+                  f"{tag}: {what}: clip {clip} stage {stage}: splices differ "
+                  f"from its single render's")
+        first = min(geo["K"], cuda_wsola.BLOCK_FRAMES)
+        got = cuda_wsola.wsola_energy_cuda(x, 0, 0, first, *args[1:])
+        want = wsola.wsola_energy_plain(x, 0, 0, first, *args[1:])
+        energy_rel = max(energy_rel, ((got - want).abs() / want).max().item())
+    print(f"[{tag}] {what}: {len(chains)} chain launches, each clip's "
+          f"splices equal to its single render's; energy prologue, first "
+          f"block of each launch: max|kernel - plain| / plain = "
+          f"{energy_rel:.3e} (tol {ENERGY_REL:.0e}) ({card})")
+    check(energy_rel <= ENERGY_REL, f"{tag}: {what}: the prologue disagrees")
+    return worst
+
+
+def mesh_dp_cases(tag: str, card: str, dev, tmp: str, kernels: dict) -> dict:
+    """Phase 34 (c): compile_graph_dp of the dry run's chain on WSOLA, on
+    the PV and on the PV with its options, dp MESH_DP_WIDE, MESH_CLIPS
+    clips of MESH_CLIP_SECONDS s. Returns the launch counts by path."""
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.parallel import sharded
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    n = RATE * MESH_CLIP_SECONDS
+    signals = [bench_tone(n, RATE, 200.0 + 25.0 * b, 2, 80 + b)
+               for b in range(MESH_CLIPS)]
+    track = os.path.join(tmp, "mesh_chain.wav")
+    write_wav_s16(track, signals[0], RATE)
+    dp = MESH_DP_WIDE
+    mesh = make_mesh({"dp": dp}, [dev] * dp)
+    lens = [n - 7_919 * b for b in range(MESH_CLIPS)]
+    paths = {}
+    for name, algo, options in (("wsola", "wsola", False), ("pv", "pv", False),
+                                ("pv_options", "pv", True)):
+        g = dryrun_chain_graph(track, algo, options)
+        runner = Runner(g, device=CARD)
+        arrays, _, sources = runner.decode()
+        [key] = arrays
+        clips = s16_clips([s[:, :m] for s, m in zip(signals, lens)],
+                          arrays[key].shape[1])
+        bargs, blens, singles_args = batch_and_singles(key, clips, lens, dev)
+        dpg = sharded.compile_graph_dp(g, sources, mesh)
+        resamples, chains, phase_paths, locks = [], [], [], []
+        zero_counts()
+        with recorded_launches(resamples=resamples, chains=chains,
+                               phase_paths=phase_paths, locks=locks):
+            outs = dpg.run(bargs, blens)
+        paths[f"dryrun_chain_dp{dp}_{name}"] = counts = read_counts()
+        single_chains, singles = [], []
+        for b, args in enumerate(singles_args):
+            zero_counts()
+            with recorded_launches(chains=single_chains):
+                singles.append(dpg.compiled(args)[0])
+            if b == 0:
+                one = read_counts()
+        what = (f"dry-run chain on {name}, {MESH_CLIPS} clips of "
+                f"{MESH_CLIP_SECONDS} s, dp {dp}")
+        print(f"[{tag}] {what}: launches {counts}; one clip's render "
+              f"{one} ({card})")
+        check(counts == {k: dp * v for k, v in one.items()},
+              f"{tag}: {what}: the dp render launched {counts}, want {dp} x "
+              f"one clip's {one}")
+        want_kernels = {"wsola": ("wsola_chain", "wsola_energy"),
+                        "pv": ("pv_phase_path",),
+                        "pv_options": ("pv_lock",)}[name]
+        check(all(counts[k] > 0 for k in want_kernels),
+              f"{tag}: {what}: no launch of {want_kernels}")
+        check_clips(tag, what, outs, singles, card)
+        del outs, singles
+        kernels["resample_err"] = max(kernels["resample_err"], check_resamples(
+            f"{tag} {name}", resamples, counts["polyphase_resample"], card))
+        if algo == "wsola":
+            kernels["wsola_err"] = mesh_dp_chain_checks(
+                tag, what, chains, single_chains, dp, card)
+        else:
+            pv_figures = {}
+            pv_batch_checks(tag, what, phase_paths, locks, counts,
+                            pv_figures, card)
+            kernels["lock_err"] = max(kernels.get("lock_err", 0.0),
+                                      pv_figures[f"{what}_lock_err"])
+        del resamples, chains, single_chains, phase_paths, locks
+        times = mesh_render_times(
+            tag, what, lambda: dpg.run(bargs, blens),
+            lambda: [dpg.compiled(a) for a in singles_args],
+            f"{MESH_CLIPS} single renders", 1, card)
+        kernels.setdefault("times", {})[f"dryrun_chain_dp{dp}_{name}"] = times
+        del bargs, singles_args, dpg, runner
+    return paths
+
+
+def _tv_chain_run(tag: str, card: str, dev, seconds: float, kernels: dict,
+                  record: bool):
+    """The dry run's chain on the PV over ``seconds`` of bench.py's tone:
+    (launch counts, the sharded output and length, the single render and
+    length, the single render with the plain phase path in place of the
+    kernel, the sharded and single render functions). With ``record``,
+    every lock and resampler launch of the sharded render is held against
+    its plain version."""
+    import torch
+
+    from nodey_tpu_torch.core import compiler
+    from nodey_tpu_torch.ops import pv
+    from nodey_tpu_torch.parallel import tv_sharded
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    n = int(RATE * seconds)
+    x = torch.from_numpy(bench_tone(n, RATE, 233.0, 2, 90)).to(dev)
+    g = dryrun_chain_graph("mesh_tv.wav", "pv")
+    [src] = [nid for nid, node in g.nodes.items()
+             if node.processor.info().identifier == "audio_input"]
+    sources = {(src, "output_0"): compiler.SourceSpec(
+        rate=RATE, channels=2, fmt="flt", capacity=n)}
+    key = compiler.external_key(src, "output_0")
+    sp = MESH_SP_TV
+    chain = tv_sharded.compile_chain_sp_tv(
+        g, sources, make_mesh({"sp": sp}, [dev] * sp))
+    single = compiler.compile_graph(g, sources, device=dev)
+    resamples, locks = [], []
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        if record:
+            stack.enter_context(recorded_launches(resamples=resamples,
+                                                  locks=locks))
+        out, out_len = chain.run(x, n)
+    counts = read_counts()
+    stages = [type(s).__name__ for s in chain.plan.stages]
+    n_pv, n_rs = stages.count("_PvStage"), stages.count("_ResampleStage")
+    what = (f"dry-run chain on the PV, one {seconds:g} s clip, sp {sp}")
+    print(f"[{tag}] {what} (stages {stages}): capacity "
+          f"{chain.plan.capacity}, chunk in {chain.plan.chunk_in} out "
+          f"{chain.plan.chunk_out}; launches {counts} ({card})")
+    check(counts["pv_lock"] == n_pv * sp and counts["pv_phase_path"] == 0
+          and counts["polyphase_resample"] == n_rs * sp,
+          f"{tag}: {what}: launches {counts}, want {n_pv * sp} locks, "
+          f"{n_rs * sp} resampler launches and no phase path")
+    if record:
+        kernels["resample_err"] = max(kernels["resample_err"],
+                                      check_resamples(
+                                          tag, resamples,
+                                          counts["polyphase_resample"], card))
+        lock_err = 0.0
+        for lock_in, got in locks:
+            err, differ, finite = lock_against_plain(got, lock_in)
+            check(err <= TOL and (differ == 0 or not finite),
+                  f"{tag}: a shard's lock launch disagrees with the plain "
+                  f"lock")
+            lock_err = max(lock_err, err)
+        print(f"[{tag}] {what}: {len(locks)} lock launches at shard shapes "
+              f"{sorted({tuple(li[3].shape) for li, _ in locks})}: "
+              f"max|kernel - plain| = {lock_err:.3e} (tol {TOL:.0e}), "
+              f"bitwise on finite inputs ({card})")
+        kernels["lock_err"] = max(kernels.get("lock_err", 0.0), lock_err)
+    del resamples, locks
+    ref, ref_len = single({key: (x, n)})[0]["master"]
+    saved = pv.phase_path
+    pv.phase_path = (lambda re, im, dpos, hop, n_fft, lock=True:
+                     pv.phase_path_plain(re, im, dpos, hop, n_fft, lock))
+    try:
+        plain_ref, _ = single({key: (x, n)})[0]["master"]
+    finally:
+        pv.phase_path = saved
+    return (counts, what, out, out_len, ref, ref_len, plain_ref,
+            lambda: chain.run(x, n), lambda: single({key: (x, n)}))
+
+
+def mesh_tv_case(tag: str, card: str, dev, kernels: dict) -> dict:
+    """Phase 34 (d): compile_chain_sp_tv of the dry run's chain on the PV,
+    sp MESH_SP_TV on a virtual mesh. On MESH_TV_SECONDS s (the shape of
+    tests/test_tv_sharded.py's bar for two PV stages) the sharded render
+    against the single render at MESH_TV_DB; on one SECONDS s clip the
+    same, every lock and resampler launch against its plain version, the
+    SNR held at PV_DEVICE_DB and within MESH_TV_OWN_DB of the single
+    render's own float32 determinism (the single render with the plain
+    phase path against it).
+    Returns the launch counts by path."""
+
+    def agreement(what, out, out_len, ref, ref_len, plain_ref):
+        m = min(ref_len, ref.shape[1], out.shape[1])
+        db = snr_db(ref[:, :m].cpu().numpy(), out[:, :m].cpu().numpy())
+        own = snr_db(ref[:, :m].cpu().numpy(), plain_ref[:, :m].cpu().numpy())
+        tail_zero = not bool(out[:, out_len:].any())
+        check(out_len == ref_len and tail_zero,
+              f"{tag}: {what}: length {out_len} (single {ref_len}), tail "
+              f"zero {tail_zero}")
+        return db, own
+
+    paths = {}
+    counts, what, out, out_len, ref, ref_len, plain_ref, _, _ = (
+        _tv_chain_run(tag, card, dev, MESH_TV_SECONDS, kernels, False))
+    db, own = agreement(what, out, out_len, ref, ref_len, plain_ref)
+    print(f"[{tag}] {what}: length {out_len} (single {ref_len}), {db:.1f} dB "
+          f"against the single render (min {MESH_TV_DB:.0f}: two PV stages "
+          f"in series, tests/test_tv_sharded.py:267, at its 0.8 s); the "
+          f"single render with the plain phase path {own:.1f} dB against it "
+          f"({card})")
+    check(db > MESH_TV_DB, f"{tag}: {what}: below {MESH_TV_DB} dB")
+    paths[f"dryrun_chain_sp{MESH_SP_TV}_pv_short"] = counts
+    kernels["tv_db_short"] = db
+
+    counts, what, out, out_len, ref, ref_len, plain_ref, run_sp, run_one = (
+        _tv_chain_run(tag, card, dev, SECONDS, kernels, True))
+    db, own = agreement(what, out, out_len, ref, ref_len, plain_ref)
+    print(f"[{tag}] {what}: length {out_len} (single {ref_len}), {db:.1f} dB "
+          f"against the single render (min {PV_DEVICE_DB:.0f}, the PV's own "
+          f"conditioning, as card vs CPU, and at most {MESH_TV_OWN_DB:g} dB "
+          f"below the single render's own; "
+          f"{'above' if db > MESH_TV_DB else 'BELOW'}"
+          f" the {MESH_TV_DB:.0f} dB of the 0.8 s shape); the single render "
+          f"with the plain phase path {own:.1f} dB against it: the second PV "
+          f"stage turns the first stage's float32 roundings into whole-bin "
+          f"phase steps, more of them the longer the clip ({card})")
+    check(db > PV_DEVICE_DB and db >= own - MESH_TV_OWN_DB,
+          f"{tag}: {what}: below {PV_DEVICE_DB} dB, or more than "
+          f"{MESH_TV_OWN_DB} dB below the single render's own determinism")
+    kernels["tv_db"] = db
+    kernels["tv_own_db"] = own
+    del out, ref, plain_ref
+    times = mesh_render_times(tag, what, run_sp, run_one,
+                              "the single render", 1, card)
+    kernels.setdefault("times", {})[f"dryrun_chain_sp{MESH_SP_TV}_pv"] = times
+    paths[f"dryrun_chain_sp{MESH_SP_TV}_pv"] = counts
+    return paths
+
+
+def mesh_phase(card: str, dev, tmp: str, paths_5node):
+    """Phase 34 (see the module docstring): the mesh. Returns (the launch
+    counts by path, the figures: errors against the plain versions, the
+    PV chain's SNR, the render times)."""
+    import torch
+
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    tag = "34 mesh"
+    t0 = time.perf_counter()
+    paths, kernels = {}, {}
+    virtual = make_mesh({"sp": MESH_SP}, [dev] * MESH_SP)
+    paths[f"5node_sp{MESH_SP}"] = mesh_sp_case(tag, card, virtual,
+                                               paths_5node, kernels)
+    dp_sp = make_mesh({"dp": MESH_DP, "sp": MESH_SP},
+                      [dev] * (MESH_DP * MESH_SP))
+    paths.update(mesh_dp_sp_case(tag, card, dp_sp, tmp, kernels,
+                                 dp_mesh=make_mesh({"dp": MESH_DP_WIDE},
+                                                   [dev] * MESH_DP_WIDE)))
+    paths.update(mesh_dp_cases(tag, card, dev, tmp, kernels))
+    paths.update(mesh_tv_case(tag, card, dev, kernels))
+    count = torch.cuda.device_count()
+    if count > 1:
+        real = make_mesh({"sp": -1})
+        paths["5node_sp_devices"] = mesh_sp_case(tag, card, real,
+                                                 paths_5node, kernels)
+        if count % 2 == 0:
+            paths.update({f"{k}_devices": v for k, v in mesh_dp_sp_case(
+                tag, card, make_mesh({"dp": 2, "sp": -1}), tmp,
+                kernels).items()})
+    else:
+        print(f"[{tag}] torch.cuda.device_count() = {count}: only the "
+              f"virtual mesh ran (every shard on {dev}); (a) and (b) over "
+              f"real devices need more than one card ({card})")
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[34 figures] {json.dumps(kernels)}")
+    return paths, kernels
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -5518,6 +6111,9 @@ def main() -> int:
         # -- 33. the web editor's server ---------------------------------------
         serve_paths = serve_phase(cli, card, tmp, proj_5node, excerpt)
 
+        # -- 34. the mesh --------------------------------------------------------
+        mesh_paths, mesh_figures = mesh_phase(card, dev, tmp, paths_5node)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -5529,7 +6125,7 @@ def main() -> int:
             *masterbus_paths.items(), *effects_paths.items(),
             *timeline_paths.items(), *batch_paths.items(),
             *configs_paths.items(), *effects_batch_paths.items(),
-            *serve_paths.items())}
+            *serve_paths.items(), *mesh_paths.items())}
 
     def batch8(name, source=None):
         # The kernel's first launch on phase 30's batch of 8 x 30 s clips (or
@@ -5564,6 +6160,7 @@ def main() -> int:
             "launches_by_path": by_path("polyphase_resample"),
             "max_abs_err": max(kernel_err, config_figures["resample_err"],
                                timeline_resample_err,
+                               mesh_figures["resample_err"],
                                *(v for k, v in {**batch_kernels,
                                                 **configs_kernels,
                                                 **effects_kernels}.items()
@@ -5598,7 +6195,8 @@ def main() -> int:
             "launches": config4_wsola,
             "launches_by_path": by_path("wsola_chain"),
             "max_abs_err": max(wsola_err, batch_kernels["wsola_err"],
-                               configs_kernels["config5_wsola_err"]),
+                               configs_kernels["config5_wsola_err"],
+                               mesh_figures["wsola_err"]),
             "ms": pitch_times["kernel"],
             "plain_ms": pitch_times["plain"],
             "bound_ms": pitch_times["bound"][0],
@@ -5671,7 +6269,8 @@ def main() -> int:
             "launches": pv_stream_paths["config4_pv_streamed"]["pv_lock"],
             "launches_by_path": by_path("pv_lock"),
             "max_abs_err": max(pv_worst["lock"], stream_lock_err,
-                               batch_kernels["config4_pv_options_lock_err"]),
+                               batch_kernels["config4_pv_options_lock_err"],
+                               mesh_figures["lock_err"]),
             "shape": lock_chunk[max(lock_chunk)]["shape"],
             "ms": lock_chunk[max(lock_chunk)]["kernel"],
             "plain_ms": lock_chunk[max(lock_chunk)]["plain"],

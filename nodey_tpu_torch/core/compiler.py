@@ -11,6 +11,8 @@ no input tensor, the generator, how many clips to emit. Every registered
 node type has a batched lowering. Before anything runs, ``run_batch``
 refuses a graph with a node that has none, and a graph with no external
 input, which gives no clip count (the JAX package's vmap refuses it too).
+``run_batch(mesh=...)`` splits the batch over a mesh's dp axis, each share
+one ``run_batch`` on its device (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -154,6 +156,7 @@ class CompiledGraph:
         self.mode = mode
         self.device = device
         self.order = topo_order(graph)
+        self._bound: Dict[torch.device, "CompiledGraph"] = {}
         self._specs = {external_key(nid, pin): spec
                        for (nid, pin), spec in sources.items()}
         self.input_keys = sorted(self._specs)
@@ -184,7 +187,8 @@ class CompiledGraph:
                 for nid in self.order
                 if not self.graph.nodes[nid].processor.batched]
 
-    def run_batch(self, arrays: Dict[str, Any], lengths: Dict[str, Any]):
+    def run_batch(self, arrays: Dict[str, Any], lengths: Dict[str, Any],
+                  mesh=None, dp_axis: str = "dp"):
         """Run the graph once over a batch of B clips.
 
         ``arrays[key]`` is ``[B, C, capacity]``: a tensor on the graph's
@@ -202,9 +206,14 @@ class CompiledGraph:
         have an external input, else one says so: the batch's clip count
         comes from its inputs. No loop over clips stands in for a batched
         lowering: inside a lowering only the GEMMs, whose bits follow their
-        shape, go clip by clip. The JAX package's ``mesh=`` / ``dp_axis``
-        (clips spread over the chips of a mesh) belong to the multi-GPU
-        port and are not taken here."""
+        shape, go clip by clip.
+
+        With ``mesh`` (``parallel.mesh.Mesh``) the batch splits over
+        ``mesh.shape[dp_axis]`` equal shares, B divisible by it: share d
+        is copied to the device at dp index d and runs there as one
+        ``run_batch`` of this graph bound to that device, and the clips
+        come back in order on this graph's device. A device may hold
+        several shares (a virtual mesh of one card)."""
         unbatched = self.unbatched_nodes()
         if unbatched:
             names = ", ".join(f"node {nid} ({ident})"
@@ -257,9 +266,52 @@ class CompiledGraph:
                 raise LogicError(
                     f"input {key}: lengths {lens} outside 0..{spec.capacity}")
             args[key] = (data, lens)
-        args = {key: (data.to(self.device), lens)
-                for key, (data, lens) in args.items()}
-        return self._run(args, batch)
+        if mesh is None:
+            args = {key: (data.to(self.device), lens)
+                    for key, (data, lens) in args.items()}
+            return self._run(args, batch)
+        return self._run_on_mesh(args, batch, mesh, dp_axis)
+
+    def on_device(self, device: torch.device) -> "CompiledGraph":
+        """This graph bound to ``device`` (itself on its own device; one
+        binding a device, kept)."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        bound = self._bound.get(device)
+        if bound is None:
+            bound = self._bound[device] = CompiledGraph(
+                self.graph, self.sources, self.mode, device)
+        return bound
+
+    def _run_on_mesh(self, args, batch: int, mesh, dp_axis: str):
+        """``run_batch``'s mesh form: each dp shard's share of the clips as
+        one ``run_batch`` on its device, gathered on this graph's device."""
+        devices = mesh.axis_devices(dp_axis)
+        dp = len(devices)
+        if batch % dp:
+            raise LogicError(f"a batch of {batch} clips does not split over "
+                             f"{dp_axis}={dp}")
+        from nodey_tpu_torch.parallel.ops import to_device
+
+        share = batch // dp
+        outs = []
+        for d, dev in enumerate(devices):
+            sl = slice(d * share, (d + 1) * share)
+            sub = {key: (to_device(data[sl], dev), lens[sl])
+                   for key, (data, lens) in args.items()}
+            outs.append(self.on_device(dev)._run(sub, share))
+        outputs, meta = {}, outs[0][1]
+        for key in outs[0][0]:
+            parts = [o[0][key] for o in outs]
+            if meta[key]["kind"] == "stream":
+                outputs[key] = (
+                    torch.cat([to_device(p[0], self.device) for p in parts]),
+                    sum((tuple(p[1]) for p in parts), ()))
+            else:
+                outputs[key] = torch.cat([to_device(p, self.device)
+                                          for p in parts])
+        return outputs, meta
 
     def _run(self, args, batch: Optional[int] = None,
              on_node: Optional[Callable[[int], None]] = None):

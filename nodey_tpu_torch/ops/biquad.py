@@ -21,7 +21,8 @@ FIR tail and two real scalars for a real one. ``cascade_stream_prepare``
 puts the sections' pole tables for a chunk width on the device at plan
 time; a chunk step (``cascade_stream_step``) then copies nothing from the
 host and waits on nothing: its valid count is a host int. The sharded
-functions of the JAX module are not ported.
+cascade (``cascade_sharded_local``) runs over the list of a mesh axis's
+shards: local scans, exact cross-shard carries (parallel/tv_sharded.py).
 
 The offline cascade also takes a batch of clips, ``[B, C, N]`` with one
 host length a clip: the scans' passes run on all clips, their GEMMs clip
@@ -339,3 +340,112 @@ def cascade_stream_step(sections: List[Section], state, data: torch.Tensor,
     # Re-mask the invalid tail (the filter rings past sample n-1; chunk
     # padding must stay zero for downstream consumers).
     return tuple(new_states), mask_tail(x, n)
+
+
+# -- sharding ------------------------------------------------------------------
+#
+# The sp chain's cascade (parallel/tv_sharded.py): every function below
+# takes the list of the shards' equal [C, chunk] time slices along one mesh
+# axis (index = position on the axis) and returns theirs. Each section's
+# first-order scans run locally from silence, and their carries cross the
+# shards by exclusive AR(1) prefixes with host pole-power weights.
+
+
+def _cross_shard_ar1(v_ends, pole_chunk_pows, zero: float = 0.0):
+    """Exclusive cross-shard prefix of an AR(1) carry: shard i receives the
+    state at the END of shard i-1 (``zero`` on shard 0: the clip starts in
+    silence). ``pole_chunk_pows[k]`` is p^(2^k * chunk) (host, float32).
+    Hillis-Steele doubling over ``ppermute``; a shard combines at step d
+    only if its index is >= d. Only the [C] state moves."""
+    from nodey_tpu_torch.parallel.ops import ppermute
+
+    sp = len(v_ends)
+    v = list(v_ends)
+    d, k = 1, 0
+    while d < sp:
+        r = ppermute(v, [(i, i + d) for i in range(sp - d)])
+        v = v[:d] + [r[i] * pole_chunk_pows[k] + v[i] for i in range(d, sp)]
+        d *= 2
+        k += 1
+    prev = ppermute(v, [(i, i + 1) for i in range(sp - 1)])
+    prev[0] = torch.full_like(prev[0], zero)
+    return prev
+
+
+def _chunk_pows(p: complex, chunk: int, sp: int):
+    """[p^(chunk), p^(2*chunk), p^(4*chunk), ...] in host complex128 (the
+    doubling's static weights)."""
+    out = []
+    d = 1
+    while d < sp:
+        out.append(np.complex128(complex(p)) ** (d * chunk))
+        d *= 2
+    return out or [np.complex128(0)]
+
+
+def _cross_shard_ar1_rot(v_ends, pole_chunk_pows):
+    """``_cross_shard_ar1`` for the modal (complex) carry held as [C, 2]
+    (re, im) float32: the host complex128 weights apply as real
+    rotation-scales."""
+    from nodey_tpu_torch.parallel.ops import ppermute
+
+    sp = len(v_ends)
+    v = list(v_ends)
+    d, k = 1, 0
+    while d < sp:
+        r = ppermute(v, [(i, i + d) for i in range(sp - d)])
+        wr = _f32(pole_chunk_pows[k].real)
+        wi = _f32(pole_chunk_pows[k].imag)
+        for i in range(d, sp):
+            rot = torch.stack([r[i][:, 0] * wr - r[i][:, 1] * wi,
+                               r[i][:, 0] * wi + r[i][:, 1] * wr], dim=-1)
+            v[i] = rot + v[i]
+        d *= 2
+        k += 1
+    prev = ppermute(v, [(i, i + 1) for i in range(sp - 1)])
+    prev[0] = torch.zeros_like(prev[0])
+    return prev
+
+
+def cascade_sharded_local(xs, sections: List[Section]):
+    """The cascade over the shards ``xs`` ([C, chunk] each) of one mesh
+    axis. Per section: the modal branch scans locally and moves one (re,
+    im) pair per channel across shards; the real branch takes its FIR
+    history as a 2-sample halo from the left neighbor and crosses two real
+    scalars in two dependent rounds (t feeds y)."""
+    from nodey_tpu_torch.parallel.ops import halo_exchange_nd
+
+    sp = len(xs)
+    chunk = xs[0].shape[-1]
+    xs = list(xs)
+    for sec in sections:
+        c = sec.coef
+        if sec.conj:
+            local = [scans.rot_scan(_f32(sec.g.real) * x,
+                                    _f32(sec.g.imag) * x, sec.p) for x in xs]
+            mps = _cross_shard_ar1_rot(
+                [torch.stack([mr[:, -1], mi[:, -1]], dim=-1)
+                 for mr, mi in local], _chunk_pows(sec.p, chunk, sp))
+            for i, ((mr_l, _mi_l), mp) in enumerate(zip(local, mps)):
+                pw_r, pw_i = scans.device_powers(sec.p, chunk, mp.device)
+                mp_r, mp_i = mp[:, 0], mp[:, 1]
+                mr = mr_l + pw_r * mp_r[:, None] - pw_i * mp_i[:, None]
+                m_excl_r = torch.cat([mp_r[:, None], mr[:, :-1]], dim=-1)
+                xs[i] = _f32(c.b0) * xs[i] + 2.0 * m_excl_r
+            continue
+        p1, p2 = _real_poles(sec)
+        exts = halo_exchange_nd(xs, 2, 0)
+        t_local = [scans.ar1_scan(_fir3(x, c.b0, c.b1, c.b2, h=e[..., :2]),
+                                  p1) for x, e in zip(xs, exts)]
+        t_prev = _cross_shard_ar1(
+            [t[:, -1] for t in t_local],
+            [_f32(pw.real) for pw in _chunk_pows(sec.p, chunk, sp)])
+        ts = [t + scans.device_powers(sec.p, chunk, t.device)[0] * tp[:, None]
+              for t, tp in zip(t_local, t_prev)]
+        y_local = [scans.ar1_scan(t, p2) for t in ts]
+        y_prev = _cross_shard_ar1(
+            [y[:, -1] for y in y_local],
+            [_f32(pw.real) for pw in _chunk_pows(sec.p2, chunk, sp)])
+        xs = [y + scans.device_powers(sec.p2, chunk, y.device)[0]
+              * yp[:, None] for y, yp in zip(y_local, y_prev)]
+    return xs

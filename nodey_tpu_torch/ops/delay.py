@@ -20,8 +20,9 @@ the offline one to the last ulp of a partial sum.
 
 The output grows by exactly K*D (the echo tail); streaming keeps an
 input-history ring of K*D samples and flushes the tail after input EOF.
-Counts are host ints. The sharded functions of the JAX module are not
-ported.
+Counts are host ints. The JAX module has no sharded function: the sp
+planner shards the delay as an LTI node by its declared receptive field
+(parallel/sharded.py).
 """
 
 from __future__ import annotations

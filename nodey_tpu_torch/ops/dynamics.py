@@ -23,7 +23,9 @@ Streaming carries the detectors' scalars at the previous chunk's last
 valid sample (device tensors, so a step reads nothing back); the chunk's
 valid count is a host int. ``*_stream_prepare`` puts the host decay
 curves for a chunk width on the device at plan time. The sharded
-functions of the JAX module are not ported.
+functions (``*_sharded_local``) run over the list of a mesh axis's
+shards, the carries crossing them as exclusive prefixes
+(parallel/tv_sharded.py).
 
 The offline forms also take a batch of clips, ``[B, C, N]``: each clip's
 detector links its own channels (axis -2), never the other clips, and its
@@ -401,3 +403,136 @@ def deesser_stream_step(sections, p: CompressorParams, state,
     det = _detector_carry((carry_env, carry_s), env_log, s_log, n,
                           data.shape[1])
     return (new_bq, *det), out
+
+
+# -- sharding ------------------------------------------------------------------
+#
+# The sp chain's detectors (parallel/tv_sharded.py). Each function takes the
+# list of the shards' equal [C, chunk] time slices along one mesh axis (zero
+# past the valid length, as every sharded stage keeps them) and returns
+# theirs. The cross-shard coupling is the streaming carry evaluated across
+# the mesh: each shard reduces its chunk to one scalar summary, and a
+# log2(sp)-step Hillis-Steele doubling over ``ppermute`` forms the exclusive
+# prefix, combined in the JAX package's order. Zero samples cannot raise an
+# envelope, so a shard's padded chunk scans as the offline render's
+# full-capacity scan does.
+
+
+def _cross_shard_maxplus(m_ends, chunk: int, c: float):
+    """Exclusive cross-shard max-plus prefix of the shards' envelope
+    summaries: shard i receives the envelope at the END of shard i-1 (the
+    floor on shard 0, ``limit_block``'s clip start). The received summary
+    is the LEFT operand of (m_l, L_l) . (m_r, L_r) = (max(m_l - c*L_r,
+    m_r), L_l + L_r); a shard's span at step d is d*chunk samples, so only
+    the scalar m moves. ``ppermute``'s zeros are not the max-plus identity:
+    a shard combines at step d only if its index is >= d."""
+    from nodey_tpu_torch.parallel.ops import ppermute
+
+    c32 = np.float32(c)
+    sp = len(m_ends)
+    v = list(m_ends)
+    d = 1
+    while d < sp:
+        r = ppermute(v, [(i, i + d) for i in range(sp - d)])
+        dec = float(c32 * np.float32(d * chunk))
+        v = v[:d] + [torch.maximum(r[i] - dec, v[i]) for i in range(d, sp)]
+        d *= 2
+    prefix = ppermute(v, [(i, i + 1) for i in range(sp - 1)])
+    prefix[0] = torch.full_like(prefix[0], float(_LOG_FLOOR))
+    return prefix
+
+
+def _sharded_env_log(xs, c: float):
+    """Each shard's exact global log envelope: the local scan, merged with
+    the cross-shard max-plus prefix the way ``limit_block`` merges a
+    streaming carry."""
+    chunk = xs[0].shape[-1]
+    env_local = [envelope_log_scan(_log_peak(x), c) for x in xs]
+    prefix = _cross_shard_maxplus([e[-1] for e in env_local], chunk, c)
+    return [_merge_env_carry(e, p, c) for e, p in zip(env_local, prefix)]
+
+
+def limiter_sharded_local(xs, threshold: float, c: float):
+    """The limiter over the shards ``xs`` of one mesh axis: the exact
+    global envelope (``_sharded_env_log``), then ``limit_block``'s gain.
+    The only re-associated term against the offline scan is c*L."""
+    out = []
+    for x, env_log in zip(xs, _sharded_env_log(xs, c)):
+        g = torch.clamp_max(torch.div(_f32(threshold), torch.exp(env_log)),
+                            1.0)
+        out.append(x * g[None, :])
+    return out
+
+
+def _sharded_s_log(xs, alpha: float, c: float):
+    """Each shard's exact global SMOOTHED log level: the sharded release
+    envelope through the one-pole attack smoother, its state crossing the
+    shards by an affine doubling whose step weight alpha^(d*chunk) is
+    static (only the scalar value moves). The detector the compressor, the
+    gate and the de-esser share."""
+    from nodey_tpu_torch.parallel.ops import ppermute
+
+    chunk = xs[0].shape[-1]
+    sp = len(xs)
+    a32 = np.float32(alpha)
+    env_logs = _sharded_env_log(xs, c)
+    # Local inclusive affine scans from zero; the init's contribution is
+    # added after the cross-shard prefix below.
+    v_incl = [scans.ar1_scan(float(np.float32(1.0) - a32) * e, alpha)
+              for e in env_logs]
+    v = [x[-1] for x in v_incl]
+    d = 1
+    while d < sp:
+        r = ppermute(v, [(i, i + d) for i in range(sp - d)])
+        weight = _f32(alpha ** (d * chunk))
+        v = v[:d] + [r[i] * weight + v[i] for i in range(d, sp)]
+        d *= 2
+    prev = ppermute(v, [(i, i + 1) for i in range(sp - 1)])
+    prev[0] = torch.zeros_like(prev[0])
+    out = []
+    for i, (vi, p) in enumerate(zip(v_incl, prev)):
+        # s at the end of shard i-1: its accumulated sum plus the global
+        # floor init decayed over i*chunk samples (float32, as the JAX
+        # package computes it on the device).
+        init_w = torch.exp(
+            torch.tensor(float(i), dtype=torch.float32, device=vi.device)
+            * _f32(chunk * math.log(alpha)))
+        s_prev = p + init_w * float(_LOG_FLOOR)
+        w_incl = scans.device_powers(alpha, chunk, vi.device)[0]
+        out.append(vi + w_incl * s_prev)
+    return out
+
+
+def compressor_sharded_local(xs, p: CompressorParams):
+    """The compressor over the shards ``xs`` of one mesh axis: two
+    cross-shard prefixes (max-plus release, affine attack smoother), the
+    smoother running on the corrected envelope, so it sees the offline
+    input sequence."""
+    out = []
+    for x, s_log in zip(xs, _sharded_s_log(xs, p.alpha, p.c)):
+        g_db = compressor_gain_db(s_log * _f32(_NAT_TO_DB), p)
+        out.append(x * (_f32(p.makeup) * _db_gain(g_db))[None, :])
+    return out
+
+
+def gate_sharded_local(xs, p: GateParams):
+    """The gate over the shards ``xs``: the compressor's sharded detector
+    with the gate's static curve."""
+    out = []
+    for x, s_log in zip(xs, _sharded_s_log(xs, p.alpha, p.c)):
+        g_db = gate_gain_db(s_log * _f32(_NAT_TO_DB), p)
+        out.append(x * _db_gain(g_db)[None, :])
+    return out
+
+
+def deesser_sharded_local(xs, sections, p: CompressorParams):
+    """The de-esser over the shards ``xs``: the exact sharded band
+    (``biquad.cascade_sharded_local``) into the sharded detector, then the
+    static curve and the band subtraction."""
+    bands = bq.cascade_sharded_local(xs, list(sections))
+    out = []
+    for x, band, s_log in zip(xs, bands, _sharded_s_log(bands, p.alpha,
+                                                        p.c)):
+        g = _db_gain(compressor_gain_db(s_log * _f32(_NAT_TO_DB), p))
+        out.append(x - (1.0 - g)[None, :] * band)
+    return out

@@ -25,8 +25,10 @@ The gains are applied as host scalars, never as small tensors copied to
 the device inside a chunk step. Every op takes one clip [C, N] or a batch
 [B, C, N] (channels on axis -2): pan and width act per channel, a fade's
 gain is one [N] row for every clip, and the end-anchored fade's is [B, 1,
-N], each clip's ramp ending at its own length. The sharded functions of
-the JAX module are not ported.
+N], each clip's ramp ending at its own length. The sharded functions
+(``pan_sharded_local``, ``fade_sharded_local``) run over the list of a
+mesh axis's shards: the fade's gain from each shard's global offset, no
+communication.
 """
 
 from __future__ import annotations
@@ -208,3 +210,29 @@ def width_stream(stream: Stream, width: float) -> Stream:
     if float(width) == 1.0 or stream.channels != 2:
         return stream                      # bitwise passthrough
     return stream.with_data(width_array(stream.data, width), fmt=FMT_FLT)
+
+
+# -- sharded (sp chain) local steps --------------------------------------------
+#
+# Each takes the list of the shards' equal [C, chunk] time slices along one
+# mesh axis and returns theirs (parallel/tv_sharded.py).
+
+
+def pan_sharded_local(xs, pan: float):
+    """Memoryless: per-channel gains, no communication."""
+    return [pan_array(x, pan) for x in xs]
+
+
+def fade_sharded_local(xs, spec: FadeSpec, length=None):
+    """Each shard's gain from its global offset, no communication (the
+    tremolo's move). ``length`` is the GLOBAL valid length (a host int),
+    needed by an end-anchored spec."""
+    chunk = xs[0].shape[-1]
+    out = []
+    for i, x in enumerate(xs):
+        if spec.anchor_end:
+            g = fade_gain_end(spec, i * chunk, chunk, length, x.device)
+        else:
+            g = fade_gain(spec, i * chunk, chunk, x.device)
+        out.append(x * g[None, :])
+    return out

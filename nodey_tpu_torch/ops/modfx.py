@@ -33,7 +33,9 @@ The offline ops take one clip [C, N] or a batch [B, C, N]: the LFO is
 one [N] row shared by every clip, each starting at phase 0 as in the JAX
 package's vmap.
 
-The sharded functions of the JAX module are not ported.
+The sharded functions (``shard_residue``, ``tremolo_sharded_local``,
+``chorus_sharded_local``) run over the list of a mesh axis's shards: each
+shard's LFO phase is the residue at its global offset, a host int.
 """
 
 from __future__ import annotations
@@ -235,3 +237,49 @@ def chorus_stream_step(params, state, data: torch.Tensor, n: int):
     out = mask_tail(_f32(dry) * x + _f32(wet) * wetsum, n)
     ring = ext[:, n:n + ring.shape[1]]
     return (ring, advance_residue(r0, n, num, m)), out
+
+
+# -- sharded (sp chain) local steps ------------------------------------------------
+#
+# Each function takes the list of the shards' equal [C, chunk] time slices
+# along one mesh axis and returns theirs (parallel/tv_sharded.py).
+
+
+def shard_residue(num: int, m: int, chunk: int, index: int) -> int:
+    """Shard ``index``'s starting phase residue, (index * chunk * NUM) mod
+    M, with the per-shard advance (chunk*NUM mod M) reduced first (the
+    JAX package's int32 product stays < sp * M); a host int."""
+    adv = (chunk * num) % m
+    return (index * adv) % m
+
+
+def tremolo_sharded_local(xs, rate_hz: float, depth: float,
+                          sample_rate: int):
+    """The tremolo over the shards ``xs``: each shard's phase from its
+    global offset, no communication at all."""
+    num, m = lfo_quantize(rate_hz, sample_rate)
+    chunk = xs[0].shape[-1]
+    return [x * tremolo_gain(shard_residue(num, m, chunk, i), chunk, num, m,
+                             depth, x.device)[None, :]
+            for i, x in enumerate(xs)]
+
+
+def chorus_sharded_local(xs, length: int, rate_hz: float, base_ms: float,
+                         depth_ms: float, voices: int, wet: float,
+                         dry: float, sample_rate: int):
+    """The chorus over the shards ``xs``: the left halo (the receptive
+    field ``hist``) by ``halo_exchange_nd``, each shard's phase from its
+    global offset; masked to the global valid ``length`` so the zero
+    padding survives."""
+    from nodey_tpu_torch.parallel.ops import halo_exchange_nd
+
+    num, m = lfo_quantize(rate_hz, sample_rate)
+    base, depth, hist = chorus_spec(sample_rate, base_ms, depth_ms, voices)
+    chunk = xs[0].shape[-1]
+    out = []
+    for i, (x, ext) in enumerate(zip(xs, halo_exchange_nd(xs, hist, 0))):
+        wetsum = chorus_wet(ext, shard_residue(num, m, chunk, i), chunk, num,
+                            m, base, depth, voices)
+        out.append(mask_tail(_f32(dry) * x + _f32(wet) * wetsum,
+                             length - i * chunk))
+    return out

@@ -17,8 +17,9 @@ u[n] = a[n] x[n] + x[n-1]: one ``scans.tv_ar1_scan`` per stage.
 
 Streaming carries per-stage (x_prev, y_prev) columns on the device and the
 LFO residue as a host int; a carried y_prev enters through the first
-drive sample (u'[0] = u[0] + p[0] y_prev). The sharded functions of the
-JAX module are not ported.
+drive sample (u'[0] = u[0] + p[0] y_prev). ``phaser_sharded_local`` runs
+over the list of a mesh axis's shards, each stage's state crossing them by
+an affine doubling (parallel/tv_sharded.py).
 """
 
 from __future__ import annotations
@@ -133,3 +134,58 @@ def phaser_stream_step(params, state, data: torch.Tensor, n: int):
     new_x = torch.stack([cur[:, n - 1] for cur in xs])
     new_y = torch.stack([y[:, n - 1] for y in ys])
     return (new_x, new_y, modfx.advance_residue(r0, n, num, m)), out
+
+
+# -- sharded (sp chain) local step --------------------------------------------------
+
+
+def _affine_prefix_exclusive(p_ends, v_ends):
+    """The state entering each shard: the exclusive cross-shard prefix of
+    the shards' affine summaries (P_i, V_i) of a recurrence that starts at
+    zero. Inclusive Hillis-Steele doubling over ``ppermute`` (the received
+    summary the EARLIER operand of (Pa, Va) . (Pb, Vb) = (Pa Pb, Vb + Pb
+    Va)), the products moving beside the values; ``ppermute``'s zeros are
+    not the affine identity, so a shard combines at step d only if its
+    index is >= d."""
+    from nodey_tpu_torch.parallel.ops import ppermute
+
+    sp = len(p_ends)
+    pv, vv = list(p_ends), list(v_ends)
+    d = 1
+    while d < sp:
+        perm = [(i, i + d) for i in range(sp - d)]
+        pr, vr = ppermute(pv, perm), ppermute(vv, perm)
+        for i in range(d, sp):
+            pv[i], vv[i] = pr[i] * pv[i], vv[i] + pv[i] * vr[i]
+        d *= 2
+    prev = ppermute(vv, [(i, i + 1) for i in range(sp - 1)])
+    prev[0] = torch.zeros_like(prev[0])
+    return prev
+
+
+def phaser_sharded_local(xs, length: int, rate_hz: float, f_min: float,
+                         f_max: float, stages: int, wet: float, dry: float,
+                         sample_rate: int):
+    """The phaser over the shards ``xs`` ([C, chunk] each) of one mesh
+    axis: each shard's coefficient track from its global offset, a
+    one-sample left halo per stage for x[n-1], local scans from zero and
+    the exclusive affine prefix folding each stage's entering state in
+    through the local pole products; masked to the global ``length``."""
+    from nodey_tpu_torch.parallel.ops import halo_exchange_nd
+
+    num, m, k0, k1 = phaser_spec(sample_rate, rate_hz, f_min, f_max)
+    chunk = xs[0].shape[-1]
+    a = [phaser_coeffs(modfx.shard_residue(num, m, chunk, i), chunk, num, m,
+                       k0, k1, sample_rate, x.device)
+         for i, x in enumerate(xs)]
+    cur = list(xs)
+    for _ in range(stages):
+        scanned = []
+        for c, e, ai in zip(cur, halo_exchange_nd(cur, 1, 0), a):
+            u = ai[None, :] * c + e[:, :chunk]
+            scanned.append(tv_ar1_scan(u, -ai))
+        s_in = _affine_prefix_exclusive([pc[:, -1] for pc, _ in scanned],
+                                        [y0[:, -1] for _, y0 in scanned])
+        cur = [y0 + pc * s[:, None] for (pc, y0), s in zip(scanned, s_in)]
+    return [mask_tail(_f32(dry) * x + _f32(wet) * y, length - i * chunk)
+            for i, (x, y) in enumerate(zip(xs, cur))]

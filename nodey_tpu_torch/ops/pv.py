@@ -39,8 +39,9 @@ The streaming step (``pv_stream_plan``, ``pv_stream_init``,
 the plain phase math in torch, locks through ``lock_phases`` (the lock
 kernel on the card, in every step with frames; no phase-path launch: the
 JAX step does its recursion in XLA too) and carries the phasor, the last
-frame's phase and magnitudes and the overlap-add tail on the device. Not
-ported here: the sp-sharded path.
+frame's phase and magnitudes and the overlap-add tail on the device. The
+sp-sharded stretch is ``parallel/pv_sharded.py``: the same passes a shard,
+the lock through ``lock_phases``.
 """
 
 from __future__ import annotations

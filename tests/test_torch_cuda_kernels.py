@@ -867,3 +867,68 @@ def _check_batched_pv(cuda_device, kwargs, kernel):
         one, one_len = pv.pv_stretch_at_rate(data[b], n, 0.8, 48_000, **kwargs)
         assert out_len[b] == one_len
         assert torch.equal(out[b], one)
+
+
+@pytest.mark.cuda
+def test_sharded_graph_on_a_virtual_mesh_is_the_single_render(cuda_device):
+    """The 5-node graph (gain, a 44.1 -> 48 kHz amix, spectrum) at sp = 4
+    on a virtual mesh of the card: the master and the spectrum's frames
+    bitwise the single render on the card, the length equal, each input's
+    windows through the polyphase kernel (a launch per input per shard)."""
+    from nodey_tpu_torch.core import compiler
+    from nodey_tpu_torch.core.graph import Graph
+    from nodey_tpu_torch.parallel import sharded
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+    from nodey_tpu_torch.processors.amix import AudioAmix
+    from nodey_tpu_torch.processors.audio_input import AudioInput
+    from nodey_tpu_torch.processors.audio_output import AudioOutput
+    from nodey_tpu_torch.processors.audio_vol import AudioVol
+    from nodey_tpu_torch.processors.spectrum import AudioSpectrum
+
+    g = Graph()
+    src = g.add_node(AudioInput())
+    g.nodes[src].processor.file_paths = ["0.wav", "1.wav"]
+    g.update_node_pin(src)
+    vol = g.add_node(AudioVol())
+    g.nodes[vol].processor.set_volume(1.5)
+    amix = g.add_node(AudioAmix())
+    g.nodes[amix].processor.set_input_num(2)
+    g.nodes[amix].processor.volumes = [0.6, 0.4]
+    spec = g.add_node(AudioSpectrum())
+    out = g.add_node(AudioOutput())
+
+    def pin(n, p):
+        return g.nodes[n].pin_name_map[p]
+
+    g.add_link(pin(src, "output_0"), pin(vol, "input"))
+    g.add_link(pin(vol, "output"), pin(amix, "input_1"))
+    g.add_link(pin(src, "output_1"), pin(amix, "input_2"))
+    g.add_link(pin(amix, "output"), pin(spec, "input"))
+    g.add_link(pin(spec, "output"), pin(out, "input"))
+
+    mesh = make_mesh({"sp": 4}, [cuda_device] * 4)
+    n = 44_100 * 3
+    cap = sharded.plan_capacity_for(g, 44_100, n, mesh)
+    rng = np.random.default_rng(5)
+    arrays, lengths, sources = {}, {}, {}
+    for i in range(2):
+        x = np.zeros((2, cap), dtype=np.float32)
+        valid = n - 4_321 * i
+        x[:, :valid] = 0.3 * rng.standard_normal((2, valid))
+        key = compiler.external_key(src, f"output_{i}")
+        arrays[key] = torch.from_numpy(x).to(cuda_device)
+        lengths[key] = valid
+        sources[(src, f"output_{i}")] = compiler.SourceSpec(
+            rate=44_100, channels=2, fmt="flt", capacity=cap)
+    single = compiler.compile_graph(g, sources, device=cuda_device)
+    ref, _ = single({k: (v, lengths[k]) for k, v in arrays.items()})
+    sc = sharded.compile_graph_sharded(g, sources, mesh)
+    before = cuda_resample.launches
+    got = sc.run(arrays, lengths)
+    torch.cuda.synchronize()
+    assert cuda_resample.launches == before + 2 * 4
+    assert got["master"][1] == ref["master"][1]
+    assert torch.equal(got["master"][0], ref["master"][0])
+    key = next(k for k in ref if k.startswith("spectrum_"))
+    frames = ref[key].shape[1]
+    assert torch.equal(got[key][:, :frames], ref[key])
