@@ -364,6 +364,46 @@ Phases, in order; the first failure exits non-zero:
                add, not scaling); (f) with more than one card, (a) and (b)
                again over the real devices, else a line that says only
                the virtual mesh ran.
+ 35. tp      — nodey_tpu_torch.parallel.tp and dp_sp_tp on a virtual mesh
+               of the card: (a) config 7's reverb convolution (decay 1.8 s,
+               pre-delay 20 ms) on 300 s of 48 kHz stereo (F 4,096, 2,049
+               bins) at tp 2 and tp 4. tests/test_tp.py's bar (130 dB and
+               1e-6 of the peak against the unsharded conv) cannot hold
+               on the card, where the unsharded conv is itself only 116.3
+               dB (max|error| 7.275e-06 of the peak) from the float64
+               convolution. So each render is held against the float64
+               convolution: at most TP_SLACK_DB (1 dB) below the
+               unsharded conv's SNR and within TP_MAXABS_FACTOR (2x) of
+               its max|error| (read on an H100 at 700 W: tp 2 115.8 dB,
+               8.518e-06; tp 4 120.4 dB, 4.492e-06); no launch of a kernel
+               of ours; each timed beside the unsharded conv (CUDA
+               events). (b) compile_flagship_reverb_dpsptp of the 5-node
+               graph over dp 2 x sp 2 x tp 2, 8 clips of 30 s of
+               different lengths: every clip's length the card's
+               reference_pipeline's, and every clip and its
+               reference_pipeline against the same pipeline in float64
+               after the single render: the clip at most TP_SLACK_DB
+               below its reference's SNR and within TP_MAXABS_FACTOR of
+               its max|error| (read: worst clip 126.2 dB and 1.657e-06,
+               worst reference 123.6 dB); 2 x 2 x 2 resampler launches
+               each within 2e-6 of plain; timed beside the 8 reference
+               pipelines.
+ 36. dcn     — launch_dcn_dryrun(2, 2) on the card: two processes joined
+               over gloo, two shards of cuda:0 each, one sp mesh of four;
+               the JAX dry run's 5-node LTI graph with the resampler's
+               halos crossing processes through host memory; each
+               process's shards BITWISE the single render and the
+               one-process sp render (as phase 34's sp render is), every
+               wrapper's launches in its first step (the resampler's 2
+               inputs x 2 shards; the counts it reports are the kernels' of
+               the two dcn paths in the kernels line), the bytes it sent
+               and its step's wall time; the same windows in this process
+               with every resampler launch against plain. Where the codec
+               runtime does not load (the card's machine): compat="swr"
+               raises ProcessorRuntimeError and launches nothing, `run
+               --swr-compat` exits non-zero, an MP3 export raises (MP3 has
+               no card path; printed); where it loads, compat="swr" >= 90
+               dB against swr_convert.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phases 17-18's paths: the step-overhead measurement, the A/B tool,
 the resampler's A/B; phases 19-21's: the streamed PV exports, the realtime
@@ -374,7 +414,9 @@ render, reverse's fallback exports; phase 30's: each batched render, and
 the refused one; phases 31-32's: each batched render, and phase 32's
 refused one; phase 33's: the served export, the CLI's export it is held
 to, the served preview, the stopped export, the diagnostics run and
-doctor; phase 34's: each sharded, dp and meshed render). Streamed
+doctor; phase 34's: each sharded, dp and meshed render; phase 35's: each
+tp conv and the dp x sp x tp render; phase 36's: the one-process render of
+the dry run's windows and, in each process of the dry run, its step). Streamed
 exports that phases 14 and 22-29 repeat at 100 s and 300 s also print
 each export's host RSS (sampled every 5 ms): its rise above its start at
 300 s must stay within 64 MiB of the one at 100 s. The
@@ -516,6 +558,25 @@ MESH_CLIP_SECONDS = 30
 MESH_TV_DB = 45.0
 MESH_TV_SECONDS = 0.8
 MESH_TV_OWN_DB = 3.0
+TP_SIZES = (2, 4)                # phase 35: the tp conv's shard counts
+TP_ITERS = 3
+# Phase 35's bar. tests/test_tp.py holds a tp conv at 130 dB and 1e-6 of
+# the peak against the unsharded conv, but on the card the unsharded conv
+# itself is only ~116 dB from the float64 convolution on the 300 s tone
+# (cuBLAS's float32 sums, measured on an H100), so two float32 renders
+# cannot agree to 130 dB. Each is held against float64 instead: the
+# sharded render no more than TP_SLACK_DB below the unsharded one's SNR
+# and within TP_MAXABS_FACTOR of its max|error|. Set from these readings
+# (H100 80GB HBM3, 700 W): unsharded 116.3 dB and 7.275e-06 of the peak,
+# tp 2 115.8 dB and 8.518e-06, tp 4 120.4 dB and 4.492e-06; the tightest
+# margins are tp 2's 0.5 dB and 1.17x. cuBLAS picks the same algorithm for
+# the same shapes, and every run read these same figures.
+TP_SLACK_DB = 1.0
+TP_MAXABS_FACTOR = 2.0
+DCN_PROCESSES = 2                # phase 36: processes x shards each
+DCN_LOCAL = 2
+DCN_TIMEOUT = 300.0
+SWR_DB = 90.0                    # compat="swr" against swr_convert
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -812,18 +873,9 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from nodey_tpu_torch.ops import cuda_probes, cuda_pv, cuda_resample
-    from nodey_tpu_torch.ops import cuda_wsola, cuda_wsola_table
+    from nodey_tpu_torch.ops import launch_counts
 
-    return {"polyphase_resample": cuda_resample.launches,
-            "wsola_chain": cuda_wsola.launches,
-            "wsola_energy": cuda_wsola.energy_launches,
-            "pv_phase_path": cuda_pv.phase_path_launches,
-            "pv_lock": cuda_pv.lock_launches,
-            "wsola_score_table": cuda_wsola_table.table_launches,
-            "wsola_table_walk": cuda_wsola_table.walk_launches,
-            "step_probe_bare": cuda_probes.bare_launches,
-            "step_probe_dma": cuda_probes.dma_launches}
+    return launch_counts()
 
 
 def cli_export(cli, project: str, out_wav: str, tag: str, card: str,
@@ -5399,6 +5451,354 @@ def mesh_phase(card: str, dev, tmp: str, paths_5node):
     return paths, kernels
 
 
+def float64_conv(x, ir, out_len: int):
+    """The linear convolution of ``x`` [.., C, N] with ``ir`` [C, L] in
+    float64 (FFTs on x's device), the first ``out_len`` samples."""
+    import torch
+
+    n = 1 << (out_len - 1).bit_length()
+    spec = torch.fft.rfft(x.double(), n) * torch.fft.rfft(
+        ir.to(x.device).double(), n)
+    return torch.fft.irfft(spec, n)[..., :out_len]
+
+
+def against_float64(tag: str, what: str, exact, got, base) -> dict:
+    """``got``'s SNR and max|error| over the peak against the float64
+    ``exact``, held at TP_SLACK_DB and TP_MAXABS_FACTOR of ``base`` (the
+    unsharded render's own figures)."""
+    exact = exact.double()
+    err = (got.double() - exact)
+    db = 10 * math.log10(exact.square().sum().item()
+                         / max(err.square().sum().item(), 1e-300))
+    rel = (err.abs().max() / exact.abs().max()).item()
+    if base is not None:
+        check(db >= base["db"] - TP_SLACK_DB
+              and rel <= TP_MAXABS_FACTOR * base["rel"],
+              f"{tag}: {what}: {db:.1f} dB and max|error| / peak {rel:.3e} "
+              f"against float64, the unsharded render's {base['db']:.1f} dB "
+              f"and {base['rel']:.3e}")
+    return {"db": db, "rel": rel}
+
+
+def tp_conv_case(tag: str, card: str, dev, kernels: dict) -> None:
+    """Phase 35 (a): the reverb convolution of config 7 (decay 1.8 s,
+    pre-delay 20 ms, damping 0.5) on SECONDS s of 48 kHz stereo, sharded
+    over tp at each of TP_SIZES on a virtual mesh of the card, and the
+    card's unsharded partitioned_conv, each against the float64
+    convolution (TP_SLACK_DB); each timed beside the unsharded conv."""
+    import torch
+
+    from nodey_tpu_torch.ops import reverb
+    from nodey_tpu_torch.parallel import tp
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    n = MASTER_RATE * SECONDS
+    x = torch.from_numpy(bench_tone(n, MASTER_RATE, 220.0, 2, 35)).to(dev)
+    ir = torch.from_numpy(reverb.design_ir(MASTER_RATE, 2, 1.8, 20.0, 0.5))
+    hr, hi = reverb.partitions(MASTER_RATE, 2, 1.8, 20.0, 0.5, dev)
+    out_len = n + ir.shape[1] - 1
+    k = hr.shape[1]
+    t = -(-out_len // reverb.PARTITION)
+    exact = float64_conv(x, ir, out_len)
+    want = reverb.partitioned_conv(x, hr, hi, out_len)
+    what = (f"config 7's reverb convolution, {SECONDS} s of 48 kHz stereo "
+            f"(F {reverb._F}, {reverb._BINS} bins, K {k}, T {t})")
+    base = against_float64(tag, what, exact, want, None)
+    print(f"[{tag}] {what}, unsharded: {base['db']:.1f} dB against the "
+          f"float64 convolution, max|error| / peak {base['rel']:.3e} "
+          f"({card})")
+    kernels["tp_float64"] = {"unsharded": base}
+    single_fn = lambda: reverb.partitioned_conv(x, hr, hi, out_len)  # noqa: E731
+    for size in TP_SIZES:
+        mesh = make_mesh({"tp": size}, [dev] * size)
+        zero_counts()
+        got = tp.partitioned_conv_tp(x, hr, hi, out_len, mesh)
+        counts = read_counts()
+        check(not any(counts.values()),
+              f"{tag}: the tp conv launched {counts}: no kernel of ours lies "
+              f"on it")
+        figures = against_float64(tag, f"{what}, tp {size}", exact, got, base)
+        db = plane_snr_db(want, got)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"[{tag}] {what} at tp {size} (bins padded to "
+              f"{tp._padded_bins(size)}): {figures['db']:.1f} dB against the "
+              f"float64 convolution (min {base['db'] - TP_SLACK_DB:.1f}: the "
+              f"unsharded conv's less {TP_SLACK_DB:g}), max|error| / peak "
+              f"{figures['rel']:.3e} (max {TP_MAXABS_FACTOR:g} x the "
+              f"unsharded conv's); {db:.1f} dB and {rel:.3e} against the "
+              f"unsharded conv (tests/test_tp.py's 130 dB and 1e-6 cannot "
+              f"hold where the unsharded conv is {base['db']:.1f} dB from "
+              f"float64); the delay line's in-place launches "
+              f"{4 * min(k, t) * size} (4 K a shard; unsharded "
+              f"{4 * min(k, t)}) ({card})")
+        kernels["tp_float64"][str(size)] = {**figures, "vs_unsharded_db": db,
+                                            "vs_unsharded_rel": rel}
+        del got
+        times = mesh_render_times(
+            tag, f"{what}, tp {size}",
+            lambda: tp.partitioned_conv_tp(x, hr, hi, out_len, mesh),
+            single_fn, "the unsharded conv", TP_ITERS, card)
+        kernels.setdefault("times", {})[f"reverb_conv_tp{size}"] = times
+    print(f"[{tag}] config 7's whole single render took 54.7686 ms in an "
+          f"earlier run of this script on an H100 at 700 W (PERF.md section "
+          f"5), the unsharded conv most of it ({card})")
+
+
+def dp_sp_tp_case(tag: str, card: str, dev, tmp: str, kernels: dict) -> dict:
+    """Phase 35 (b): compile_flagship_reverb_dpsptp of the 5-node graph on
+    dp MESH_DP x sp MESH_DP x tp MESH_DP (a virtual mesh of the card) over
+    MESH_CLIPS clips of MESH_CLIP_SECONDS s, each clip and the card's
+    reference_pipeline against the same pipeline in float64 after the
+    single render (TP_SLACK_DB); every resampler launch against plain.
+    Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from nodey_tpu_torch.core import compiler
+    from nodey_tpu_torch.core.runner import Runner
+    from nodey_tpu_torch.host.decode import write_wav_s16
+    from nodey_tpu_torch.ops import reverb
+    from nodey_tpu_torch.ops.scans import mask_tail
+    from nodey_tpu_torch.parallel import dp_sp_tp, sharded
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    n = RATE * MESH_CLIP_SECONDS
+    tracks = []
+    for i in range(2):
+        path = os.path.join(tmp, f"dst_5node_{i}.wav")
+        write_wav_s16(path, bench_tone(n, RATE, 220.0 * (i + 1), 2, 100 + i),
+                      RATE)
+        tracks.append(path)
+    g = flagship_graph(tracks)
+    _, _, sources = Runner(g, device=CARD).decode()
+    axes = {"dp": MESH_DP, "sp": MESH_DP, "tp": MESH_DP}
+    mesh = make_mesh(axes, [dev] * (MESH_DP ** 3))
+    cap = sharded.plan_capacity_for(g, RATE, n, mesh)
+    sources = {k: dataclasses.replace(s, capacity=cap)
+               for k, s in sources.items()}
+    prog = dp_sp_tp.compile_flagship_reverb_dpsptp(g, sources, mesh)
+    home = mesh.devices.flat[0]
+    lens = [n - 8_887 * b for b in range(MESH_CLIPS)]
+    data, blens = {}, {}
+    for i, key in enumerate(sorted(compiler.external_key(*k)
+                                   for k in sources)):
+        signals = [bench_tone(n, RATE, 220.0 * (i + 1) + 15.0 * b, 2,
+                              110 + 10 * i + b)[:, :m]
+                   for b, m in enumerate(lens)]
+        data[key] = torch.from_numpy(s16_clips(signals, cap)).to(home)
+        blens[key] = tuple(lens)
+    what = (f"5-node graph -> reverb tail (decay 0.25 s), {MESH_CLIPS} clips "
+            f"of {MESH_CLIP_SECONDS} s, dp {MESH_DP} x sp {MESH_DP} x tp "
+            f"{MESH_DP}")
+    resamples = []
+    zero_counts()
+    with recorded_launches(resamples=resamples):
+        out, glen = prog.run(data, blens)
+    counts = read_counts()
+    print(f"[{tag}] {what}: master capacity {prog.cap_master}, out "
+          f"{prog.cap_out} (IR {prog.ir_len}, K {prog.hr.shape[1]}); launches "
+          f"{counts} "
+          f"({card})")
+    check(counts["polyphase_resample"] == len(data) * MESH_DP * MESH_DP,
+          f"{tag}: {what}: {counts['polyphase_resample']} resampler launches, "
+          f"want {len(data)} inputs x {MESH_DP * MESH_DP} dp x sp shards")
+    kernels["resample_err"] = max(kernels.get("resample_err", 0.0),
+                                  check_resamples(
+                                      tag, resamples,
+                                      counts["polyphase_resample"], card))
+    del resamples
+
+    single = compiler.compile_graph(g, sources, device=home)
+    ir = torch.from_numpy(reverb.design_ir(prog.out_rate, 2, 0.25, 4.0, 0.3))
+
+    def reference(b):
+        return dp_sp_tp.reference_pipeline(
+            g, sources, {k: v[b] for k, v in data.items()},
+            {k: v[b] for k, v in blens.items()}, prog.cap_master,
+            prog.cap_out, prog.out_rate, device=home)
+
+    worst = {"db": math.inf, "rel": 0.0, "ref_db": math.inf}
+    for b in range(MESH_CLIPS):
+        ref, ref_len = reference(b)
+        check(glen[b] == ref_len,
+              f"{tag}: {what}: clip {b}: length {glen[b]}, the reference's "
+              f"{ref_len}")
+        # The same pipeline in float64 after the single render's master.
+        master, mlen = single({k: (v[b], blens[k][b])
+                               for k, v in data.items()})[0]["master"]
+        master = mask_tail(master[:, :prog.cap_master], mlen).double()
+        exact = (prog.dry * F.pad(master, (0, prog.cap_out - prog.cap_master))
+                 + prog.wet * float64_conv(master, ir, prog.cap_out))
+        base = against_float64(tag, f"{what}: clip {b}: reference", exact,
+                               ref, None)
+        figures = against_float64(tag, f"{what}: clip {b}", exact, out[b],
+                                  base)
+        worst = {"db": min(worst["db"], figures["db"]),
+                 "rel": max(worst["rel"], figures["rel"]),
+                 "ref_db": min(worst["ref_db"], base["db"]),
+                 "vs_reference_db": min(worst.get("vs_reference_db",
+                                                  math.inf),
+                                        plane_snr_db(ref, out[b]))}
+    print(f"[{tag}] {what}: every clip's length the reference's; against "
+          f"the float64 pipeline the worst clip {worst['db']:.1f} dB, max|"
+          f"error| / peak {worst['rel']:.3e} (the reference_pipeline's worst "
+          f"{worst['ref_db']:.1f} dB; each clip at most {TP_SLACK_DB:g} dB "
+          f"below its reference's and within {TP_MAXABS_FACTOR:g} x its "
+          f"max|error|); against the reference_pipeline the worst clip "
+          f"{worst['vs_reference_db']:.1f} dB ({card})")
+    kernels["dp_sp_tp_float64"] = worst
+    del out
+    times = mesh_render_times(
+        tag, what, lambda: prog.run(data, blens),
+        lambda: [reference(b) for b in range(MESH_CLIPS)],
+        f"{MESH_CLIPS} reference pipelines (single render + unsharded conv)",
+        2, card)
+    kernels.setdefault("times", {})["5node_reverb_dp_sp_tp"] = times
+    return {f"5node_reverb_dp{MESH_DP}_sp{MESH_DP}_tp{MESH_DP}": counts}
+
+
+def tp_phase(card: str, dev, tmp: str):
+    """Phase 35 (see the module docstring): tp and dp x sp x tp. Returns
+    (the launch counts by path, the figures)."""
+    tag = "35 tp"
+    t0 = time.perf_counter()
+    kernels = {}
+    tp_conv_case(tag, card, dev, kernels)
+    paths = dp_sp_tp_case(tag, card, dev, tmp, kernels)
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[35 figures] {json.dumps(kernels)}")
+    return paths, kernels
+
+
+def dcn_phase(cli, card: str, dev, tmp: str, excerpt_tracks):
+    """Phase 36 (see the module docstring): the gloo mesh across processes,
+    compat="swr" and MP3 where the codec runtime does not load. Returns
+    (the launch counts by path, the figures)."""
+    import numpy as np
+    import torch
+
+    from nodey_tpu_torch.core.errors import ProcessorRuntimeError
+    from nodey_tpu_torch.host import encode
+    from nodey_tpu_torch.host.decode import load_native
+    from nodey_tpu_torch.ops import resample as tr
+    from nodey_tpu_torch.parallel import dcn, sharded
+    from nodey_tpu_torch.parallel.mesh import make_mesh
+
+    tag = "36 dcn"
+    t0 = time.perf_counter()
+    paths, figures = {}, {}
+    shards = DCN_PROCESSES * DCN_LOCAL
+    # The same windows in this process, every launch against plain.
+    g, src = dcn._dryrun_graph()
+    mesh = make_mesh({"sp": shards}, [dev] * shards)
+    sources, arrays, lengths = dcn._dryrun_inputs(g, src, mesh)
+    sc = sharded.compile_graph_sharded(g, sources, mesh)
+    resamples = []
+    zero_counts()
+    with recorded_launches(resamples=resamples):
+        sc.run(arrays, lengths)
+    counts = read_counts()
+    paths["dcn_graph_one_process"] = counts
+    figures["resample_err"] = check_resamples(
+        tag, resamples, counts["polyphase_resample"], card)
+    del resamples
+
+    wall = time.perf_counter()
+    reports = dcn.launch_dcn_dryrun(DCN_PROCESSES, DCN_LOCAL,
+                                    timeout=DCN_TIMEOUT, device=CARD)
+    wall = time.perf_counter() - wall
+    check(len(reports) == DCN_PROCESSES,
+          f"{tag}: {len(reports)} reports from {DCN_PROCESSES} processes")
+    for r in reports:
+        exact = r["bitwise_single"] and r["bitwise_sp"]
+        print(f"[{tag}] process {r['rank']} of {DCN_PROCESSES} (gloo), shards "
+              f"{r['shards']} of {shards} on {r['device']}: length "
+              f"{r['length']}, {'bitwise' if exact else 'NOT bitwise'} the "
+              f"single render and the one-process sp render (max|diff| "
+              f"{r['max_abs_single']:.3e} / {r['max_abs_sp']:.3e}); sent "
+              f"{r['bytes_sent']} bytes of halos through the host a step; "
+              f"first step {r['seconds'] * 1e3:.2f} ms wall (cold), a second "
+              f"{r['warm_seconds'] * 1e3:.2f} ms; launches in the first "
+              f"{r['launches']} ({card})")
+        check(exact, f"{tag}: process {r['rank']}'s shards are not bitwise "
+              f"the single render and the one-process sp render")
+        check(set(r["launches"]) == set(counts),
+              f"{tag}: process {r['rank']} counted {sorted(r['launches'])}")
+        check(r["launches"]["polyphase_resample"] == 2 * DCN_LOCAL,
+              f"{tag}: process {r['rank']} launched the resampler "
+              f"{r['launches']['polyphase_resample']} times, want 2 inputs "
+              f"x {DCN_LOCAL}")
+        paths[f"dcn_rank{r['rank']}"] = r["launches"]
+    print(f"[{tag}] launch_dcn_dryrun({DCN_PROCESSES}, {DCN_LOCAL}, device="
+          f"{CARD!r}): {wall:.2f} s wall, the processes' start and import "
+          f"included ({card})")
+    figures["dcn"] = {"wall_s": wall, "reports": reports}
+
+    # compat="swr" and MP3 need the codec runtime; where it does not load
+    # they refuse, with nothing rendered in their place.
+    x = torch.from_numpy(bench_tone(2 * RATE, RATE, 440.0, 2, 36)).to(dev)
+    runtime = load_native() is not None
+    zero_counts()
+    if runtime:
+        from nodey_tpu_torch.host.resample_ref import swr_convert
+
+        got = tr.resample_data(x, RATE, 48_000, compat="swr").cpu().numpy()
+        want = swr_convert(x.cpu().numpy(), RATE, 48_000)
+        m = min(got.shape[1], want.shape[1])
+        db = snr_db(want[:, 200:m - 200], got[:, 200:m - 200])
+        print(f"[{tag}] compat='swr' 44.1 -> 48 kHz on the card: {db:.1f} dB "
+              f"against swr_convert (min {SWR_DB:.0f}) ({card})")
+        check(db >= SWR_DB, f"{tag}: the compat resample is below {SWR_DB} dB")
+    else:
+        try:
+            tr.resample_data(x, RATE, 48_000, compat="swr")
+        except ProcessorRuntimeError as exc:
+            print(f"[{tag}] compat='swr': the codec runtime does not load on "
+                  f"this machine; the resample raised ProcessorRuntimeError "
+                  f"({exc.message}) and launched "
+                  f"{sum(read_counts().values())} kernels ({card})")
+        else:
+            fail(f"{tag}: compat='swr' rendered without the codec runtime")
+        check(not any(read_counts().values()),
+              f"{tag}: the refused compat resample launched a kernel")
+        project = write_project(flagship_graph(excerpt_tracks),
+                                os.path.join(tmp, "swr_compat.json"))
+        saved = os.environ.get("NODEY_RESAMPLE_COMPAT")
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["run", project, "--export",
+                               os.path.join(tmp, "swr_compat.wav"),
+                               "--device", CARD, "--swr-compat"])
+        finally:
+            if saved is None:
+                os.environ.pop("NODEY_RESAMPLE_COMPAT", None)
+            else:
+                os.environ["NODEY_RESAMPLE_COMPAT"] = saved
+        print(f"[{tag}] run --swr-compat --device {CARD}: exit {rc}, "
+              f"{err.getvalue().strip().splitlines()[0] if err.getvalue() else ''}"
+              f" ({card})")
+        check(rc != 0,
+              f"{tag}: run --swr-compat succeeded without the codec runtime")
+        try:
+            with encode.open_sink(os.path.join(tmp, "refused.mp3"), 48_000,
+                                  2, 192) as sink:
+                sink.write(np.zeros((2, 48_000), np.float32))
+        except ProcessorRuntimeError as exc:
+            print(f"[{tag}] MP3 has no card path: the codec runtime (LAME) "
+                  f"does not load on this machine, and an MP3 export through "
+                  f"open_sink raises ({exc.message}); no fallback ran "
+                  f"({card})")
+        else:
+            fail(f"{tag}: an MP3 export ran without the codec runtime")
+    figures["codec_runtime"] = runtime
+    print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
+    print(f"[36 figures] {json.dumps(figures)}")
+    return paths, figures
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -6114,6 +6514,12 @@ def main() -> int:
         # -- 34. the mesh --------------------------------------------------------
         mesh_paths, mesh_figures = mesh_phase(card, dev, tmp, paths_5node)
 
+        # -- 35. tp and dp x sp x tp -----------------------------------------
+        tp_paths, tp_figures = tp_phase(card, dev, tmp)
+
+        # -- 36. the mesh across processes; what needs the codec runtime ------
+        dcn_paths, dcn_figures = dcn_phase(cli, card, dev, tmp, excerpt)
+
     def by_path(name):
         return {path: counts[name] for path, counts in (
             ("5node", counts_5node), ("config4", counts_config4),
@@ -6125,7 +6531,8 @@ def main() -> int:
             *masterbus_paths.items(), *effects_paths.items(),
             *timeline_paths.items(), *batch_paths.items(),
             *configs_paths.items(), *effects_batch_paths.items(),
-            *serve_paths.items(), *mesh_paths.items())}
+            *serve_paths.items(), *mesh_paths.items(), *tp_paths.items(),
+            *dcn_paths.items())}
 
     def batch8(name, source=None):
         # The kernel's first launch on phase 30's batch of 8 x 30 s clips (or
@@ -6161,6 +6568,8 @@ def main() -> int:
             "max_abs_err": max(kernel_err, config_figures["resample_err"],
                                timeline_resample_err,
                                mesh_figures["resample_err"],
+                               tp_figures["resample_err"],
+                               dcn_figures["resample_err"],
                                *(v for k, v in {**batch_kernels,
                                                 **configs_kernels,
                                                 **effects_kernels}.items()

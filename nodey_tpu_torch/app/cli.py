@@ -4,7 +4,7 @@ Usage:
     python -m nodey_tpu_torch validate project.json
     python -m nodey_tpu_torch run project.json --export out.wav|out.mp3 \
         [--stream] [--preview preview.wav] [--kbps 320] [--device cuda|cpu] \
-        [--diagnostics] [--profile-nodes] [--trace DIR]
+        [--diagnostics] [--profile-nodes] [--trace DIR] [--swr-compat]
     python -m nodey_tpu_torch run project.json --realtime \
         [--preview preview.wav] [--device cuda|cpu] [--diagnostics]
     python -m nodey_tpu_torch serve [project.json] [--host 127.0.0.1] \
@@ -23,7 +23,9 @@ chunk by chunk at 1.0x: through the SDL audio device where there is one,
 else paced by the wall clock, and writes the blocks to the preview WAV.
 ``--diagnostics`` prints the run's report (JSON), ``--profile-nodes`` each
 node's device time in one more render, ``--trace DIR`` a torch.profiler
-Chrome trace of the run. ``serve`` starts the web editor (the page, its
+Chrome trace of the run. ``--swr-compat`` resamples with the measured
+libswresample banks (``NODEY_RESAMPLE_COMPAT=swr``); it needs the codec
+runtime and fails where that does not load. ``serve`` starts the web editor (the page, its
 JSON API and the live preview; every request carries the printed token).
 The default device is ``cuda``; with no card ``run``, ``serve`` and
 ``doctor`` fail rather than run on the CPU (pass ``--device cpu`` for that).
@@ -401,6 +403,10 @@ def _encode_progress():
 def cmd_run(args) -> int:
     from nodey_tpu_torch.app import diagnostics
 
+    if args.swr_compat:
+        # Read wherever a resampler's bank is chosen (resample.
+        # resolve_compat), so setting it before any render covers all.
+        os.environ["NODEY_RESAMPLE_COMPAT"] = "swr"
     graph = _load_graph(args.project)
     with diagnostics.maybe_trace(args.trace, args.device):
         if args.realtime and not args.export:
@@ -600,6 +606,10 @@ def main(argv=None) -> int:
     p_run.add_argument("--profile-nodes", action="store_true",
                        help="report each node's device time (one more "
                             "render, a CUDA event after every node)")
+    p_run.add_argument("--swr-compat", action="store_true",
+                       help="resample with measured libswresample-"
+                            "equivalent filter banks (needs the codec "
+                            "runtime); NODEY_RESAMPLE_COMPAT=swr")
     _add_device_arg(p_run)
     p_run.set_defaults(fn=cmd_run)
 

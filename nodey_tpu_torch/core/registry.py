@@ -103,7 +103,8 @@ class Processor:
         raise NotImplementedError
 
     def plan_stream(self, ctx, in_specs: Dict[str, Any]):
-        """Chunk-streaming execution is not ported yet."""
+        """The base class's refusal for a node without a streamed
+        lowering (the streaming executor then exports offline)."""
         raise ProcessorRuntimeError(
             "Node does not support streaming execution",
             f"{type(self).__name__} implements only whole-clip lowering.",
@@ -111,7 +112,8 @@ class Processor:
         )
 
     def lower_stream(self, ctx, inputs: Dict[str, Any], state):
-        """Chunk-streaming execution is not ported yet."""
+        """The base class's refusal for a node without a streamed
+        lowering."""
         raise ProcessorRuntimeError(
             "Node does not support streaming execution",
             f"{type(self).__name__} implements only whole-clip lowering.",

@@ -104,6 +104,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.na_mp3_write_s16.restype = ctypes.c_int
     lib.na_mp3_close.argtypes = [ctypes.c_void_p]
     lib.na_mp3_close.restype = ctypes.c_int
+
+    lib.na_swr_convert_full.argtypes = [
+        c_float_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(c_float_p), ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.na_swr_convert_full.restype = ctypes.c_int64
+    lib.na_free_buffer.argtypes = [c_float_p]
+    lib.na_free_buffer.restype = None
     return lib
 
 

@@ -38,7 +38,7 @@ lane slack, which only the TPU kernel's 128-lane DMA windows read.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -127,14 +127,17 @@ class ResamplePlan(NamedTuple):
     W: int             # window width of one output group
     bank: torch.Tensor  # [L, W] float32 on the stage's device
     support: resample_ops.BankSupport  # what the CUDA kernel reads
-    in_rate: int
-    out_rate: int
+    in_rate: int       # the original (unreduced) rate pair: a compat
+    out_rate: int      # bank is measured per pair
+    compat: Optional[str] = None   # resolved bank mode (None | 'swr')
 
 
 def resample_plan(in_rate: int, out_rate: int, push_cap: int,
-                  device) -> ResamplePlan:
+                  device, compat=None) -> ResamplePlan:
     L, M = resample_ops._rational(in_rate, out_rate)
-    _bank, left_ctx, W = resample_ops.bank_spec(in_rate, out_rate)
+    # Resolved here, at plan time, so no step can change banks mid-stream.
+    compat = resample_ops.resolve_compat(compat)
+    _bank, left_ctx, W = resample_ops.bank_spec(in_rate, out_rate, compat)
     taps = W - M + 1
     # Consume in multiples of M * group_factor, so every step's first group
     # sits at a global cycle phase of 0 mod R, as in the offline grouped
@@ -142,14 +145,14 @@ def resample_plan(in_rate: int, out_rate: int, push_cap: int,
     quant = M * resample_ops.group_factor(L, M)
     take_cap = round_up(push_cap, quant) + quant
     right_ctx = W - M
-    bank, support = resample_ops._device_bank(in_rate, out_rate,
-                                              torch.device(device))
+    bank, support = resample_ops._device_bank(in_rate, out_rate, device,
+                                              compat)
     return ResamplePlan(
         L=L, M=M, taps=taps, left_ctx=left_ctx, right_ctx=right_ctx,
         push_cap=push_cap, take_cap=take_cap,
         cap=left_ctx + right_ctx + quant + push_cap + take_cap,
         out_cap=take_cap * L // M, quant=quant, W=W, bank=bank,
-        support=support, in_rate=in_rate, out_rate=out_rate,
+        support=support, in_rate=in_rate, out_rate=out_rate, compat=compat,
     )
 
 

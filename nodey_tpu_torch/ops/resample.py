@@ -24,9 +24,15 @@ computes each clip on its own, on the GEMM shapes of a single clip (a
 CPU GEMM's result for a row depends on how many rows it is given, and a
 batched clip must equal its single render bitwise).
 
-Not ported yet: the relay-era formulation switch (``resolve_form``,
-``form_override``, the ``transposed`` form), ``compat="swr"`` banks (a set
-``NODEY_RESAMPLE_COMPAT`` raises, ``bank_spec``) and
+``compat="swr"`` (or ``NODEY_RESAMPLE_COMPAT=swr``, ``run --swr-compat``)
+takes the measured libswresample banks (``host.resample_ref.
+measure_swr_bank``) in place of the analytic design, through the same
+kernel and plain versions. Measuring needs the codec runtime: where it
+does not load, ``bank_spec`` raises, and no analytic bank is rendered in
+its place.
+
+Not ported: the relay-era formulation switch (``resolve_form``,
+``form_override``, the ``transposed`` form) and
 ``to_rate_and_stereo_many``.
 """
 
@@ -133,30 +139,42 @@ def group_factor(L: int, M: int) -> int:
     return R
 
 
-def bank_spec(in_rate: int, out_rate: int):
-    """(bank ndarray [L, W], left, W) of the analytic design: the window
-    of output group g reads input [g*M - left, g*M - left + W).
+def resolve_compat(compat=None):
+    """The resampler's compatibility mode: an explicit argument wins;
+    otherwise NODEY_RESAMPLE_COMPAT ('swr' = measured libswresample banks,
+    ``host.resample_ref.measure_swr_bank``); default None = the analytic
+    design."""
+    if compat is not None:
+        return compat or None
+    return os.environ.get("NODEY_RESAMPLE_COMPAT") or None
 
-    ``NODEY_RESAMPLE_COMPAT`` selects the JAX package's measured
-    libswresample banks ("swr"), which are not ported yet: a non-empty
-    value raises instead of rendering the analytic bank."""
-    compat = os.environ.get("NODEY_RESAMPLE_COMPAT") or None
+
+def bank_spec(in_rate: int, out_rate: int, compat=None):
+    """(bank ndarray [L, W], left, W) for the rate pair under ``compat``
+    (``resolve_compat``): the window of output group g reads input
+    [g*M - left, g*M - left + W)."""
+    L, M = _rational(in_rate, out_rate)
+    compat = resolve_compat(compat)
     if compat == "swr":
-        raise ProcessorRuntimeError(
-            "Unsupported resampler compatibility mode",
-            "Measured libswresample banks (NODEY_RESAMPLE_COMPAT=swr) are not "
-            "ported to nodey_tpu_torch yet (ROADMAP 1.6); unset the variable "
-            "to render with the analytic bank.",
-            f"NODEY_RESAMPLE_COMPAT={compat!r}, resample {in_rate}->"
-            f"{out_rate} Hz",
-        )
+        from nodey_tpu_torch.host.resample_ref import measure_swr_bank
+
+        bank, left, W = measure_swr_bank(in_rate, out_rate)
+        if left < 0:
+            # Keep the window non-anticipating: leading zero columns in
+            # place of a negative left pad.
+            bank = np.pad(bank, ((0, 0), (-left, 0)))
+            W += -left
+            left = 0
+        if W < M + 1:
+            bank = np.pad(bank, ((0, 0), (0, M + 1 - W)))
+            W = M + 1
+        return bank, left, W
     if compat is not None:
         raise ProcessorRuntimeError(
             "Unknown resampler compatibility mode",
             "Supported: 'swr' (measured libswresample-equivalent banks).",
             f"compat={compat!r}",
         )
-    L, M = _rational(in_rate, out_rate)
     taps = _effective_taps(L, M, DEFAULT_TAPS)
     W = M + taps - 1
     bank = _design_filter_bank(L, M, taps, DEFAULT_BETA, DEFAULT_CUTOFF)
@@ -216,16 +234,23 @@ def support_on(bank: np.ndarray, device) -> BankSupport:
                        row_used)
 
 
+def _device_bank(in_rate: int, out_rate: int, device, compat=None):
+    """``(bank [L, W], BankSupport)`` of the rate pair under ``compat``
+    (``resolve_compat``) on ``device``, derived once per bank and cached,
+    so no step copies from the host."""
+    return _bank_on(in_rate, out_rate, torch.device(device),
+                    resolve_compat(compat))
+
+
 @functools.lru_cache(maxsize=32)
-def _device_bank(in_rate: int, out_rate: int, device: torch.device):
-    """``(bank [L, W], BankSupport)`` of the rate pair on ``device``,
-    derived once per bank and cached, so no step copies from the host."""
-    bank = bank_spec(in_rate, out_rate)[0]
+def _bank_on(in_rate: int, out_rate: int, device: torch.device, compat):
+    bank = bank_spec(in_rate, out_rate, compat)[0]
     return (torch.from_numpy(bank).to(device),
             support_on(bank, device))
 
 
-def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
+def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int,
+                  compat=None):
     """``(x, G, M, W, bank, support)`` that ``resample_data`` hands
     ``apply_filter_bank`` for ``data`` [C, N] (or a batch [B, C, N]): the
     padded input, the number
@@ -241,16 +266,17 @@ def bank_operands(data: torch.Tensor, in_rate: int, out_rate: int):
         )
     N = data.shape[-1]
     G = -(-(-(-N * L // M)) // L)  # groups of L outputs
-    _, left, W = bank_spec(in_rate, out_rate)
-    bank, support = _device_bank(in_rate, out_rate, data.device)
+    compat = resolve_compat(compat)
+    _, left, W = bank_spec(in_rate, out_rate, compat)
+    bank, support = _device_bank(in_rate, out_rate, data.device, compat)
     # Input index 0 of the window is original sample -left; the right pad
     # covers the last group's window.
     right = max(0, (G + -(-W // M)) * M - left - N)
     return F.pad(data, (left, right)), G, M, W, bank, support
 
 
-def resample_data(data: torch.Tensor, in_rate: int,
-                  out_rate: int) -> torch.Tensor:
+def resample_data(data: torch.Tensor, in_rate: int, out_rate: int,
+                  compat=None) -> torch.Tensor:
     """Resample [C, N] (or [B, C, N]) float32 to ceil(N*L/M) output
     samples.
 
@@ -261,7 +287,8 @@ def resample_data(data: torch.Tensor, in_rate: int,
     entry needs no code path of its own."""
     if in_rate == out_rate:
         return data
-    x, G, M, W, bank, support = bank_operands(data, in_rate, out_rate)
+    x, G, M, W, bank, support = bank_operands(data, in_rate, out_rate,
+                                              compat)
     n_out = -(-data.shape[-1] * bank.shape[0] // M)
     return apply_filter_bank(x, G, M, W, bank, support)[..., :n_out]
 

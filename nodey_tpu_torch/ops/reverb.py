@@ -190,6 +190,36 @@ def _segments(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev, blocks], dim=-1)
 
 
+def _spectrum(seg: torch.Tensor, cos_m: torch.Tensor, msin_m: torch.Tensor,
+              hr: torch.Tensor, hi: torch.Tensor,
+              clips: bool = False) -> torch.Tensor:
+    """The forward DFT of the overlap-save segments ``seg`` [.., C, T, F]
+    on the bases' bin columns (``cos_m``, ``msin_m`` [F, bins]) and the
+    frequency-domain delay line with the partition spectra ``hr``, ``hi``
+    [C, K, bins] of the same columns: Y [.., C, T, 2, bins], whose last two
+    axes are [Yr | Yi] (flattened, the layout the inverse basis takes).
+
+    The delay line, Y[t] = sum_k X[t-k] (*) H[k], accumulates in place into
+    the shifted slices of Y (complex product in split-real form; per
+    element the JAX loop's order, ((y + xr hr) - xi hi) and ((y + xr hi) +
+    xi hr), k ascending): 4 min(K, T) launches."""
+    xr = scans._gemm(seg, cos_m, clips)
+    xi = scans._gemm(seg, msin_m, clips)
+    del seg
+    k = hr.shape[1]
+    t, bins = xr.shape[-2], xr.shape[-1]
+    y = torch.zeros((*xr.shape[:-1], 2, bins), dtype=torch.float32,
+                    device=xr.device)
+    yr, yi = y[..., 0, :], y[..., 1, :]
+    for kk in range(min(k, t)):
+        sxr, sxi = xr[..., :t - kk, :], xi[..., :t - kk, :]
+        hrk = hr[:, kk][:, None, :]                      # [C, 1, bins]
+        hik = hi[:, kk][:, None, :]
+        yr[..., kk:, :].addcmul_(sxr, hrk).addcmul_(sxi, hik, value=-1.0)
+        yi[..., kk:, :].addcmul_(sxr, hik).addcmul_(sxi, hrk)
+    return y
+
+
 def partitioned_conv(x: torch.Tensor, hr: torch.Tensor, hi: torch.Tensor,
                      out_len: int, clips: bool = False) -> torch.Tensor:
     """Linear convolution of ``x`` [C, N] (or, with ``clips``, a batch [B,
@@ -198,30 +228,13 @@ def partitioned_conv(x: torch.Tensor, hr: torch.Tensor, hi: torch.Tensor,
     [B, C, out_len]) where ``out_len`` <= N_padded + K*P (callers pass N +
     L - 1)."""
     lead, n = x.shape[:-1], x.shape[-1]
-    k = hr.shape[1]
     t = -(-out_len // PARTITION)
     need = t * PARTITION
     x = F.pad(x, (0, need - n)) if need > n else x[..., :need]
-    seg = _segments(x)                                   # [.., C, T, F]
     cos_m, msin_m, inv = _device_mats(x.device)
-    xr = scans._gemm(seg, cos_m, clips)
-    xi = scans._gemm(seg, msin_m, clips)
-    del seg
-    # Frequency-domain delay line: Y[t] = sum_k X[t-k] (*) H[k], accumulated
-    # in place into the shifted slices of one [Yr | Yi] plane (complex
-    # product in split-real form; per element the JAX loop's order,
-    # ((y + xr hr) - xi hi) and ((y + xr hi) + xi hr), k ascending).
-    y = torch.zeros((*lead, t, 2 * _BINS), dtype=torch.float32,
-                    device=x.device)
-    yr, yi = y[..., :_BINS], y[..., _BINS:]
-    for kk in range(min(k, t)):
-        sxr, sxi = xr[..., :t - kk, :], xi[..., :t - kk, :]
-        hrk = hr[:, kk][:, None, :]                      # [C, 1, BINS]
-        hik = hi[:, kk][:, None, :]
-        yr[..., kk:, :].addcmul_(sxr, hrk).addcmul_(sxi, hik, value=-1.0)
-        yi[..., kk:, :].addcmul_(sxr, hik).addcmul_(sxi, hrk)
-    del xr, xi
-    out = scans._gemm(y, inv, clips)
+    y = _spectrum(_segments(x), cos_m, msin_m, hr, hi, clips)
+    out = scans._gemm(y.flatten(-2), inv, clips)
+    del y
     # Overlap-save: the last P samples of each hop are valid.
     return out[..., PARTITION:].reshape(*lead, t * PARTITION)[..., :out_len]
 

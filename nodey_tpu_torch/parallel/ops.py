@@ -13,11 +13,17 @@ and a collective is a plain function over the LIST of the shards' tensors
   receives zeros;
 * ``psum`` sums host ints (lengths stay host ints, so no step waits on a
   device for one);
+* ``all_gather`` concatenates the shards' tensors along an axis, one copy
+  on each device of the shards;
 * ``halo_exchange_nd`` fetches neighbors' tails and heads, several hops
   where a halo is wider than a shard, with zeros past the edges.
 
 No thread and no process group: one process queues every shard's work on
-its device's current stream, as JAX's single controller does.
+its device's current stream, as JAX's single controller does. The one
+exception is the mesh that spans processes (``parallel.dcn``): there a
+shard held by another process is ``None`` in the list, and
+``halo_exchange_nd`` takes that mesh's ``permute``, which moves the pairs
+that cross processes through ``torch.distributed``.
 
 The polyphase resampler's receptive field is its tap span, so sharding the
 time axis needs a halo of tap-sized edges between neighbor shards. With
@@ -27,7 +33,7 @@ cycle factor), the shards' outputs concatenate to the single render.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +67,20 @@ def psum(values: Sequence[int]) -> int:
     return sum(int(v) for v in values)
 
 
+def all_gather(xs: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """Every shard's tensor concatenated along ``dim`` (axis order), on each
+    shard's device (``lax.all_gather(..., tiled=True)``). Shards on one
+    device share one copy: callers never write into it."""
+    gathered = {}
+    out = []
+    for x in xs:
+        if x.device not in gathered:
+            gathered[x.device] = torch.cat(
+                [to_device(y, x.device) for y in xs], dim=dim)
+        out.append(gathered[x.device])
+    return out
+
+
 def _halo_exchange(xs: Sequence[torch.Tensor], left_halo: int,
                    right_halo: int) -> List[torch.Tensor]:
     """Fetch tail/head slices of [C, N] shards from the previous/next
@@ -82,8 +102,9 @@ def _halo_exchange(xs: Sequence[torch.Tensor], left_halo: int,
             for lf, x, rt in zip(lefts, xs, rights)]
 
 
-def halo_exchange_nd(xs: Sequence[torch.Tensor], left_halo: int,
-                     right_halo: int) -> List[torch.Tensor]:
+def halo_exchange_nd(xs: Sequence[Optional[torch.Tensor]], left_halo: int,
+                     right_halo: int, permute=ppermute
+                     ) -> List[Optional[torch.Tensor]]:
     """``_halo_exchange`` generalized to ``[..., N]`` shards (time axis
     last).
 
@@ -91,23 +112,33 @@ def halo_exchange_nd(xs: Sequence[torch.Tensor], left_halo: int,
     next shards' heads as its right halo; edge shards receive zeros
     (matching the zero padding of the unsharded computation). Halos WIDER
     than one shard fetch from several neighbors: ceil(halo/N) hops each way
-    (a one-hop exchange would clamp the slice and corrupt the window)."""
+    (a one-hop exchange would clamp the slice and corrupt the window).
+
+    A shard that another process holds is ``None`` in ``xs`` and in the
+    result; ``permute`` (``ppermute``'s signature) then moves the pairs
+    that cross processes (``dcn.DistPermute``)."""
     size = len(xs)
-    N = xs[0].shape[-1]
+    N = next(x for x in xs if x is not None).shape[-1]
+
+    def cut(sl):
+        return [None if x is None else x[..., sl] for x in xs]
+
+    def zeros(segs):
+        return [None if s is None else torch.zeros_like(s) for s in segs]
 
     def from_left(hop: int, width: int):
         """The LAST ``width`` samples of shard (i - hop), zeros off-edge."""
-        segs = [x[..., N - width:] for x in xs]
+        segs = cut(slice(N - width, None))
         if size <= hop:
-            return [torch.zeros_like(s) for s in segs]
-        return ppermute(segs, [(i, i + hop) for i in range(size - hop)])
+            return zeros(segs)
+        return permute(segs, [(i, i + hop) for i in range(size - hop)])
 
     def from_right(hop: int, width: int):
         """The FIRST ``width`` samples of shard (i + hop), zeros off-edge."""
-        segs = [x[..., :width] for x in xs]
+        segs = cut(slice(None, width))
         if size <= hop:
-            return [torch.zeros_like(s) for s in segs]
-        return ppermute(segs, [(i + hop, i) for i in range(size - hop)])
+            return zeros(segs)
+        return permute(segs, [(i + hop, i) for i in range(size - hop)])
 
     parts = []
     if left_halo:
@@ -125,7 +156,8 @@ def halo_exchange_nd(xs: Sequence[torch.Tensor], left_halo: int,
                      for h, w in zip(range(1, hops + 1), widths))
     if len(parts) == 1:
         return list(xs)
-    return [torch.cat([p[i] for p in parts], dim=-1) for i in range(size)]
+    return [None if xs[i] is None else torch.cat([p[i] for p in parts], dim=-1)
+            for i in range(size)]
 
 
 def split_time(data: torch.Tensor, devices: Sequence[torch.device]

@@ -47,8 +47,8 @@ from nodey_tpu_torch.core import compiler
 from nodey_tpu_torch.core.errors import LogicError, ProcessorRuntimeError
 from nodey_tpu_torch.core.graph import Graph
 from nodey_tpu_torch.parallel.mesh import Mesh
-from nodey_tpu_torch.parallel.ops import (gather_time, halo_exchange_nd, psum,
-                                          to_device)
+from nodey_tpu_torch.parallel.ops import (gather_time, halo_exchange_nd,
+                                          ppermute, psum, to_device)
 
 
 def _round_up(n: int, q: int) -> int:
@@ -301,20 +301,44 @@ class ShardedCompiledGraph:
         self.output_meta = {k: dict(m) for k, m in meta.items()
                             if k in trims}
 
+    def output_metadata(self) -> Dict[str, Any]:
+        """The outputs' metadata (rates, channels, hops): from the first
+        run, or, before one, from one run of the window program on silence
+        on the mesh's first device."""
+        if self._trims is None:
+            program = self.inner[self.mesh.devices.flat[0]]
+            _, meta = program({
+                compiler.external_key(*k): (
+                    torch.zeros((s.channels, s.capacity),
+                                device=program.device), s.capacity)
+                for k, s in program.sources.items()})
+            self._derive_trims(meta)
+        return self.output_meta
+
     def _row(self, data: Dict[str, torch.Tensor],
-             lens: Dict[str, Tuple[int, ...]], devices: List[torch.device]):
+             lens: Dict[str, Tuple[int, ...]],
+             devices: List[Optional[torch.device]], permute=ppermute,
+             psum=psum):
         """One dp row: every sp shard's window program on its device, each
         output trimmed to the shard's own span. Returns ({key: [per-shard
         piece]}, {key: summed lengths}) (lengths a tuple a clip when
-        batched, else an int)."""
+        batched, else an int).
+
+        On a mesh that spans processes (``parallel.dcn``) a shard another
+        process holds has device ``None``: this process runs and returns
+        only its own shards' pieces, the halos cross through ``permute``
+        and the lengths sum through ``psum``."""
         sp = len(devices)
         windows = [{} for _ in range(sp)]
         for key in self.input_keys:
             h_k = self.plan.halos_by_key[key]
             c_k = self.plan.chunks_by_key[key]
-            chunks = [to_device(c, dev) for c, dev in
-                      zip(torch.chunk(data[key], sp, dim=-1), devices)]
-            for i, ext in enumerate(halo_exchange_nd(chunks, h_k, h_k)):
+            chunks = [None if dev is None else to_device(c, dev) for c, dev
+                      in zip(torch.chunk(data[key], sp, dim=-1), devices)]
+            for i, ext in enumerate(halo_exchange_nd(chunks, h_k, h_k,
+                                                     permute)):
+                if ext is None:
+                    continue
                 start = i * c_k - h_k
                 local = tuple(min(max(n - start, 0), c_k + 2 * h_k)
                               for n in lens[key])
@@ -322,6 +346,8 @@ class ShardedCompiledGraph:
         pieces: Dict[str, List[torch.Tensor]] = {}
         contribs: Dict[str, List[Any]] = {}
         for i, dev in enumerate(devices):
+            if dev is None:
+                continue
             program = self.inner[dev]
             if self.batched:
                 out, meta = program.run_batch(
@@ -358,6 +384,13 @@ class ShardedCompiledGraph:
         int. Batched: [B, C, capacity] with B divisible by the dp size,
         ``lengths[key]`` B host ints. Inputs are numpy arrays or tensors on
         the mesh's first device."""
+        rows, row_lens = self.run_rows(arrays, lengths)
+        return self._gather(rows, row_lens, self.mesh.devices.flat[0])
+
+    def run_rows(self, arrays: Dict[str, Any], lengths: Dict[str, Any]):
+        """``run`` before its gathers: (per dp row {key: [the sp shards'
+        pieces, each on its shard's device]}, per dp row {key: lengths}).
+        One row when unbatched."""
         home = self.mesh.devices.flat[0]
         data = {k: _home_tensor(k, arrays[k], home) for k in self.input_keys}
         lens = {k: _host_lengths(k, lengths[k]) for k in self.input_keys}
@@ -370,7 +403,7 @@ class ShardedCompiledGraph:
         if not self.batched:
             pieces, out_lens = self._row(
                 data, lens, self.mesh.axis_devices(self.sp_axis))
-            return self._gather([pieces], [out_lens], home)
+            return [pieces], [out_lens]
         dp = self.mesh.shape[self.dp_axis]
         B = data[self.input_keys[0]].shape[0]
         if B % dp or any(data[k].shape[0] != B or len(lens[k]) != B
@@ -387,7 +420,7 @@ class ShardedCompiledGraph:
                 self.mesh.axis_devices(self.sp_axis, **{self.dp_axis: d}))
             rows.append(pieces)
             row_lens.append(out_lens)
-        return self._gather(rows, row_lens, home)
+        return rows, row_lens
 
     def _gather(self, rows, row_lens, home: torch.device) -> Dict[str, Any]:
         result = {}

@@ -10,7 +10,9 @@ hints (``ctx.hints[node_id]["chunk_width"]``); without a hint it takes
 max(256, 2 s of samples), as the JAX node.
 
 The chunked renderer refuses it (it is not in ``_LTI_NODES``): a source
-has no external buffer to window. The sharded paths are not ported.
+has no external buffer to window. For the same reason the sp planner
+(``parallel.sharded.plan_sharded``) refuses a graph that holds it, through
+``supports_chunked``, as the JAX planner does.
 """
 
 from __future__ import annotations

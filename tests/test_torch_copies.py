@@ -1,12 +1,13 @@
 """The port's own copies of the JAX package's jax-free modules stay equal
 to them where it matters: config values, error classes and messages, the
-graph's rules and quirks, the codec runtime's build, the phase
-vocoder's constants, geometry and host bases, and the effect nodes'
-constants (the reverb's partition, the delay's echo truncation, the LFO
-quantization and phase tables, the fade's ramp cap), the timeline nodes'
-constants (the oscillator's waveforms and hash constants, the generator's
-rates and clamps, trim's clamps, the crossfade's ceiling, duration cap and
-laws), and the registry: both packages hold the same 30 node types."""
+graph's rules and quirks, the codec runtime's sources (byte-equal) and
+build, the phase vocoder's constants, geometry and host bases, and the
+effect nodes' constants (the reverb's partition, the delay's echo
+truncation, the LFO quantization and phase tables, the fade's ramp cap),
+the timeline nodes' constants (the oscillator's waveforms and hash
+constants, the generator's rates and clamps, trim's clamps, the
+crossfade's ceiling, duration cap and laws), and the registry: both
+packages hold the same 30 node types."""
 
 import inspect
 import json
@@ -211,6 +212,14 @@ def test_graph_rejects_bad_files_like_the_jax_package():
 
 
 def test_codec_runtime_builds_in_the_port_build_directory():
+    # The port's codec sources are byte-for-byte the JAX package's (so the
+    # JAX package's ASan build covers them too), the swr shim that the
+    # compat="swr" banks measure through included.
+    port_dir = native_lib._NATIVE_DIR
+    jax_dir = port_dir.parents[2] / "nodey_tpu" / "host" / "native"
+    for name in ("decode.cpp", "encode.cpp", "swr_shim.cpp", "nodey_host.h"):
+        assert (port_dir / name).read_bytes() == (jax_dir / name).read_bytes(), \
+            name
     lib = decode.load_native()
     if lib is None:
         pytest.skip("the codec runtime does not build on this machine")

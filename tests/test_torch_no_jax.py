@@ -10,6 +10,8 @@ with its token and shuts down on SIGINT; afterwards ``sys.modules`` holds
 neither. ``chip_smoke.py`` and the A/B tool (``python -m
 nodey_tpu_torch.tools.ab_wsola_fps``) are held to the same, and no source
 file of the port (``tools/`` included) names either in an import.
+tests/test_torch_dcn.py runs the processes of the gloo dry run
+(``parallel/dcn.py``) under this blocker too.
 """
 
 import ast

@@ -9,7 +9,9 @@
 * the -3 dB mono upmix and the zeroed tail;
 * the bank's tap support (what the CUDA kernel reads): re-embedding the
   compact bank at its offsets gives the dense bank back bitwise;
-* ``NODEY_RESAMPLE_COMPAT`` (measured swr banks, not ported) raises.
+* ``NODEY_RESAMPLE_COMPAT=swr`` raises where the codec runtime that
+  measures its banks does not load, an unknown mode always
+  (tests/test_torch_swr_compat.py holds the measured banks).
 The CUDA kernel itself runs only on the card: test_torch_cuda_kernels.py.
 """
 
@@ -25,6 +27,7 @@ from nodey_tpu.ops import pallas_resample
 from nodey_tpu.ops import resample as jr
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import Stream
+from nodey_tpu_torch.host import resample_ref
 from nodey_tpu_torch.ops import chunkops, cuda_resample
 from nodey_tpu_torch.ops import resample as tr
 
@@ -228,10 +231,16 @@ def test_bank_support_of_an_irregular_bank():
 
 
 def test_resample_compat_variable_raises_instead_of_rendering(monkeypatch):
+    """A compat mode that cannot be served raises: "swr" where the codec
+    runtime that measures its banks does not load (no analytic bank in its
+    place), and an unknown mode always."""
     data = torch.zeros((2, 4_000))
     monkeypatch.setenv("NODEY_RESAMPLE_COMPAT", "")
     assert tr.resample_data(data, 44_100, 48_000).shape == (2, 4_354)
-    for value, what in (("swr", "not ported"),
+    monkeypatch.setattr(resample_ref, "load_native", lambda: None)
+    resample_ref.measure_swr_bank.cache_clear()
+    tr._bank_on.cache_clear()
+    for value, what in (("swr", "oracle unavailable"),
                         ("bogus", "Unknown resampler compatibility mode")):
         monkeypatch.setenv("NODEY_RESAMPLE_COMPAT", value)
         with pytest.raises(ProcessorRuntimeError, match=what) as err:
