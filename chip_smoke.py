@@ -101,12 +101,20 @@ Phases, in order; the first failure exits non-zero:
                a float64 near tie (TIE_REL) on at most TIE_SHARE of the
                K*(seek+1) entries, the table bitwise the same at
                frames_per_step 1, 2 and 4, the walk kernel bitwise the plain
-               walk; against the chain kernel: F[k][bs[k-1]] == bs[k] but for
+               walk and the composed plain walk (walk_table_segments_plain);
+               against the chain kernel: F[k][bs[k-1]] == bs[k] but for
                near ties on at most TIE_SHARE of K, frame 0 exactly, and the
                plain assembly of the walk's splices within 2e-6 of the chain
-               kernel's body where they agree. Times at both shapes: the
-               kernel, the plain table, the library yardstick (chunked
-               torch.bmm + argmax), the walk and the plain walk, with bounds;
+               kernel's body where they agree. The walk kernel bitwise both
+               plain walks on random tables (n_cand 661 and 721) and on
+               tables with an entry outside [0, n_cand) planted on and off
+               the walk's path (the pitch stage's too), at several segment
+               lengths; walk_launches in the phase equal to the calls made.
+               Times at both shapes: the kernel, the plain table, the
+               library yardstick (chunked torch.bmm + argmax), the walk
+               (queued, and as a caller sees it; by pass) and the plain walk,
+               with bounds (the walk's: 8 bytes a frame, and the table read
+               once);
  17. probes  — both step probes in both forms against their plain outputs
                (exactly); tools.probes.wsola_step_overhead (bare and dma us
                per step by K-slope) beside the chain's us per frame; then
@@ -457,6 +465,9 @@ PV_PLANE_DB = 100.0
 PV_PHASOR_TOL = 1e-3
 PV_EXCERPT_DB = 90.0
 PV_PASSES = ("totals", "carry", "apply")  # the phase-path kernel's launches
+WALK_PASSES = ("maps", "carry", "emit")     # the walk kernel's launches
+WALK_SEG = 64                    # phase 16's random and planted tables are
+                                 # cut around this segment length
 # Card vs CPU on the PV excerpt. The two differ in the analysis GEMMs and in
 # atan2/cos/sin by ulps, and a steady tone's sidelobe bins sit where the
 # phase wrap is decided by such ulps, so the PV output itself moves by tens
@@ -1203,7 +1214,8 @@ def check_table(tag: str, x, head, geo, card: str, chain=None):
     """Phase 16 on one (x, geometry): the score kernel against the plain
     table (differing entries float64 near ties, on at most TIE_SHARE of
     them), bitwise the same at frames_per_step 1, 2 and 4; the walk kernel
-    against the plain walk of the same table, bitwise. With ``chain`` = the
+    against the plain walk and the composed plain walk of the same table,
+    bitwise. With ``chain`` = the
     chain kernel's (bs, body) on the same operands: F[k][bs[k-1]] == bs[k]
     but for near ties on at most TIE_SHARE of K, frame 0 exactly, and
     ``wsola.assemble_plain`` of the walk's splices within TOL of the chain
@@ -1223,7 +1235,11 @@ def check_table(tag: str, x, head, geo, card: str, chain=None):
     differ = (table != plain).nonzero()
     gaps = table_gaps(x, geo, differ, table, plain)
     walk = cuda_wsola_table.walk_table_cuda(table)
+    seg = cuda_wsola_table.walk_segment_frames(
+        K, torch.cuda.get_device_properties(0).multi_processor_count)
     same_walk = torch.equal(walk, wsola.walk_table_plain(table))
+    same_composed = torch.equal(
+        walk, wsola.walk_table_segments_plain(table, seg))
     torch.cuda.synchronize()
     worst = max(gaps, default=0.0)
     print(f"[16 wsola-table] {tag}: K={K}, table [{K}, {n_cand}]: "
@@ -1231,13 +1247,17 @@ def check_table(tag: str, x, head, geo, card: str, chain=None):
           f"{TIE_SHARE:g} = {int(TIE_SHARE * K * n_cand)}), worst float64 gap "
           f"{worst:.3e} of the row's max |score| (max {TIE_REL:g}); "
           f"frames_per_step 1, 2, 4 {'bitwise equal' if same_fps else 'DIFFER'}"
-          f"; walk kernel vs plain walk "
-          f"{'bitwise equal' if same_walk else 'DIFFER'} ({card})")
+          f"; walk kernel (segments of {seg} frames) vs plain walk "
+          f"{'bitwise equal' if same_walk else 'DIFFER'}, vs the composed "
+          f"plain walk {'bitwise equal' if same_composed else 'DIFFER'} "
+          f"({card})")
     check(len(differ) <= TIE_SHARE * K * n_cand,
           f"{tag}: {len(differ)} table entries differ from the plain table")
     check(worst <= TIE_REL, f"{tag}: a differing table entry is no near tie")
     check(same_fps, f"{tag}: the table depends on frames_per_step")
     check(same_walk, f"{tag}: the walk kernel disagrees with the plain walk")
+    check(same_composed,
+          f"{tag}: the walk kernel disagrees with the composed plain walk")
     err = 0.0
     if chain is not None:
         bs, body = chain
@@ -1270,6 +1290,91 @@ def check_table(tag: str, x, head, geo, card: str, chain=None):
     return table, worst, err
 
 
+def walk_cases(seed, table=None, seg=WALK_SEG):
+    """(tag, table [K, n_cand] int32 ndarray, the walk in a Python loop):
+    random tables from a numpy seed at n_cand 661 and 721 (the 44.1 and 48
+    kHz seeks), K in {1, L-1, L, L+1, 3L+7} (L = WALK_SEG), and on the
+    3L+7-frame ones (or on ``table``, given as an ndarray) an entry outside
+    [0, n_cand) planted on the walk's path at the first row of the third
+    segment of ``seg`` frames, in the second's middle and on the last frame
+    (the walk's prefix, then -1s), and one planted off the path (no
+    change)."""
+    import numpy as np
+
+    def walk(rows):
+        path, b = [], 0
+        for row in rows:
+            b = int(row[b])
+            path.append(b)
+        return path
+
+    def planted(rows, path, tag):
+        K, n = rows.shape
+        for k, bad in ((2 * seg, n), (seg + seg // 2, -1), (K - 1, n + 9)):
+            out = rows.copy()
+            out[k, path[k - 1]] = bad
+            yield (f"{tag}, {bad} at frame {k}", out,
+                   path[:k] + [-1] * (K - k))
+        out = rows.copy()
+        out[seg + seg // 2, (path[seg + seg // 2 - 1] + 1) % n] = -1
+        yield f"{tag}, -1 off the path", out, path
+
+    if table is not None:
+        yield from planted(table, walk(table), f"K={table.shape[0]}")
+        return
+    rng = np.random.default_rng(seed)
+    for n in (661, 721):
+        for K in (1, WALK_SEG - 1, WALK_SEG, WALK_SEG + 1, 3 * WALK_SEG + 7):
+            rows = rng.integers(0, n, (K, n)).astype(np.int32)
+            path = walk(rows)
+            yield f"random n={n} K={K}", rows, path
+        yield from planted(rows, path, f"random n={n} K={K}")
+
+
+def check_walks(card: str, dev, stage_table):
+    """Phase 16's random and planted tables (walk_cases; ``stage_table``,
+    config 4's pitch-stage table, planted too): the walk kernel at its own
+    segment length and at 1, 3, WALK_SEG and more than K frames, bitwise
+    the plain walk, the composed plain walk at the same length, and the
+    walk in a Python loop. Returns the kernel's launches."""
+    import torch
+
+    from nodey_tpu_torch.ops import cuda_wsola_table, wsola
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seg = cuda_wsola_table.walk_segment_frames(stage_table.shape[0], sms)
+    cases = [*walk_cases(16),
+             *walk_cases(16, stage_table.cpu().numpy(), seg)]
+    launches, stopped = 0, 0
+    for tag, rows, want in cases:
+        table = torch.from_numpy(rows).to(dev)
+        plain = wsola.walk_table_plain(table)
+        check(plain.tolist() == want, f"{tag}: the plain walk is not the walk")
+        big = rows.shape[0] > 1000   # the plain walks of 11,820 frames take s
+        for length in (None,) if big else (None, 1, 3, WALK_SEG,
+                                           rows.shape[0] + 1):
+            got = cuda_wsola_table.walk_table_cuda(table, length)
+            launches += 1
+            composed = wsola.walk_table_segments_plain(
+                table, length or cuda_wsola_table.walk_segment_frames(
+                    rows.shape[0], sms))
+            check(torch.equal(got, plain) and torch.equal(composed, plain),
+                  f"{tag}, segments of {length}: the walk kernel or the "
+                  "composed plain walk disagrees with the plain walk")
+        stopped += int(want[-1] == -1)
+    torch.cuda.synchronize()
+    print(f"[16 wsola-table] walk kernel on {len(cases)} random and planted "
+          f"tables (n_cand 661 and 721, K 1 to {3 * WALK_SEG + 7}; config 4's "
+          f"pitch-stage table with an entry outside [0, n_cand) planted on "
+          f"the walk's path at frames {2 * seg}, {seg + seg // 2} and "
+          f"{stage_table.shape[0] - 1} and off it; {stopped} stopped, each "
+          f"the prefix then "
+          f"-1s), at its own segment length and at 1, 3, {WALK_SEG} and more "
+          f"than K frames: {launches} launches, each bitwise the plain walk "
+          f"and the composed plain walk ({card})")
+    return launches
+
+
 def table_and_probe_phases(card: str, dev, stages, chain_us: float):
     """Phases 16-18 (see the module docstring). ``stages``: config 4's two
     chains from phase 6, (tag, x, head, geo, bs, body) each; ``chain_us``:
@@ -1294,44 +1399,108 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
                                 head, geo, card, chain)
         table_gap = max(table_gap, gap)
     times = {}
+    walk_before = cuda_wsola_table.walk_launches
+    walk_calls = 0
+
+    def walk(table, seg=None):
+        nonlocal walk_calls
+        walk_calls += 1
+        return cuda_wsola_table.walk_table_cuda(table, seg)
+
     for tag, x, head, geo, bs, body in stages:
         table, gap, _ = check_table(f"config-4 {tag} stage", x, head, geo,
                                     card, (bs, body))
+        walk_calls += 1
+        if tag == stages[0][0]:
+            walk_calls += check_walks(card, dev, table)
         table_gap = max(table_gap, gap)
         args = chain_args(geo)
         fns = {
             "kernel": lambda: cuda_wsola_table.wsola_score_table_cuda(x, *args),
             "plain": lambda: wsola.wsola_score_table_plain(x, *args),
             "library": lambda: library_table(x, geo),
-            "walk kernel": lambda: cuda_wsola_table.walk_table_cuda(table),
+            "walk kernel": lambda: walk(table),
             "walk plain": lambda: wsola.walk_table_plain(table),
         }
         runs = {name: [] for name in fns}
         for name in ("plain", "library", "kernel", "kernel", "library",
-                     "plain", "walk plain", "walk kernel", "walk kernel",
-                     "walk plain"):
+                     "plain", "walk plain", "walk plain"):
             runs[name] += cuda_ms(fns[name], 2, warmup=1)
+        # The walk's device time is tens of us, below its wrapper's host
+        # time: its calls are queued (and, beside them, timed as a caller
+        # sees them).
+        walk_call = []
+        for queued in (True, False, False, True):
+            (runs["walk kernel"] if queued else walk_call).extend(cuda_ms(
+                fns["walk kernel"], 20, queued=queued))
+        # The segment length: one segment per SM (walk_segment_frames)
+        # beside fewer, longer segments and more, shorter ones.
+        own = cuda_wsola_table.walk_segment_frames(
+            geo["K"], torch.cuda.get_device_properties(0).multi_processor_count)
+        seg_ms = {seg: summary(cuda_ms(lambda seg=seg: walk(table, seg), 20,
+                                       queued=True))[0]
+                  for seg in sorted({32, 64, 96, 128, own})}
+        print(f"[16 wsola-table] walk kernel by segment length, {tag} stage "
+              f"(queued, median of 20; the wrapper takes {own}): " + ", ".join(
+                  f"{seg} frames {ms:.4f} ms" for seg, ms in seg_ms.items())
+              + f" ({card})")
         K, n, C, ov = geo["K"], geo["seek"] + 1, x.shape[0], geo["overlap"]
         times[tag] = {name: summary(runs[name])[0] for name in fns}
+        times[tag]["walk by segment"] = {str(k): v for k, v in seg_ms.items()}
         # Least work: x read once, the table written once; C*ov*n multiply-
         # adds for each of frame 0's candidates and each (p, b) pair of the
         # other frames. The walk: one entry read and one splice written per
-        # frame.
+        # frame; beside it, the composed walk's own floor, the table read
+        # once.
         times[tag]["bound"] = bound(4 * (x.numel() + K * n),
                                     2 * C * ov * n * (n * (K - 1) + 1))
         times[tag]["walk bound"] = bound(8 * K, 0)
+        times[tag]["walk floor"] = bound(4 * K * n, 0)
+        times[tag]["walk call"] = summary(walk_call)[0]
+        # By pass (device time of each launch; passes 2 and 3 start while
+        # the pass before drains). A profiled run has now and then seen no
+        # device time: one more run then.
+        times[tag]["walk passes"] = (
+            pass_ms(fns["walk kernel"], 10, WALK_PASSES, "wsola_walk_")
+            or pass_ms(fns["walk kernel"], 10, WALK_PASSES, "wsola_walk_"))
         for name in fns:
             med, lo, hi, count = summary(runs[name])
-            label = " (library yardstick)" if name == "library" else ""
+            label = {"library": " (library yardstick)",
+                     "walk kernel": " (queued: device time)"}.get(name, "")
             print(f"[16 wsola-table] times, {tag} stage, K={K}, x "
                   f"{list(x.shape)}, {name}{label}: median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
                   f"n={count}) ({card})")
-        for what, key in (("score table", "kernel"), ("walk", "walk kernel")):
-            ms, by = times[tag][("walk " if what == "walk" else "") + "bound"]
-            print(f"[16 wsola-table] {what} bound, {tag} stage: {ms:.4f} ms "
-                  f"by {by}; kernel at {ms / times[tag][key]:.2%} of it; "
-                  f"{times[tag][key] * 1e3 / K:.4f} us per frame ({card})")
+        med, lo, hi, count = summary(walk_call)
+        print(f"[16 wsola-table] times, {tag} stage, K={K}, walk kernel as a "
+              f"caller sees it (not queued: the wrapper's host time "
+              f"included): median {med:.4f} ms (min {lo:.4f}, max {hi:.4f}, "
+              f"n={count}) ({card})")
+        for what, key in (("score table", "bound"), ("walk", "walk bound"),
+                          ("walk", "walk floor")):
+            ms, by = times[tag][key]
+            kernel = times[tag]["walk kernel" if what == "walk" else "kernel"]
+            label = {"walk bound": " (one entry read and one splice written "
+                                   "a frame)",
+                     "walk floor": " (the composed walk's floor: the table "
+                                   "read once)"}.get(key, "")
+            print(f"[16 wsola-table] {what} bound{label}, {tag} stage: "
+                  f"{ms:.7f} ms by {by}; kernel at {ms / kernel:.2%} of it; "
+                  f"{kernel * 1e3 / K:.4f} us per frame ({card})")
+        passes = times[tag]["walk passes"]
+        parts = ", ".join(f"{name} {passes[name]:.4f} ms"
+                          for name in WALK_PASSES if name in passes)
+        print(f"[16 wsola-table] walk kernel by pass, {tag} stage "
+              f"(torch.profiler, 10 calls): "
+              f"{parts or 'not measured (no device time seen)'}; sum "
+              f"{sum(passes.values()):.4f} ms beside the queued call's "
+              f"{times[tag]['walk kernel']:.4f} ms ({card})")
         del table, fns
+    torch.cuda.synchronize()
+    walk_launches = cuda_wsola_table.walk_launches - walk_before
+    print(f"[16 wsola-table] walk_launches in phase 16: {walk_launches} "
+          f"(the checks' and the timed calls') ({card})")
+    check(walk_launches == walk_calls and walk_launches > 0,
+          f"phase 16 counted {walk_launches} walk launches, made {walk_calls}")
 
     # -- 17. probes -----------------------------------------------------------
     rng = np.random.default_rng(17)
@@ -1463,7 +1632,7 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
         ("kernel", "kernel"), 10, card, resample_bound)
     del data, x
 
-    pitch = times[stages[0][0]]
+    pitch, velocity = times[stages[0][0]], times[stages[1][0]]
     r = ab[(48_000, 44_100)]
     entries = [
         {"name": "wsola_score_table", "route": "cuda",
@@ -1481,7 +1650,17 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
          "max_abs_err": 0.0,
          "ms": pitch["walk kernel"], "plain_ms": pitch["walk plain"],
          "bound_ms": pitch["walk bound"][0],
-         "bound_by": pitch["walk bound"][1], "library_ms": None},
+         "bound_by": pitch["walk bound"][1], "library_ms": None,
+         "floor_ms": pitch["walk floor"][0], "call_ms": pitch["walk call"],
+         "passes_ms": pitch["walk passes"],
+         "ms_by_segment_frames": pitch["walk by segment"],
+         "velocity": {"ms": velocity["walk kernel"],
+                      "plain_ms": velocity["walk plain"],
+                      "bound_ms": velocity["walk bound"][0],
+                      "floor_ms": velocity["walk floor"][0],
+                      "call_ms": velocity["walk call"],
+                      "passes_ms": velocity["walk passes"],
+                      "ms_by_segment_frames": velocity["walk by segment"]}},
     ]
     for probe, replaces in (
             ("bare", "bench.py:979 and tools/ab_wsola_fps.py:42"),
@@ -1680,10 +1859,10 @@ def profile_render(render, card: str, tag: str = "8 times",
           f"{max(0.0, 1.0 - busy_ms / span_ms):.2%} ({card})")
 
 
-def pass_ms(fn, iters: int) -> dict:
-    """Device ms per call of each phase-path pass (its kernel's name holds
-    pv_phase_<pass>), from torch.profiler over ``iters`` calls of ``fn``;
-    {} if the profiler saw no device time."""
+def pass_ms(fn, iters: int, passes=PV_PASSES, prefix="pv_phase_") -> dict:
+    """Device ms per call of each of a kernel's passes (its kernel's name
+    holds <prefix><pass>; the phase path's by default), from torch.profiler
+    over ``iters`` calls of ``fn``; {} if the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1695,8 +1874,8 @@ def pass_ms(fn, iters: int) -> dict:
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total",
                      getattr(event, "self_cuda_time_total", 0))
-        for name in PV_PASSES:
-            if f"pv_phase_{name}" in event.key and us > 0:
+        for name in passes:
+            if f"{prefix}{name}" in event.key and us > 0:
                 out[name] = out.get(name, 0.0) + us / 1e3 / iters
     return out
 

@@ -48,14 +48,45 @@
 // bitwise the chain kernel's choice for frame k, and the walk reproduces its
 // splices.
 //
-// The walk is one thread: K dependent loads b = F[k][b], latency-bound; the
-// table stays on the card (no copy to the host, no sync).
+// The walk b_k = F[k][b_{k-1}] is K dependent loads. One thread doing them
+// in order waits on L2 for each (~0.18 us a frame on the H100), so the walk
+// composes instead, in three launches (the phase path's totals / carry /
+// apply, csrc/pv_phase_path.cu):
+//   1. maps:  K is cut into segments of `seg` frames, one CTA each (the
+//      wrapper takes seg ~ K / SMs, so one wave fills the card). Thread 0
+//      streams the segment's rows through a ring of 4 stages of 16 rows in
+//      shared memory, one TMA bulk copy a stage (the ragged ends of an
+//      unaligned stage, up to 3 ints each, by plain loads), and thread p
+//      steps start p through them: every start's path through the segment
+//      is a chain of shared-memory loads. Every 8 frames and at the
+//      segment's end it writes where each start stands (`part`,
+//      [segs][ceil(seg / 8)][ld]); the last of these is the segment's map.
+//      Bound by bytes: the table read once (34.1 MB at K = 11,820, 0.0102
+//      ms at 3.35 TB/s) and the checkpoints, an eighth of that, written.
+//   2. carry: start_s = map_{s-1}[start_{s-1}] from start_0 = 0 is segs
+//      dependent steps. One CTA staging every map for them would be bound
+//      by one SM's load rate, so the maps are composed at a second level
+//      instead: CTA g stages ~sqrt(segs) maps and thread p follows start p
+//      through them, writing each prefix; the last CTA to finish (an
+//      atomic count) carries across the groups' last prefixes and looks
+//      every segment's start up. Bound by latency: two stagings of
+//      ~sqrt(segs) maps and the count.
+//   3. emit:  one thread per 8 frames of a segment looks its start up (the
+//      segment's start, then the checkpoint) and walks its 8 rows in
+//      global memory. Bound by latency: 10 dependent loads a thread.
+// Passes 2 and 3 are launched as programmatic dependents of the pass before
+// (griddepcontrol.wait), so their launch overlaps its end.
+// An entry outside [0, n_cand) stops the walk: that frame and every later
+// one are -1 (a start that meets one stands at -1, and -1 leads only to
+// -1). So the splices are bitwise those of the walk in order. The table
+// stays on the card (no copy to the host, no sync).
 //
 // C interface (loaded with ctypes): each entry launches on the given stream
 // and returns cudaGetLastError(); none synchronizes or allocates.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 
@@ -315,19 +346,347 @@ score_table_kernel(const float* __restrict__ x, long long ld, int channels,
   }
 }
 
-// b_k = table[k][b_{k-1}], b_{-1} = 0. An entry outside [0, n_cand) (a table
-// this kernel did not write) stops the walk: it and the rest are -1.
-__global__ void table_walk_kernel(const int* __restrict__ table, int n_cand,
-                                  int frames, int* __restrict__ bs) {
-  int b = 0;
-  for (long long k = 0; k < frames; ++k) {
-    b = table[k * n_cand + b];
-    if (b < 0 || b >= n_cand) {
-      for (; k < frames; ++k) bs[k] = -1;
-      return;
+// -- The walk ---------------------------------------------------------------
+
+// A block's shared memory (232,448 bytes on the card) less 64 bytes for its
+// static variables.
+constexpr int kSmemInts = (232448 - 64) / 4;
+constexpr int kWalkStages = 4;         // the maps pass's ring of stages
+constexpr int kWalkStageRows = 16;     // table rows a stage holds
+constexpr int kWalkEmitFrames = 8;     // frames an emit thread walks
+constexpr int kWalkMaxThreads = 1024;
+constexpr int kEmitThreads = 128;
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Checkpoints a segment of seg frames writes: one every kWalkEmitFrames
+// frames and one at its end (its map).
+__host__ __device__ inline int walk_bounds(int seg) {
+  return (seg + kWalkEmitFrames - 1) / kWalkEmitFrames;
+}
+
+// Ints of a maps-pass stage: its rows, shifted by up to 3 ints so that they
+// sit at the source's offset modulo 16 bytes.
+__host__ __device__ inline int stage_len(int n_cand, int stage_rows) {
+  return round4(stage_rows * n_cand) + 4;
+}
+
+// Shared ints of a maps-pass CTA: the starts' state row and the ring.
+__host__ __device__ inline int maps_smem_ints(int n_cand, int stage_rows) {
+  return round4(n_cand) + kWalkStages * stage_len(n_cand, stage_rows);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async_16(int* dst, const int* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The one arrival of the barrier's phase, expecting `bytes` from the TMA.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// A kernel launched by launch_dependent waits here for the kernel before
+// it on the stream to finish and its writes to be visible.
+__device__ __forceinline__ void wait_for_previous_kernel() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(int* dst, const int* src,
+                                         unsigned bytes,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The block copies `maps` rows of ld ints (16-byte aligned, ld % 4 == 0)
+// from src, `stride` ints apart, into dst, and waits for them.
+__device__ __forceinline__ void stage_maps(int* dst, const int* src,
+                                           long long stride, int maps,
+                                           int ld) {
+  const int vecs = ld / 4;
+  for (int v = threadIdx.x; v < maps * vecs; v += blockDim.x) {
+    const int i = v / vecs;
+    const int w = 4 * (v - i * vecs);
+    cp_async_16(dst + i * ld + w, src + i * stride + w);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// Pass 1. Segment s = blockIdx.x holds frames s*seg .. min(K, s*seg + seg).
+// part[s][j][p]: where start p stands after min((j+1)*8, seg) of its frames,
+// -1 once it has met an entry outside [0, n_cand). Thread 0 keeps the ring
+// full: each stage's 16-byte aligned body by one TMA bulk copy, its ragged
+// ends (up to 3 ints each) by plain loads.
+__global__ void __launch_bounds__(kWalkMaxThreads)
+wsola_walk_maps_kernel(const int* __restrict__ table, int n_cand, int frames,
+                       int seg, int stage_rows, int ld,
+                       int* __restrict__ part, int* __restrict__ counter) {
+  extern __shared__ __align__(16) int walk_smem[];
+  __shared__ __align__(8) unsigned long long full[kWalkStages];
+  int* state = walk_smem;       // [ld]
+  int* ring = walk_smem + ld;   // [kWalkStages][stage_len]
+  const int slot_len = stage_len(n_cand, stage_rows);
+  const int n_bounds = walk_bounds(seg);
+  const long long row0 = static_cast<long long>(blockIdx.x) * seg;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(seg), frames - row0));
+  const int stages = (rows + stage_rows - 1) / stage_rows;
+  const int* seg_rows = table + row0 * n_cand;
+  int* seg_part = part + static_cast<long long>(blockIdx.x) * n_bounds * ld;
+
+  // Stage c's rows sit in its slot at their source's offset mod 16 bytes.
+  auto lead_of = [&](int c) {
+    const int* src = seg_rows + static_cast<long long>(c) * stage_rows * n_cand;
+    return static_cast<int>((reinterpret_cast<unsigned long long>(src) & 15) /
+                            4);
+  };
+  auto stage = [&](int c) {  // thread 0
+    const int r0 = c * stage_rows;
+    const int count = min(stage_rows, rows - r0) * n_cand;
+    const int* src = seg_rows + static_cast<long long>(r0) * n_cand;
+    const int lead = lead_of(c);
+    int* dst = ring + (c % kWalkStages) * slot_len + lead;
+    const int head = min(count, (4 - lead) & 3);
+    const int body = (count - head) & ~3;
+    mbar_expect(&full[c % kWalkStages], 4u * body);
+    if (body > 0) {
+      tma_load(dst + head, src + head, 4u * body, &full[c % kWalkStages]);
+    }
+    for (int i = 0; i < head; ++i) dst[i] = src[i];
+    for (int i = head + body; i < count; ++i) dst[i] = src[i];
+  };
+  if (threadIdx.x == 0) {
+    if (blockIdx.x == 0) *counter = 0;  // the carry pass's
+    for (int i = 0; i < kWalkStages; ++i) mbar_init(&full[i]);
+    mbar_init_fence();
+    for (int c = 0; c < kWalkStages - 1 && c < stages; ++c) stage(c);
+  }
+  for (int p = threadIdx.x; p < n_cand; p += blockDim.x) state[p] = p;
+  __syncthreads();
+  for (int c = 0; c < stages; ++c) {
+    // Stage c + 3 refills the slot of stage c - 1, which every thread left
+    // at the last barrier; its ragged ends are seen after the barriers to
+    // come, its body through its mbarrier.
+    if (threadIdx.x == 0 && c + kWalkStages - 1 < stages) {
+      stage(c + kWalkStages - 1);
+    }
+    mbar_wait(&full[c % kWalkStages], (c / kWalkStages) & 1);
+    const int* staged = ring + (c % kWalkStages) * slot_len + lead_of(c);
+    const int r0 = c * stage_rows;
+    const int n_rows = min(stage_rows, rows - r0);
+    for (int p = threadIdx.x; p < n_cand; p += blockDim.x) {
+      int b = state[p];
+      for (int i = 0; i < n_rows; ++i) {
+        if (b >= 0) {
+          b = staged[i * n_cand + b];
+          if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_cand)) {
+            b = -1;
+          }
+        }
+        const int done = r0 + i + 1;
+        if (done % kWalkEmitFrames == 0 || done == seg) {
+          seg_part[static_cast<long long>((done - 1) / kWalkEmitFrames) * ld +
+                   p] = b;
+        }
+      }
+      state[p] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 2. Map m, part[m][n_bounds - 1], carries segment m's start to
+// segment m + 1's. CTA g composes maps g*group .. (its last), staged in
+// shared memory, and writes prefix[m][p]: where start p of segment g*group
+// stands after maps g*group .. m. The last CTA to finish carries across the
+// groups, gstarts[0] = 0, gstarts[g+1] = prefix[(g+1)*group - 1][gstarts[g]]
+// (-1 stays -1), and writes every segment's start: starts[s] =
+// prefix[s-1][gstarts[(s-1) / group]] for s = 1 .. n_maps.
+__global__ void __launch_bounds__(kWalkMaxThreads)
+wsola_walk_carry_kernel(const int* __restrict__ part, int n_maps,
+                        int n_bounds, int n_cand, int ld, int group,
+                        int chunk, int* __restrict__ prefix,
+                        int* __restrict__ gstarts, int* __restrict__ starts,
+                        int* __restrict__ counter) {
+  extern __shared__ __align__(16) int walk_smem[];
+  __shared__ bool last;
+  int* state = walk_smem;          // [ld]
+  int* maps = walk_smem + ld;      // [chunk][ld]
+  const int m_end = min(n_maps, (blockIdx.x + 1) * group);
+  wait_for_previous_kernel();
+  for (int p = threadIdx.x; p < n_cand; p += blockDim.x) state[p] = p;
+  for (int m0 = blockIdx.x * group; m0 < m_end; m0 += chunk) {
+    const int count = min(chunk, m_end - m0);
+    stage_maps(maps, part + (static_cast<long long>(m0) * n_bounds +
+                             n_bounds - 1) * ld,
+               static_cast<long long>(n_bounds) * ld, count, ld);
+    for (int p = threadIdx.x; p < n_cand; p += blockDim.x) {
+      int b = state[p];
+      for (int i = 0; i < count; ++i) {
+        if (b >= 0) b = maps[i * ld + b];
+        prefix[static_cast<long long>(m0 + i) * ld + p] = b;
+      }
+      state[p] = b;
+    }
+    __syncthreads();
+  }
+  // The last CTA to get here sees every CTA's prefix rows.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int start = 0;
+  if (threadIdx.x == 0) gstarts[0] = 0;
+  const int groups = gridDim.x;
+  for (int g0 = 0; g0 + 1 < groups; g0 += chunk) {
+    const int count = min(chunk, groups - 1 - g0);
+    stage_maps(maps, prefix + (static_cast<long long>(g0 + 1) * group - 1) * ld,
+               static_cast<long long>(group) * ld, count, ld);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < count; ++i) {
+        if (start >= 0) start = maps[i * ld + start];
+        gstarts[g0 + i + 1] = start;
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();  // gstarts
+  for (int s = 1 + threadIdx.x; s <= n_maps; s += blockDim.x) {
+    const int g = gstarts[(s - 1) / group];
+    starts[s] =
+        g >= 0 ? __ldcg(prefix + static_cast<long long>(s - 1) * ld + g) : -1;
+  }
+}
+
+// Pass 3. Thread t walks frames j*8 .. j*8 + 7 of segment s (t = s *
+// n_bounds + j) in global memory from the checkpoint before them: at most
+// 10 dependent loads.
+__global__ void __launch_bounds__(kEmitThreads)
+wsola_walk_emit_kernel(const int* __restrict__ table, int n_cand, int frames,
+                       int seg, int ld, const int* __restrict__ part,
+                       const int* __restrict__ starts, int* __restrict__ bs) {
+  const int n_bounds = walk_bounds(seg);
+  wait_for_previous_kernel();
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long s = t / n_bounds;
+  const int j = static_cast<int>(t - s * n_bounds);
+  const long long seg0 = s * seg;
+  const long long k0 = seg0 + static_cast<long long>(j) * kWalkEmitFrames;
+  if (k0 >= frames) return;
+  const long long k1 = min(min(k0 + kWalkEmitFrames, seg0 + seg),
+                           static_cast<long long>(frames));
+  int b = s > 0 ? starts[s] : 0;
+  if (j > 0 && b >= 0) b = part[(s * n_bounds + j - 1) * ld + b];
+  for (long long k = k0; k < k1; ++k) {
+    if (b >= 0) {
+      b = table[k * n_cand + b];
+      if (static_cast<unsigned>(b) >= static_cast<unsigned>(n_cand)) b = -1;
     }
     bs[k] = b;
   }
+}
+
+// Rows of a maps-pass stage: kWalkStageRows, or fewer where the ring would
+// not fit (0: the row is too wide for the kernel).
+int walk_stage_rows(int n_cand) {
+  int rows = kWalkStageRows;
+  while (rows > 0 && maps_smem_ints(n_cand, rows) > kSmemInts) --rows;
+  return rows;
+}
+
+// The carry's layout for segs segments: (maps, maps a group, groups, maps a
+// staged chunk). Groups of ~sqrt(maps) maps balance the group CTAs' work
+// against the last CTA's.
+struct CarryPlan {
+  int maps, group, groups, chunk;
+};
+
+CarryPlan carry_plan(int n_cand, long long segs) {
+  CarryPlan plan;
+  plan.maps = static_cast<int>(segs - 1);
+  plan.group = 1;
+  while (static_cast<long long>(plan.group) * plan.group < plan.maps) {
+    ++plan.group;
+  }
+  plan.groups = plan.maps > 0 ? (plan.maps + plan.group - 1) / plan.group : 0;
+  plan.chunk = kSmemInts / round4(n_cand) - 1;
+  return plan;
+}
+
+long long walk_scratch_ints(int n_cand, long long segs, int seg) {
+  const CarryPlan plan = carry_plan(n_cand, segs);
+  // part, prefix, gstarts, starts, the counter
+  return (segs * walk_bounds(seg) + plan.maps) * round4(n_cand) +
+         plan.groups + segs + 1;
+}
+
+// Launches kernel so that it may start while the kernel before it on the
+// stream drains (programmatic dependent launch); it waits for that kernel
+// in wait_for_previous_kernel.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned grid,
+                             int threads, int smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
 }
 
 }  // namespace
@@ -361,12 +720,76 @@ int nodey_wsola_score_table(const float* x, long long ld, int channels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bs int32 [frames] from table int32 [frames, n_cand] (row-major).
-int nodey_wsola_table_walk(const int* table, int n_cand, int frames, int* bs,
-                           void* stream) {
-  table_walk_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, n_cand, frames, bs);
-  return static_cast<int>(cudaGetLastError());
+// The widest row the walk takes: a state row and kWalkStages staged rows
+// in a block's shared memory.
+int nodey_wsola_walk_max_cands() {
+  int n = kSmemInts / (kWalkStages + 1);
+  while (walk_stage_rows(n) < 1) --n;
+  return n;
+}
+
+// Scratch ints of one walk through segments of seg frames.
+long long nodey_wsola_walk_scratch_ints(int n_cand, int frames, int seg) {
+  return walk_scratch_ints(
+      n_cand, (static_cast<long long>(frames) + seg - 1) / seg, seg);
+}
+
+// bs int32 [frames] from table int32 [frames, n_cand] (row-major, 4-byte
+// aligned), through segments of seg >= 1 frames; scratch holds
+// nodey_wsola_walk_scratch_ints(n_cand, frames, seg) ints, 16-byte
+// aligned; n_cand <= nodey_wsola_walk_max_cands(), frames >= 1. Launches
+// the three passes and returns the first error.
+int nodey_wsola_table_walk(const int* table, int n_cand, int frames, int seg,
+                           int* scratch, int* bs, void* stream) {
+  const int stage_rows = walk_stage_rows(n_cand);
+  if (stage_rows < 1 || frames < 1 || seg < 1 ||
+      (reinterpret_cast<unsigned long long>(scratch) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ld = round4(n_cand);
+  const int n_bounds = walk_bounds(seg);
+  const long long segs = (static_cast<long long>(frames) + seg - 1) / seg;
+  const CarryPlan plan = carry_plan(n_cand, segs);
+  int* part = scratch;
+  int* prefix = part + segs * n_bounds * ld;
+  int* gstarts = prefix + static_cast<long long>(plan.maps) * ld;
+  int* starts = gstarts + plan.groups;
+  int* counter = starts + segs;
+  const int threads = std::min(kWalkMaxThreads, (n_cand + 31) / 32 * 32);
+
+  const int maps_smem = 4 * maps_smem_ints(n_cand, stage_rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      wsola_walk_maps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      maps_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wsola_walk_maps_kernel<<<static_cast<unsigned>(segs), threads, maps_smem,
+                           st>>>(table, n_cand, frames, seg, stage_rows, ld,
+                                 part, counter);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (plan.groups > 0) {
+    const int carry_smem =
+        4 * ld * (1 + std::min(plan.chunk, std::max(plan.group, plan.groups)));
+    err = cudaFuncSetAttribute(wsola_walk_carry_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               carry_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_dependent(wsola_walk_carry_kernel,
+                           static_cast<unsigned>(plan.groups), threads,
+                           carry_smem, st, part, plan.maps, n_bounds, n_cand,
+                           ld, plan.group, plan.chunk, prefix, gstarts, starts,
+                           counter);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+
+  const long long emitters = segs * n_bounds;
+  err = launch_dependent(
+      wsola_walk_emit_kernel,
+      static_cast<unsigned>((emitters + kEmitThreads - 1) / kEmitThreads),
+      kEmitThreads, 0, st, table, n_cand, frames, seg, ld, part, starts, bs);
+  return static_cast<int>(err);
 }
 
 const char* nodey_cuda_error_string(int code) {

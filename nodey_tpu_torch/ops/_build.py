@@ -138,8 +138,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             vp, i64, i32, i32, i32, i64, i64, i32, i32, i32, vp, vp,
         ]
         lib.nodey_wsola_score_table.restype = i32
-        lib.nodey_wsola_table_walk.argtypes = [vp, i32, i32, vp, vp]
+        lib.nodey_wsola_table_walk.argtypes = [vp, i32, i32, i32, vp, vp, vp]
         lib.nodey_wsola_table_walk.restype = i32
+        lib.nodey_wsola_walk_scratch_ints.argtypes = [i32, i32, i32]
+        lib.nodey_wsola_walk_scratch_ints.restype = i64
+        lib.nodey_wsola_walk_max_cands.argtypes = []
+        lib.nodey_wsola_walk_max_cands.restype = i32
         lib.nodey_wsola_table_smem_bytes.argtypes = [i32, i32, i32]
         lib.nodey_wsola_table_smem_bytes.restype = i64
     elif name == "step_probes":

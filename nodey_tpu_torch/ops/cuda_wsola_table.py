@@ -5,14 +5,17 @@ Replaces ``nodey_tpu/ops/pallas_wsola.py::wsola_score_table`` on the card
 (``wsola_score_table_cuda``) and the ``lax.scan`` walk of its consumer
 ``splice_offsets`` (``walk_table_cuda``). The score kernel is bound by FP32
 operations (every tail row against every candidate, every frame); its
-source says how it blocks the Hankel operands in registers. The walk is one
-thread, latency-bound, and keeps the table on the card. Their plain PyTorch
-versions are ``nodey_tpu_torch.ops.wsola.wsola_score_table_plain`` and
-``walk_table_plain``, which the CPU path and ``chip_smoke.py`` use; on a
-CUDA tensor nothing else runs.
+source says how it blocks the Hankel operands in registers. The walk
+composes segment maps in parallel, carries the segments' starts, then walks
+every 8 frames from their checkpoint (three launches; the source says what
+bounds each), and keeps the table on the card. Their plain PyTorch versions
+are ``nodey_tpu_torch.ops.wsola.wsola_score_table_plain`` and
+``walk_table_plain``, which the CPU path and ``chip_smoke.py`` use, and
+``walk_table_segments_plain``, the walk kernel's formulation; on a CUDA
+tensor nothing else runs.
 
 ``table_launches`` and ``walk_launches`` count the kernels' launches made
-through these wrappers.
+through these wrappers (a walk's three passes count as one).
 """
 
 from __future__ import annotations
@@ -80,10 +83,21 @@ def wsola_score_table_cuda(x: torch.Tensor, K: int, num: int, den: int,
     return table
 
 
-def walk_table_cuda(table: torch.Tensor) -> torch.Tensor:
+def walk_segment_frames(K: int, sms: int) -> int:
+    """The walk kernel's segment length for K frames on a card of ``sms``
+    SMs: a segment per SM, rounded up to whole 8-frame emit blocks (so a
+    segment's rows start 16-byte aligned in a table that does)."""
+    return max(8, (-(-K // sms) + 7) // 8 * 8)
+
+
+def walk_table_cuda(table: torch.Tensor,
+                    seg_frames: int | None = None) -> torch.Tensor:
     """int32 [K]: b_k = table[k, b_{k-1}] from b_{-1} = 0, on the card.
     ``table`` int32 [K, n_cand], contiguous, entries in [0, n_cand) (an
-    entry outside stops the walk: it and the rest come back -1)."""
+    entry outside stops the walk: it and the rest come back -1). The kernel
+    cuts K into segments of ``seg_frames`` frames (default
+    ``walk_segment_frames``); the splices are bitwise the same at any
+    length."""
     global walk_launches
     if not table.is_cuda:
         raise ValueError(
@@ -99,13 +113,31 @@ def walk_table_cuda(table: torch.Tensor) -> torch.Tensor:
     if max(K, n_cand) >= 2**31:
         raise ValueError(
             f"WSOLA walk kernel: table {tuple(table.shape)} too large")
+    if seg_frames is not None and seg_frames < 1:
+        raise ValueError(
+            f"WSOLA walk kernel: seg_frames must be >= 1, got {seg_frames}")
+    lib = _build.load_library("wsola_score_table")
+    max_cands = lib.nodey_wsola_walk_max_cands()
+    if n_cand > max_cands:
+        raise ValueError(
+            f"WSOLA walk kernel: rows of {n_cand} candidates; it takes at "
+            f"most {max_cands} (a state row and 4 staged rows of int32 in "
+            f"{_build.SMEM_LIMIT} bytes of shared memory)"
+        )
     bs = torch.empty(K, dtype=torch.int32, device=table.device)
     if K == 0:
         return bs
-    lib = _build.load_library("wsola_score_table")
+    if seg_frames is None:
+        seg_frames = walk_segment_frames(
+            K, torch.cuda.get_device_properties(
+                table.device).multi_processor_count)
+    scratch = torch.empty(
+        lib.nodey_wsola_walk_scratch_ints(n_cand, K, seg_frames),
+        dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.nodey_wsola_table_walk(table.data_ptr(), n_cand, K,
+                                        seg_frames, scratch.data_ptr(),
                                         bs.data_ptr(), stream)
     _build.check_launch(lib, rc, "WSOLA walk kernel")
     walk_launches += 1

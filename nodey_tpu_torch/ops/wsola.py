@@ -278,15 +278,62 @@ def wsola_score_table_plain(x: torch.Tensor, K: int, num: int, den: int,
     return table
 
 
+def _stopping_rows(table: torch.Tensor) -> torch.Tensor:
+    """int64 [K, n_cand+1]: ``table`` with every entry outside [0, n_cand)
+    set to n_cand, and a column n_cand that leads to itself: a walk that
+    meets such an entry stays at n_cand."""
+    n = table.shape[1]
+    rows = torch.full((table.shape[0], n + 1), n, dtype=torch.int64,
+                      device=table.device)
+    rows[:, :n] = torch.where((table >= 0) & (table < n), table.long(), n)
+    return rows
+
+
 def walk_table_plain(table: torch.Tensor) -> torch.Tensor:
     """int32 [K]: b_k = table[k, b_{k-1}] from b_{-1} = 0, one gather per
-    frame on ``table``'s device."""
-    bs = torch.empty(table.shape[0], dtype=torch.int32, device=table.device)
+    frame on ``table``'s device. An entry outside [0, n_cand) stops the
+    walk: that frame and every later one are -1."""
+    n = table.shape[1]
+    rows = _stopping_rows(table)
+    bs = torch.empty(table.shape[0], dtype=torch.int64, device=table.device)
     b = torch.zeros(1, dtype=torch.int64, device=table.device)
     for k in range(table.shape[0]):
-        b = table[k].gather(0, b).long()
+        b = rows[k].gather(0, b)
         bs[k : k + 1] = b
-    return bs
+    return torch.where(bs == n, -1, bs).int()
+
+
+def walk_table_segments_plain(table: torch.Tensor,
+                              seg_frames: int) -> torch.Tensor:
+    """``walk_table_plain`` as the walk kernel composes it: the frames cut
+    into segments of ``seg_frames``; every segment's map (where each start
+    stands after its frames) by one gather per row across all segments;
+    the carry of the segments' starts, start_s = map_{s-1}[start_{s-1}];
+    then every segment walked from its start. Bitwise ``walk_table_plain``,
+    its -1 contract included."""
+    if seg_frames < 1:
+        raise ValueError(f"seg_frames must be >= 1, got {seg_frames}")
+    K, n = table.shape
+    segs = -(-K // seg_frames)
+    dev = table.device
+    # The rows past K lead every start to itself.
+    ident = torch.arange(n + 1, device=dev)
+    rows = torch.cat([_stopping_rows(table),
+                      ident.expand(segs * seg_frames - K, n + 1)])
+    rows = rows.view(segs, seg_frames, n + 1)
+    maps = ident.expand(segs, n + 1)
+    for r in range(seg_frames):
+        maps = rows[:, r].gather(1, maps)
+    starts = torch.zeros((segs, 1), dtype=torch.int64, device=dev)
+    for s in range(1, segs):
+        starts[s] = maps[s - 1].gather(0, starts[s - 1])
+    out = torch.empty((segs, seg_frames), dtype=torch.int64, device=dev)
+    b = starts
+    for r in range(seg_frames):
+        b = rows[:, r].gather(1, b)
+        out[:, r] = b[:, 0]
+    bs = out.view(-1)[:K]
+    return torch.where(bs == n, -1, bs).int()
 
 
 def splice_offsets_plain(x: torch.Tensor, K: int, num: int, den: int,

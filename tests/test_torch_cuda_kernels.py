@@ -352,6 +352,37 @@ def test_score_table_kernel_matches_plain(cuda_device, rate, tempo, K,
             x, *args, frames_per_step=fps))
 
 
+# The walk kernel's segment length at config 4's velocity stage (K = 7,507
+# on 132 SMs); tests/test_torch_wsola_table.py cuts its tables around it.
+WALK_SEG = 64
+
+
+def _walk_cases(seed):
+    """(tag, table, the walk in a Python loop): tests/test_torch_wsola_
+    table.py's random tables (n_cand 661 and 721, K in {1, L-1, L, L+1,
+    3L+7}), and on the 3L+7-frame ones an entry outside [0, n_cand) planted
+    on the walk's path at a segment's first row, in a segment's middle and
+    on the last frame (the prefix, then -1s), or off the path (no
+    change)."""
+    rng = np.random.default_rng(seed)
+    for n in (661, 721):
+        for K in (1, WALK_SEG - 1, WALK_SEG, WALK_SEG + 1, 3 * WALK_SEG + 7):
+            rows = rng.integers(0, n, (K, n)).astype(np.int32)
+            path, b = [], 0
+            for row in rows:
+                b = int(row[b])
+                path.append(b)
+            yield f"n={n} K={K}", rows, path
+        for k, bad in ((2 * WALK_SEG, n), (WALK_SEG + 17, -1), (K - 1, n + 9)):
+            planted = rows.copy()
+            planted[k, path[k - 1]] = bad
+            yield (f"n={n} K={K}, {bad} at frame {k}", planted,
+                   path[:k] + [-1] * (K - k))
+        off = rows.copy()
+        off[WALK_SEG + 17, (path[WALK_SEG + 16] + 1) % n] = -1
+        yield f"n={n} K={K}, -1 off the path", off, path
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate,tempo,K,channels", TABLE_CASES)
 def test_score_table_walk_is_the_chain_kernel(cuda_device, rate, tempo, K,
@@ -371,6 +402,25 @@ def test_score_table_walk_is_the_chain_kernel(cuda_device, rate, tempo, K,
     assert torch.equal(walk, wsola.walk_table_plain(table))
     assert torch.equal(walk, bs)
     assert torch.equal(wsola.splice_offsets(x, *args), bs)
+    # At any segment length the walk kernel is bitwise the plain walk and
+    # the composed plain walk: on this table, and on random and planted
+    # ones (the -1 contract).
+    cases = [("score table", table.cpu().numpy(), bs.tolist()),
+             *_walk_cases(K)]
+    before = cuda_wsola_table.walk_launches
+    for tag, rows, want in cases:
+        table = torch.from_numpy(rows).to(cuda_device)
+        plain = wsola.walk_table_plain(table)
+        assert plain.tolist() == want, tag
+        for seg in (None, 1, 3, WALK_SEG, rows.shape[0] + 1):
+            assert torch.equal(cuda_wsola_table.walk_table_cuda(table, seg),
+                               plain), (tag, seg)
+            if seg is not None:
+                assert torch.equal(
+                    wsola.walk_table_segments_plain(table, seg), plain), (
+                    tag, seg)
+    torch.cuda.synchronize()
+    assert cuda_wsola_table.walk_launches == before + 5 * len(cases)
 
 
 @pytest.mark.cuda
@@ -390,6 +440,13 @@ def test_score_table_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         cuda_wsola_table.walk_table_cuda(table.cpu())
     with pytest.raises(ValueError, match="int32"):
         cuda_wsola_table.walk_table_cuda(table.long())
+    with pytest.raises(ValueError, match="seg_frames"):
+        cuda_wsola_table.walk_table_cuda(table, 0)
+    wide = cuda_wsola_table._build.load_library(
+        "wsola_score_table").nodey_wsola_walk_max_cands() + 1
+    with pytest.raises(ValueError, match=f"rows of {wide} candidates"):
+        cuda_wsola_table.walk_table_cuda(torch.zeros(
+            (2, wide), dtype=torch.int32, device=cuda_device))
     assert (cuda_wsola_table.table_launches,
             cuda_wsola_table.walk_launches) == before
 

@@ -5,7 +5,8 @@ the CPU, against the JAX package and the swr oracle.
 In one item (the bars of tests/test_resample.py:131-175):
 
 - ``measure_swr_bank`` and ``bank_spec(..., compat="swr")`` are bitwise the
-  JAX package's at every pair of its COMPAT_PAIRS;
+  JAX package's at every pair of its COMPAT_PAIRS, and so is the device
+  bank the sp time-variant chain looks up at the reduced pair M -> L;
 - ``resample_data(..., compat="swr")`` >= 90 dB against ``swr_convert`` at
   those pairs (the analytic bank falls far below that at the extreme
   ratios);
@@ -65,6 +66,13 @@ def test_swr_banks_render_stream_and_export_as_the_jax_package(
                         jr.bank_spec(in_rate, out_rate, compat="swr"))
         np.testing.assert_array_equal(mine[0], theirs[0])
         assert mine[1:] == theirs[1:]
+        # The sp time-variant chain (parallel/tv_sharded.py) looks its banks
+        # up at the reduced pair M -> L: swr measured there designs the bank
+        # it measures at the real rates.
+        L, M = tr._rational(in_rate, out_rate)
+        bank, _support = tr._device_bank(M, L, "cpu", "swr")
+        np.testing.assert_array_equal(bank.numpy(), theirs[0])
+        assert tr.bank_spec(M, L, compat="swr")[1:] == theirs[1:]
         x = multitone(in_rate)
         golden = resample_ref.swr_convert(x, in_rate, out_rate)
         got = tr.resample_data(torch.from_numpy(x), in_rate, out_rate,

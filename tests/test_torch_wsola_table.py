@@ -112,6 +112,12 @@ def test_plain_splices_equal_jax_and_numpy_chain(tempo, K, tight):
     got = wsola.splice_offsets_plain(xt, K, num, 65536, SEQ, SEEK, OVERLAP)
     np.testing.assert_array_equal(jax_bs, want)
     np.testing.assert_array_equal(got.numpy(), want)
+    # The walk kernel's formulation of the plain table's walk, at segment
+    # lengths that split it, cut it into single frames, or hold it whole.
+    table = wsola.wsola_score_table_plain(xt, K, num, 65536, SEQ, SEEK,
+                                          OVERLAP)
+    for seg in (1, 3, 4, K, K + 1):
+        assert torch.equal(wsola.walk_table_segments_plain(table, seg), got)
     # The serial chain makes the same choices; the CPU dispatchers take the
     # plain versions.
     chain, _ = wsola.wsola_chain_plain(xt, xt[:, :OVERLAP], K, num, 65536,
@@ -119,6 +125,37 @@ def test_plain_splices_equal_jax_and_numpy_chain(tempo, K, tight):
     assert torch.equal(chain, got)
     assert torch.equal(wsola.splice_offsets(xt, K, num, 65536, SEQ, SEEK,
                                             OVERLAP, frames_per_step=4), got)
+
+
+# The walk kernel's segment length at config 4's velocity stage (K = 7,507
+# on the H100's 132 SMs); the random and planted tables are cut around it.
+WALK_SEG = 64
+
+
+def _walk_cases(seed):
+    """(tag, table, the walk in a Python loop) for random tables from a
+    numpy seed at n_cand 661 and 721 (the 44.1 and 48 kHz seeks) and K in
+    {1, L-1, L, L+1, 3L+7} (L = WALK_SEG); then, on the 3L+7-frame tables,
+    an entry outside [0, n_cand) planted on the walk's path at a segment's
+    first row, in a segment's middle and on the last frame (the walk's
+    prefix, then -1s), and one planted off the path (no change)."""
+    rng = np.random.default_rng(seed)
+    for n in (661, 721):
+        for K in (1, WALK_SEG - 1, WALK_SEG, WALK_SEG + 1, 3 * WALK_SEG + 7):
+            rows = rng.integers(0, n, (K, n)).astype(np.int32)
+            path, b = [], 0
+            for row in rows:
+                b = int(row[b])
+                path.append(b)
+            yield f"n={n} K={K}", rows, path
+        for k, bad in ((2 * WALK_SEG, n), (WALK_SEG + 17, -1), (K - 1, n + 9)):
+            planted = rows.copy()
+            planted[k, path[k - 1]] = bad
+            yield (f"n={n} K={K}, {bad} at frame {k}", planted,
+                   path[:k] + [-1] * (K - k))
+        off = rows.copy()
+        off[WALK_SEG + 17, (path[WALK_SEG + 16] + 1) % n] = -1
+        yield f"n={n} K={K}, -1 off the path", off, path
 
 
 def test_walk_follows_the_previous_choice():
@@ -129,6 +166,18 @@ def test_walk_follows_the_previous_choice():
     assert wsola.walk_table_plain(table).tolist() == [2, 2, 1, 1]
     assert wsola.walk_table(table).tolist() == [2, 2, 1, 1]
     assert wsola.walk_table_plain(table[:0]).shape == (0,)
+    assert wsola.walk_table_segments_plain(table[:0], 3).shape == (0,)
+    # The composed walk, at segment lengths 1, 3, L and more than K, is
+    # bitwise the walk in order, its -1 contract included.
+    for tag, rows, want in _walk_cases(22):
+        table = torch.from_numpy(rows)
+        walk = wsola.walk_table_plain(table)
+        assert walk.tolist() == want, tag
+        for seg in (1, 3, WALK_SEG, rows.shape[0] + 1):
+            assert torch.equal(wsola.walk_table_segments_plain(table, seg),
+                               walk), (tag, seg)
+    with pytest.raises(ValueError, match="seg_frames"):
+        wsola.walk_table_segments_plain(table, 0)
 
 
 def test_table_refuses_short_windows_and_other_devices():
