@@ -115,9 +115,11 @@ Phases, in order; the first failure exits non-zero:
                (queued, and as a caller sees it; by pass) and the plain walk,
                with bounds (the walk's: 8 bytes a frame, and the table read
                once);
- 17. probes  — both step probes in both forms against their plain outputs
-               (exactly); tools.probes.wsola_step_overhead (bare and dma us
-               per step by K-slope) beside the chain's us per frame; then
+ 17. probes  — both step probes in both forms (the dma probe's windows
+               by TMA bulk copies on mbarriers) against their plain outputs
+               (exactly) at K 4096; tools.probes.wsola_step_overhead (bare
+               and dma us per step by K-slope), the tool's forms by K-slope,
+               beside the chain's us per frame; then
                `python -m nodey_tpu_torch.tools.ab_wsola_fps 30 8` in process:
                its whole output, fps 2 and 4 tables equal to fps 1, and a
                launch of each of its five kernels;
@@ -1524,8 +1526,8 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
                 wide, PROBE_STEPS, span, r))
     what = {("bare", True): "out[k] per step (bench.py)",
             ("bare", False): "one fixed block (the tool)",
-            ("dma", True): "3-slot ring, one-step prefetch (bench.py)",
-            ("dma", False): "two copies per step, both waited (the tool)"}
+            ("dma", True): "TMA, 3-slot ring, one-step prefetch (bench.py)",
+            ("dma", False): "TMA, two copies per step, both waited (the tool)"}
     for key, (kernel, plain) in probe_fns.items():
         same = torch.equal(kernel(), plain())
         print(f"[17 probes] {key[0]} probe, {what[key]}, K={PROBE_STEPS}: "
@@ -1566,6 +1568,19 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
           "wsola_step_overhead did not run both probe kernels")
     probe_times[("bare", True)]["us_per_step"] = bare_s * 1e6
     probe_times[("dma", True)]["us_per_step"] = dma_s * 1e6
+    # The tool's forms by the same K-slope (outside any counted run).
+    tool_forms = {
+        ("bare", False): lambda K: cuda_probes.step_probe_bare_cuda(
+            block, K, False),
+        ("dma", False): lambda K: cuda_probes.step_probe_dma_cuda(
+            wide, K, span, False)}
+    for key, form in tool_forms.items():
+        slope = probes.k_slope(
+            lambda K: probes.cuda_seconds(lambda: form(K), 8))
+        probe_times[key]["us_per_step"] = slope * 1e6
+        print(f"[17 probes] {key[0]} probe, {what[key]}, by K-slope "
+              f"({probes.STEP_KS[0]} -> {probes.STEP_KS[1]} steps): "
+              f"{slope * 1e6:.4f} us per step ({card})")
 
     stdout = io.StringIO()
     zero_counts()
@@ -1675,7 +1690,8 @@ def table_and_probe_phases(card: str, dev, stages, chain_us: float):
             "library_ms": None, "us_per_step": t["us_per_step"],
             "tool_form": {"ms": tool["kernel"], "plain_ms": tool["plain"],
                           "bound_ms": tool["bound"][0],
-                          "bound_by": tool["bound"][1]}})
+                          "bound_by": tool["bound"][1],
+                          "us_per_step": tool["us_per_step"]}})
     entries.append({
         "name": "resample_data", "route": "cuda",
         "source": "nodey_tpu_torch/csrc/polyphase_resample.cu",
@@ -5972,6 +5988,13 @@ def dcn_phase(cli, card: str, dev, tmp: str, excerpt_tracks):
                   f"({card})")
         else:
             fail(f"{tag}: an MP3 export ran without the codec runtime")
+        try:
+            encode.encode_mp3(os.path.join(tmp, "refused_one.mp3"),
+                              np.zeros((2, 48_000), np.float32), 48_000, 192)
+        except ProcessorRuntimeError as exc:
+            print(f"[{tag}] encode_mp3 raises too ({exc.message}) ({card})")
+        else:
+            fail(f"{tag}: encode_mp3 ran without the codec runtime")
     figures["codec_runtime"] = runtime
     print(f"[{tag}] phase seconds {time.perf_counter() - t0:.1f} ({card})")
     print(f"[36 figures] {json.dumps(figures)}")

@@ -180,6 +180,14 @@ class StreamCompiled:
     gauge_keys: Tuple[str, ...] = ()
 
 
+def zero_chunk(spec: ChunkSpec, device) -> ChunkStream:
+    """An empty, final chunk of ``spec``'s format: zeros on ``device``."""
+    return ChunkStream(
+        data=torch.zeros((spec.channels, spec.width), dtype=torch.float32,
+                         device=device),
+        n=0, done=True, spec=spec)
+
+
 def _find_fifos(states: Dict[str, Any]):
     """``(label, FifoState)`` pairs in a fixed order, labelled
     '<node id>/<path>' with the JAX package's path spelling ("['rs'][0]")."""

@@ -180,6 +180,30 @@ class CompiledGraph:
                 )
         return self._run(args, on_node=on_node)
 
+    def run_device(self, arrays: Dict[str, Any],
+                   lengths: Dict[str, int]) -> Dict[str, Any]:
+        """Run once and return the outputs, left on the graph's device (the
+        JAX package's ``run_device``). ``arrays[key]`` is ``[C, capacity]``:
+        a tensor on the graph's device, or a numpy array, which is copied
+        there; ``lengths[key]`` is its valid length. The render is
+        ``__call__``'s."""
+        args = {}
+        for key in self.input_keys:
+            data = arrays[key]
+            if not torch.is_tensor(data):
+                data = torch.from_numpy(np.ascontiguousarray(data)).to(
+                    self.device)
+            args[key] = (data, int(lengths[key]))
+        return self(args)[0]
+
+    def run(self, arrays: Dict[str, Any],
+            lengths: Dict[str, int]) -> Dict[str, Any]:
+        """``run_device``'s outputs as host numpy: stream outputs as
+        ``(data, length)``, array outputs as arrays."""
+        return {key: (value[0].cpu().numpy(), value[1])
+                if isinstance(value, tuple) else value.cpu().numpy()
+                for key, value in self.run_device(arrays, lengths).items()}
+
     def unbatched_nodes(self) -> List[Tuple[int, str]]:
         """``(node id, identifier)`` of every node without a batched
         lowering, in node order."""

@@ -20,6 +20,7 @@ __all__ = [
     "PinAttribute",
     "Processor",
     "ProcessorInfo",
+    "get_processor_info",
     "processor_map",
     "register_all_processors",
     "register_processor",
@@ -133,6 +134,10 @@ def register_processor(cls: Type[Processor]) -> Type[Processor]:
         )
     processor_map[info.identifier] = info
     return cls
+
+
+def get_processor_info(identifier: str) -> Optional[ProcessorInfo]:
+    return processor_map.get(identifier)
 
 
 _registered = False

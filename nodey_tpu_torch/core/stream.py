@@ -79,6 +79,13 @@ class Stream:
         kw.update(overrides)
         return Stream(data=data, **kw)
 
+    def valid_mask(self) -> torch.Tensor:
+        """``[1, N]`` float32 mask of valid samples (``[B, 1, N]`` for a
+        batch, each clip's own), on the stream's device."""
+        idx = torch.arange(self.capacity, device=self.data.device)
+        return (idx < device_lengths(self.length, self.data.device)
+                ).to(torch.float32).expand(*self.data.shape[:-2], 1, -1)
+
 
 def map_lengths(length, fn):
     """``fn`` applied to one clip's length, or to each of a batch's."""
@@ -127,3 +134,8 @@ class AudioStreamType:
     Distinct from ``nodey_tpu.core.stream.AudioStreamType``: link checks
     compare markers by identity, and the port's processors link only to
     each other."""
+
+
+class SpectrumStreamType:
+    """Pin product-type marker for STFT spectrum streams (BASELINE config
+    5) of this package."""

@@ -25,6 +25,8 @@ from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.stream import FMT_S16
 from nodey_tpu_torch.host.decode import load_native
 
+_CHUNK = 1 << 18  # samples per LAME call; keeps the scratch buffer bounded
+
 
 def _to_s16(block: np.ndarray) -> np.ndarray:
     """Interleaved int16 [n, channels] from a planar block. Integer-origin
@@ -571,3 +573,23 @@ def open_sink(path: str, rate: int, channels: int, kbps: int,
             path, rate, channels, kbps, fmt, workers=workers
         )
     return Mp3Encoder(path, rate, channels, kbps, fmt)
+
+
+def encode_mp3(path: str, data, rate: int, kbps: int, fmt: str = "flt",
+               out_rate: int = config.SAMPLE_RATE, progress=None) -> None:
+    """Encode planar [channels, n] PCM (a numpy array or a tensor on any
+    device) to an MP3 file in one call, through the serial Mp3Encoder.
+
+    ``progress``: optional callable(seconds_done) — the host-side stand-in
+    for the reference's shared atomic<double> progress channel
+    (include/processor/audio-io.hpp:67, app.cpp:2074).
+    """
+    if not isinstance(data, np.ndarray):
+        data = data.detach().cpu().numpy()
+    channels, n = data.shape
+    with Mp3Encoder(path, rate, channels, kbps, fmt, out_rate) as enc:
+        for start in range(0, n, _CHUNK):
+            block = data[:, start : start + _CHUNK]
+            enc.write(block)
+            if progress is not None:
+                progress((start + block.shape[1]) / rate)

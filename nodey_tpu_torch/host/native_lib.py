@@ -140,3 +140,11 @@ def load() -> Optional[ctypes.CDLL]:
             # Loaded while the lock is held: no other process is writing it.
             _lib = _bind(ctypes.CDLL(str(library_path())))
         return _lib
+
+
+def available() -> bool:
+    """True where the codec runtime builds and loads."""
+    try:
+        return load() is not None
+    except OSError:
+        return False

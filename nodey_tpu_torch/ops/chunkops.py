@@ -38,7 +38,7 @@ lane slack, which only the TPU kernel's 128-lane DMA windows read.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -102,6 +102,10 @@ def fifo_advance(state: FifoState, take: int) -> FifoState:
     return FifoState(buf, new_level)
 
 
+def fifo_level(state: FifoState) -> int:
+    return state.level
+
+
 def round_up(n: int, q: int) -> int:
     return -(-n // q) * q
 
@@ -130,6 +134,10 @@ class ResamplePlan(NamedTuple):
     in_rate: int       # the original (unreduced) rate pair: a compat
     out_rate: int      # bank is measured per pair
     compat: Optional[str] = None   # resolved bank mode (None | 'swr')
+
+    @property
+    def rates(self) -> Tuple[int, int]:
+        return self.M, self.L
 
 
 def resample_plan(in_rate: int, out_rate: int, push_cap: int,

@@ -13,15 +13,18 @@ steps (the source says what a step does):
   fixed block ([8, 128], the tool's form);
 - ``step_probe_dma(x, K, span, ring)``: x float32 [2, N]; step k copies the
   window ``x[:, s_k : s_k + span]``, ``s_k = (k*128) mod limit``,
-  ``limit = ((N - span) // 128) * 128``, into shared memory and stores its
-  first 128 columns: through a 3-slot ring with one-step prefetch, out[k] =
-  those columns + 1 ([K, 2, 128], bench.py's form), or as two copies per
-  step into 2 slots, both waited, out = the last step's columns ([2, 128],
-  the tool's form).
+  ``limit = ((N - span) // 128) * 128``, into shared memory by TMA bulk
+  copies completing on an mbarrier, and stores its first 128 columns:
+  through a 3-slot ring with one-step prefetch, out[k] = those columns + 1
+  ([K, 2, 128], bench.py's form), or as two copies per step into 2 slots,
+  both waited, out = the last step's columns ([2, 128], the tool's form).
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version, which gives the same output tensor. ``bare_launches`` and
-``dma_launches`` count the kernels' launches.
+A bulk copy moves 16-byte aligned bytes, so on the card x must start on 16
+bytes, its rows lie a multiple of 16 bytes apart and span be a multiple of
+4; a tensor that is not raises (there is no other copy path). A CUDA tensor
+launches the kernel (or raises); a CPU tensor takes the plain version, which
+gives the same output tensor. ``bare_launches`` and ``dma_launches`` count
+the kernels' launches.
 """
 
 from __future__ import annotations
@@ -67,6 +70,16 @@ def _check_dma(x: torch.Tensor, K: int, span: int) -> int:
     return limit
 
 
+def _check_aligned(x: torch.Tensor, what: str, row_bytes: int) -> None:
+    """Raise unless x's data and ``row_bytes`` lie on 16 bytes, as the
+    kernels' 16-byte loads and bulk copies need."""
+    if x.data_ptr() % 16 or row_bytes % 16:
+        raise ValueError(
+            f"{what} needs x on 16-byte boundaries: data at byte "
+            f"{x.data_ptr() % 16} of 16, rows {row_bytes} bytes apart"
+        )
+
+
 def _check_device(x: torch.Tensor) -> None:
     if x.device.type != "cpu":
         raise ValueError(
@@ -100,6 +113,7 @@ def step_probe_bare_cuda(x: torch.Tensor, K: int,
     if not (x.is_cuda and x.is_contiguous()):
         raise ValueError(
             f"bare probe needs a contiguous CUDA tensor, got {x.device}")
+    _check_aligned(x, "bare probe", 4 * LANE)
     out = torch.empty((K, *BLOCK) if per_step else BLOCK,
                       dtype=torch.float32, device=x.device)
     lib = _build.load_library("step_probes")
@@ -120,6 +134,11 @@ def step_probe_dma_cuda(x: torch.Tensor, K: int, span: int,
         raise ValueError(
             f"dma probe needs a CUDA tensor with contiguous rows, got "
             f"{x.device}")
+    _check_aligned(x, "dma probe", 4 * x.stride(0))
+    if span % 4:
+        raise ValueError(
+            f"dma probe: a {span}-column window is not a whole number of "
+            f"16-byte copies")
     lib = _build.load_library("step_probes")
     smem = lib.nodey_step_probe_dma_smem_bytes(span, int(ring))
     if smem > _build.SMEM_LIMIT:

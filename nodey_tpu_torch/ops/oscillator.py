@@ -55,13 +55,20 @@ def osc_quantize(freq_hz: float, sample_rate: int) -> Tuple[int, int]:
     return num % m, m
 
 
+def osc_residues(r0: int, width: int, num: int, m: int,
+                 device) -> torch.Tensor:
+    """int32 residues [width] on ``device``: (r0 + i*NUM) mod M for i in
+    [0, width), r0 < M, by the modfx two-level tables (the LFOs')."""
+    return modfx.lfo_residues(r0, width, num, m, device)
+
+
 def tone_block(kind: str, r0: int, width: int, num: int, m: int,
                gain: float, device) -> torch.Tensor:
     """f32 [width] waveform values in [-gain, gain] at residue positions
     r0 + i*NUM (mod M), from the modfx two-level tables (cached on
     ``device`` per (NUM, M, width)): integer arithmetic, then one multiply
     by a folded float32 constant (the sine's ``sin`` between them)."""
-    r = modfx.lfo_residues(r0, width, num, m, device)
+    r = osc_residues(r0, width, num, m, device)
     g = float(gain)
     if kind == "sine":
         phase = r.float() * _f32(2.0 * math.pi / m)

@@ -422,6 +422,14 @@ def to_stereo(stream: Stream) -> Stream:
     return stream.with_data(data, fmt=FMT_FLT)
 
 
+def to_mono(stream: Stream) -> Stream:
+    """Channel-normalize to mono with swr's default -3 dB downmix."""
+    if stream.channels == 1:
+        return stream
+    data = (stream.data[..., 0:1, :] + stream.data[..., 1:2, :]) * SQRT1_2
+    return stream.with_data(data, fmt=FMT_FLT)
+
+
 def to_rate_and_stereo(stream: Stream, out_rate: int) -> Stream:
     """The preview/mixer input normalization: ``out_rate`` stereo float
     (reference: audio-io.cpp:532-615, audio-amix.cpp:206-243)."""

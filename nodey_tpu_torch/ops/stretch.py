@@ -96,6 +96,54 @@ def wsola_geometry(width: int, tempo: float, rate: int) -> dict:
                 pad_to=pad_to)
 
 
+def wsola_chain_blocked(x: torch.Tensor, tail0: torch.Tensor, k0: int, K: int,
+                        num: int, den: int, seq: int, seek: int, overlap: int,
+                        win_start: int = 0, block: int = 32):
+    """``(bs int32 [K], body [C, K*stride_out])`` of frames k0 .. k0+K-1,
+    frame k reading ``x`` from column ``frame_pos(k) - win_start`` and frame
+    k0 scoring ``tail0``: the JAX package's blocked chain, here the chain
+    kernel's chunk entry (``wsola.wsola_chunk_chain``). ``block``, the JAX
+    form's frames per scored GEMM, does not change the splices and is not
+    used."""
+    bs, body, _tail = wsola.wsola_chunk_chain(x, tail0, k0, win_start, K, num,
+                                              den, seq, seek, overlap)
+    return bs, body
+
+
+def wsola_stream_plan(tempo: float, rate: int, chunk_frames: int) -> dict:
+    """Static plan for exact chunked WSOLA execution, ``chunk_frames``
+    frames a step (the streaming executor's own plan is
+    ``chunkops.wsola_plan``)."""
+    seq, seek, overlap = _params(rate)
+    num = int(round((seq - overlap) * tempo * 65536))
+    return {
+        "seq": seq,
+        "seek": seek,
+        "overlap": overlap,
+        "stride_out": seq - overlap,
+        "num": num,
+        "den": 65536,
+        "chunk_frames": chunk_frames,
+        # Input window needed by one chunk of frames starting at k0:
+        # pos(k0) .. pos(k0 + chunk_frames - 1) + seek + seq.
+        "window": (chunk_frames - 1) * num // 65536 + seek + seq + 2,
+    }
+
+
+def wsola_stream_step(plan: dict, x_window: torch.Tensor, tail: torch.Tensor,
+                      k0: int):
+    """One streaming WSOLA step of ``plan['chunk_frames']`` frames from
+    frame k0: ``x_window`` [C, plan['window']] starts at input position
+    frame_pos(k0), ``tail`` is the previous step's (the clip's first
+    ``overlap`` samples for the first). Returns ``(new_tail, out_chunk [C,
+    chunk_frames*stride_out])``, through the chain kernel's chunk entry."""
+    win_start = frame_pos(k0, plan["num"], plan["den"])
+    _bs, body, new_tail = wsola.wsola_chunk_chain(
+        x_window, tail, k0, win_start, plan["chunk_frames"], plan["num"],
+        plan["den"], plan["seq"], plan["seek"], plan["overlap"])
+    return new_tail, body
+
+
 def _wsola_impl(data: torch.Tensor, length, tempo: float, rate: int):
     geo = wsola_geometry(data.shape[-1], tempo, rate)
     K, num, den = geo["K"], geo["num"], geo["den"]

@@ -88,6 +88,21 @@ class AudioInput(Processor):
         # The reference keeps at least one slot (audio-io.cpp:334-337).
         self.file_paths = paths or [""]
 
+    # -- slot editing (the engine-level equivalent of the reference's
+    #    add/remove-slot UI, audio-io.cpp:345-426) ---------------------------
+
+    def add_slot(self, path: str = "") -> None:
+        self.file_paths.append(path)
+
+    def remove_slot(self, index: int) -> None:
+        if len(self.file_paths) <= 1:
+            raise ProcessorRuntimeError(
+                "Cannot remove the last input slot",
+                "Audio input requires at least one file slot.",
+                f"Slot index: {index}",
+            )
+        del self.file_paths[index]
+
     def lower(self, ctx, inputs: Dict[str, Any]) -> Dict[str, Any]:
         return {
             f"output_{i}": ctx.external(ctx.node_id, f"output_{i}")

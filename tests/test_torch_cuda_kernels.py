@@ -31,7 +31,8 @@ The WSOLA score-table kernel sums each score in another order than the
 plain version's bmm, so an entry may differ only where two candidates'
 float64 scores lie within 1e-5 of the row's largest |score|; it sums in the
 chain kernel's order, so it must agree with the chain kernel exactly. The
-walk and the step probes copy or index values: bitwise.
+walk and the step probes copy or index values: bitwise. The dma probe's
+TMA bulk copies take x only on 16-byte boundaries; anything else raises.
 """
 
 import math
@@ -454,27 +455,45 @@ def test_score_table_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 5, 4096])
 def test_step_probes_match_plain(cuda_device, K):
+    """Each form at K and at 1-4 and 4097 steps: the ring's mbarriers wrap
+    their phase parity at steps 3-5, the pair's at 2-3."""
     rng = np.random.default_rng(K)
     block = torch.from_numpy(rng.standard_normal((8, 128)).astype(
         np.float32)).to(cuda_device)
     wide = torch.from_numpy(rng.standard_normal((2, 1 << 16)).astype(
         np.float32)).to(cuda_device)
+    steps = sorted({K, 1, 2, 3, 4, 4097})
     before = (cuda_probes.bare_launches, cuda_probes.dma_launches)
-    for per_step in (True, False):
-        got = cuda_probes.step_probe_bare_cuda(block, K, per_step)
-        assert torch.equal(got, cuda_probes.step_probe_bare_plain(
-            block, K, per_step))
-    for ring in (True, False):
-        got = cuda_probes.step_probe_dma_cuda(wide, K, 1280, ring)
-        assert torch.equal(got, cuda_probes.step_probe_dma_plain(
-            wide, K, 1280, ring))
+    for k in steps:
+        for per_step in (True, False):
+            got = cuda_probes.step_probe_bare_cuda(block, k, per_step)
+            assert torch.equal(got, cuda_probes.step_probe_bare_plain(
+                block, k, per_step)), (k, per_step)
+        for ring in (True, False):
+            got = cuda_probes.step_probe_dma_cuda(wide, k, 1280, ring)
+            assert torch.equal(got, cuda_probes.step_probe_dma_plain(
+                wide, k, 1280, ring)), (k, ring)
     torch.cuda.synchronize()
     assert (cuda_probes.bare_launches, cuda_probes.dma_launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 2 * len(steps), before[1] + 2 * len(steps))
     with pytest.raises(ValueError, match="float32"):
         cuda_probes.step_probe_bare_cuda(block.double(), K)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_probes.step_probe_dma_cuda(wide.cpu(), K, 1280)
+    # Bulk copies need 16-byte alignment: no other copy path takes these.
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_probes.step_probe_dma_cuda(wide[:, 1:], K, 1280)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_probes.step_probe_dma_cuda(
+            torch.zeros((2, (1 << 16) + 1), device=cuda_device)[:, :-1], K,
+            1280)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_probes.step_probe_bare_cuda(
+            torch.zeros(1025, device=cuda_device)[1:].view(8, 128), K)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_probes.step_probe_dma_cuda(wide, K, 1282)
+    assert (cuda_probes.bare_launches, cuda_probes.dma_launches) == (
+        before[0] + 2 * len(steps), before[1] + 2 * len(steps))
 
 
 # -- the phase-vocoder kernels -------------------------------------------------

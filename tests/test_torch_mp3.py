@@ -13,16 +13,27 @@ encoder only with more than one worker and a 48 kHz master, and a streamed
 export goes through it end to end, byte-identical to the same master PCM
 fed to the encoder directly in other blocks. Workers are forced to 2, so
 the thread pool runs on any host (its output does not depend on
-scheduling).
+scheduling). ``encode_mp3`` writes the JAX package's ``encode_mp3`` bytes
+and progress, from a tensor or an array.
+
+The JAX package's codec runtime builds without a lock
+(nodey_tpu/host/native_lib.py): test workers that start together can each
+build ``build/native/``, and one that meets another's build half done
+caches the failure for the rest of its life. ``jax_codec_runtime`` waits
+until the library stands still, clears that cached failure and loads it
+again, so the comparison runs against a whole runtime.
 """
 
 import struct
+import time
 import wave
 
 import numpy as np
 import pytest
+import torch
 
 from nodey_tpu.host import encode as jencode
+from nodey_tpu.host import native_lib as jnative
 from nodey_tpu_torch.core import registry
 from nodey_tpu_torch.core.errors import ProcessorRuntimeError
 from nodey_tpu_torch.core.graph import Graph
@@ -42,6 +53,34 @@ def codec_runtime():
         pytest.skip("the codec runtime does not build on this machine")
 
 
+def jax_codec_runtime(monkeypatch, timeout=180.0):
+    """The JAX package's codec runtime, loaded whole: wait until
+    ``build/native/libnodey_host.so`` has not changed for a second (or is
+    absent, and the loader builds it), clear the loader's cached failure
+    and load; a failed load is retried until ``timeout`` seconds."""
+    so = jnative._BUILD_DIR / "libnodey_host.so"
+    deadline = time.monotonic() + timeout
+    while jnative._lib is None:
+        try:
+            before = so.stat()
+            time.sleep(1.0)
+            after = so.stat()
+            still = (before.st_size, before.st_mtime_ns) == (
+                after.st_size, after.st_mtime_ns)
+        except FileNotFoundError:
+            still = True
+        if still:
+            monkeypatch.setattr(jnative, "_load_failed", None)
+            try:
+                jnative.load()
+            except OSError:
+                pass
+        if jnative._lib is None and time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's codec runtime did not load "
+                        f"within {timeout} s: {jnative._load_failed}")
+    return jnative._lib
+
+
 def _noise(seconds, seed=3):
     rng = np.random.default_rng(seed)
     return (0.3 * rng.standard_normal((2, int(RATE * seconds)))).astype(
@@ -59,7 +98,8 @@ def _frames(path):
     return data, [data[o:o + s] for o, s in encode._mp3_frames(data)]
 
 
-def test_parallel_mp3_is_the_jax_encoders_bytes(tmp_path):
+def test_parallel_mp3_is_the_jax_encoders_bytes(tmp_path, monkeypatch):
+    jax_codec_runtime(monkeypatch)
     x = _noise(12.0)
     ints = np.clip(np.trunc(x * 32768.0), -32768, 32767).astype(np.int16)
     for fmt, pcm in (("flt", x), ("s16", ints)):
@@ -91,6 +131,14 @@ def test_parallel_mp3_is_the_jax_encoders_bytes(tmp_path):
         a, b = host_decode.decode_file(ser), host_decode.decode_file(par)
         assert a.num_samples == b.num_samples
         np.testing.assert_array_equal(a.data, b.data)
+        # One call, from a tensor (flt) or an array (s16), with progress.
+        one, jone = (str(tmp_path / f"{n}_{fmt}.mp3") for n in ("one", "jone"))
+        seen, jseen = [], []
+        encode.encode_mp3(one, torch.from_numpy(pcm) if fmt == "flt" else pcm,
+                          RATE, 192, fmt, progress=seen.append)
+        jencode.encode_mp3(jone, pcm, RATE, 192, fmt, progress=jseen.append)
+        assert open(one, "rb").read() == open(jone, "rb").read(), fmt
+        assert seen == jseen and seen[-1] == pcm.shape[1] / RATE
 
     short = _noise(1.2, seed=9)
     path = str(tmp_path / "short.mp3")

@@ -19,7 +19,8 @@ In one item (the bars of tests/test_resample.py:131-175):
   stream plan raise ``ProcessorRuntimeError``: no analytic bank in its
   place.
 
-The JAX package's codec runtime loads only inside the test's body.
+The JAX package's codec runtime loads only inside the test's body, whole
+(``test_torch_mp3.jax_codec_runtime``).
 """
 
 import os
@@ -41,6 +42,7 @@ from nodey_tpu_torch.ops import resample as tr
 from test_resample import COMPAT_PAIRS, multitone
 from test_torch_app import _cli, _project
 from test_torch_effects import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_mp3 import jax_codec_runtime
 
 SWR_DB = 90.0
 STREAM_TOL = 3e-7
@@ -55,6 +57,7 @@ def test_swr_banks_render_stream_and_export_as_the_jax_package(
         tmp_path, monkeypatch):
     if host_decode.load_native() is None:
         pytest.skip("the codec runtime does not build on this machine")
+    jax_codec_runtime(monkeypatch)
     monkeypatch.setenv("NODEY_RESAMPLE_COMPAT", "")
 
     for in_rate, out_rate in COMPAT_PAIRS:
